@@ -12,3 +12,8 @@ except ImportError:
     import _hypothesis_stub
 
     _hypothesis_stub.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
