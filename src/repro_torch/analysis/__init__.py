@@ -28,6 +28,7 @@ from repro_torch.analysis.providers import (  # noqa: F401
     CounterProvider,
     CounterSet,
     InstrumentedKernelProvider,
+    MicrobenchProvider,
     TraceProvider,
     get_provider,
     register_provider,
@@ -35,6 +36,10 @@ from repro_torch.analysis.providers import (  # noqa: F401
 from repro_torch.analysis.render import (  # noqa: F401
     rows_to_csv,
     union_fieldnames,
+)
+from repro_torch.analysis.sweep_cache import (  # noqa: F401
+    SweepCache,
+    default_cache_root,
 )
 from repro_torch.analysis.workload import KernelSource, WorkloadSpec  # noqa: F401
 from repro_torch.analysis.session import (  # noqa: F401

@@ -8,13 +8,15 @@ uniform ``repro_torch.core.counters.CounterSet``, so every downstream consumer
 (``profile_counters``, ``Session``, ``Session.validate``) is agnostic to
 where the numbers came from.
 
-Two providers ship in this slice of the port, registered under the
-names the ``Session`` constructor accepts:
+Three providers ship in the port so far, registered under the names
+the ``Session`` constructor accepts:
 
     ``trace``      — synthesize the committed index stream in numpy and
                      derive counters from it (the modeled path; default)
     ``kernel``     — run the instrumented Hopper kernel and read its
                      per-wave degrees back (the measured path)
+    ``microbench`` — trace counters plus a wall time priced by the
+                     calibrated timing model
 
 The registry mirrors the device registry: look up by name with
 ``get_provider`` (instances pass through), extend with

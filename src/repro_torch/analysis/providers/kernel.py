@@ -9,17 +9,22 @@ shared-memory atomics commit.
 The compute device is explicit: ``InstrumentedKernelProvider(torch_device)``
 launches on that device (the registered ``"kernel"`` instance uses
 ``"cuda"``; ``torch_device="cpu"`` runs the kernels' plain versions).
-The ``indices`` route, which runs a bare index stream through the
-instrumented scatter-add kernel (K6), comes with the scatter slice.
+
+``indices`` sources are routed through the instrumented scatter-add
+kernel (K6; the index stream becomes a unit-value scatter), so even
+synthetic streams can be cross-validated against in-kernel counters.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
+
 from repro_torch.analysis.providers.base import (collect_batch_fallback,
                                                  register_provider)
 from repro_torch.core.counters import CounterFrame, CounterSet
+from repro_torch.kernels.scatter_add import ops as scat_ops
 
 
 class InstrumentedKernelProvider:
@@ -48,11 +53,7 @@ class InstrumentedKernelProvider:
                 flops=spec.flops, overhead_cycles=spec.overhead_cycles,
                 source=self.name, meta={"op": spec.kernel.op})
         if spec.indices is not None:
-            raise NotImplementedError(
-                f"WorkloadSpec {spec.label!r}: the 'kernel' provider runs an "
-                f"index stream through the instrumented scatter-add kernel "
-                f"(K6), which comes with the port's scatter slice; collect "
-                f"it with the 'trace' provider")
+            return self._collect_indices(spec)
         if spec.run is not None:
             # custom lazy source: by contract it runs an instrumented
             # kernel and returns its trace
@@ -63,8 +64,38 @@ class InstrumentedKernelProvider:
                 overhead_cycles=spec.overhead_cycles, source=self.name)
         raise ValueError(
             f"WorkloadSpec {spec.label!r} has no runnable source — the "
-            f"'kernel' provider needs a kernel | run spec, not a "
-            f"pre-recorded trace")
+            f"'kernel' provider needs a kernel | indices | run spec, not "
+            f"a pre-recorded trace")
+
+    def _collect_indices(self, spec) -> CounterSet:
+        """Run a bare index stream through the instrumented scatter-add.
+
+        Geometry defaults mirror ``trace_from_indices`` (waves_per_tile 1)
+        so the 'trace' and 'kernel' providers agree bit-for-bit.  The
+        stream length must be a multiple of the kernel tile: a shorter
+        stream would be sentinel-padded by the launch, and the padding
+        waves would be *counted* — the measured N/e would then silently
+        diverge from the trace provider's (which models the raw stream),
+        turning every ``validate()`` into a false alarm.  Refuse instead.
+        """
+        idx = np.asarray(spec.indices).reshape(-1)
+        tile = scat_ops.sk.DEFAULT_TILE
+        if idx.size % tile != 0:
+            raise ValueError(
+                f"WorkloadSpec {spec.label!r}: the 'kernel' provider needs "
+                f"an index stream sized to a multiple of the scatter tile "
+                f"({tile}); got {idx.size}. Pad the stream, or use "
+                f"WorkloadSpec.from_scatter_add (both providers then share "
+                f"the kernel's own sentinel padding).")
+        return scat_ops.collect_counters(
+            idx, np.ones(idx.shape, np.float32), spec.num_bins,
+            label=spec.label, num_cores=spec.num_cores,
+            job_class=spec.job_class,
+            waves_per_tile=spec.waves_per_tile or 1,
+            pipeline_depth=spec.pipeline_depth or 2,
+            bytes_read=spec.bytes_read, flops=spec.flops,
+            overhead_cycles=spec.overhead_cycles,
+            torch_device=self.torch_device)
 
 
 register_provider(InstrumentedKernelProvider("cuda"))

@@ -16,7 +16,6 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.analysis.providers.base import register_provider
-from repro_torch.analysis.workload import unsupported_op
 from repro_torch.core import counters as counters_mod
 from repro_torch.core.counters import CounterFrame, CounterSet
 
@@ -112,8 +111,14 @@ class TraceProvider:
                 force_fao=p["force_fao"], weighted=p["weighted"])
             wpt = (spec.waves_per_tile
                    or hist_ops.default_waves_per_tile(p["img"]))
+        elif spec.kernel.op == "scatter_add":
+            from repro_torch.kernels.scatter_add import ops as scat_ops
+            stream = scat_ops.committed_id_stream(
+                p["ids"], p["num_segments"])
+            job_class = p["job_class"]
+            wpt = spec.waves_per_tile or scat_ops.default_waves_per_tile()
         else:
-            raise unsupported_op(spec.kernel.op)
+            raise ValueError(f"unknown kernel op {spec.kernel.op!r}")
         return stream, job_class, wpt
 
     def _synthesize(self, spec) -> counters_mod.WaveTrace:

@@ -19,17 +19,18 @@ verdicts:
 through several providers (modeled vs measured) and report per-counter
 relative errors and the utilization delta.
 
-This slice of the port leaves out the layers above and beside the
-pipeline (``advise``, ``audit``, ``lint``, ``heatmap``), the telemetry
-spans, and the persistent sweep cache; each comes with its own slice.
+The layers above and beside the pipeline (``advise``, ``audit``,
+``lint``, ``heatmap``) come with their own slices of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
 import threading
+import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -38,10 +39,31 @@ from repro_torch.analysis.device import Device, get_device
 from repro_torch.analysis.providers import (CounterProvider, get_provider,
                                       provider_collect_batch)
 from repro_torch.analysis.render import rows_to_csv
+from repro_torch.analysis.sweep_cache import SweepCache
 from repro_torch.analysis.workload import WorkloadSpec
 from repro_torch.core import bottleneck, profiler, qmodel
 from repro_torch.core import counters as counters_mod
 from repro_torch.core.counters import CounterFrame, CounterSet
+from repro_torch.obs import telemetry as _telemetry
+
+_SESSION_CALLS = _telemetry.counter(
+    "repro_session_calls_total", "Session entry-point invocations",
+    ("method",))
+_SESSION_SECONDS = _telemetry.histogram(
+    "repro_session_seconds", "Session entry-point latency", ("method",))
+_SESSION_POINTS = _telemetry.counter(
+    "repro_session_points_total", "Workload points analyzed")
+
+
+@contextlib.contextmanager
+def _observed(method: str, **attrs):
+    """Count + time + span one Session entry point (telemetry-gated)."""
+    _SESSION_CALLS.inc(method=method)
+    t0 = time.perf_counter()
+    with _telemetry.span(f"session.{method}", **attrs):
+        yield
+    _SESSION_SECONDS.observe(time.perf_counter() - t0, method=method)
+
 
 @dataclasses.dataclass
 class SweepResult:
@@ -255,12 +277,8 @@ class Session:
                  cache_dir=None, use_true_n: bool = False,
                  provider: Union[str, CounterProvider] = "trace",
                  shift_tol: float = bottleneck.SHIFT_TOL,
-                 persistent_cache=False,
+                 persistent_cache: Union[bool, str, SweepCache] = False,
                  ) -> None:
-        if persistent_cache:
-            raise NotImplementedError(
-                "the persistent sweep cache comes with the port's next "
-                "slice (its key must also hash the CUDA sources)")
         self.device = get_device(device)
         self.provider = get_provider(provider)
         self.table = table if table is not None \
@@ -271,11 +289,22 @@ class Session:
         # per-point memo for sweeps: (provider, fingerprint) -> CounterSet
         self._collect_memo: dict[tuple[str, str], CounterSet] = {}
         self._memo_lock = threading.Lock()
-        # collection accounting, consistent across the scalar and batch
-        # paths: points actually collected, points served from the
-        # in-process memo, and how many provider batch calls the collected
-        # points took (O(groups), not O(points))
-        self.stats = {"collected": 0, "memo_hits": 0, "batch_calls": 0}
+        # cross-process counter cache (results/torch/cache/): False = off,
+        # True = default root, or a path / SweepCache instance
+        if isinstance(persistent_cache, SweepCache):
+            self.sweep_cache: Optional[SweepCache] = persistent_cache
+        elif persistent_cache:
+            self.sweep_cache = SweepCache(
+                None if persistent_cache is True else persistent_cache)
+        else:
+            self.sweep_cache = None
+        # collection accounting, consistent across the scalar, batch, and
+        # persistent-cache paths: points actually collected, points served
+        # from the in-process memo / the on-disk sweep cache, and how many
+        # provider batch calls the collected points took (O(groups), not
+        # O(points))
+        self.stats = {"collected": 0, "memo_hits": 0, "disk_hits": 0,
+                      "batch_calls": 0}
 
     # -- the pipeline -----------------------------------------------------
 
@@ -292,7 +321,8 @@ class Session:
         A single point is just a one-row ``CounterFrame`` through the
         same columnar batch path sweeps use.
         """
-        self._last = self.analyze([spec])
+        with _observed("profile", label=spec.label):
+            self._last = self.analyze([spec])
         return self._last.profiles[0]
 
     def classify(self, spec: WorkloadSpec) -> bottleneck.BottleneckVerdict:
@@ -307,9 +337,11 @@ class Session:
 
         Two phases.  *Collection* runs the batch path
         (``collect_cached_batch``): points are partitioned into
-        in-process memo hits and one ``provider.collect_batch`` call per
-        remaining miss group — a warm sweep touches zero providers, a
-        cold one makes O(groups) provider calls instead of O(points).  ``parallel`` threads the loop fallback of providers
+        in-process memo hits, bulk on-disk ``SweepCache`` reads (when
+        ``persistent_cache`` is set), and one ``provider.collect_batch``
+        call per remaining miss group — a warm sweep touches zero
+        providers, a cold one makes O(groups) provider calls instead of
+        O(points).  ``parallel`` threads the loop fallback of providers
         with no vectorized batch.  *Model evaluation*: all points go
         through ``profiler.profile_batch`` as one columnar
         ``CounterFrame`` pass — the whole §3 queue model in whole-array
@@ -319,7 +351,9 @@ class Session:
         ``shards``/``shard_index`` turn the call into one shard of a
         distributed sweep: the grid is deterministically strided as
         ``specs[shard_index::shards]`` (every process slices the same
-        full grid the same way) and each shard runs independently.
+        full grid the same way), each shard runs independently, and
+        shards merge through the persistent ``SweepCache``: a follow-up
+        full-grid sweep assembles the complete result from cache hits.
         """
         specs = list(specs)
         if not specs:
@@ -335,7 +369,8 @@ class Session:
                 raise ValueError(
                     f"shard {shard_index}/{shards} owns no points — the "
                     f"grid is smaller than the shard count")
-        self._last = self.analyze(specs, parallel=parallel)
+        with _observed("sweep", points=len(specs)):
+            self._last = self.analyze(specs, parallel=parallel)
         return self._last
 
     def analyze(self, specs: Sequence[WorkloadSpec], *,
@@ -343,8 +378,9 @@ class Session:
         """``sweep``'s pipeline without touching session-wide report state.
 
         Collection and model evaluation exactly as ``sweep`` runs them
-        (memo + batch providers, then one columnar ``profile_batch`` pass
-        per core-count group), but the result is only *returned* —
+        (memo + persistent cache + batch providers, then one columnar
+        ``profile_batch`` pass per core-count group), but the result is
+        only *returned* —
         ``last``/``report()`` are untouched.  This is the entry point for
         concurrent callers sharing one session: the memo and stats are
         lock-protected, and with no ``_last`` mutation two jobs can run
@@ -353,8 +389,12 @@ class Session:
         specs = list(specs)
         if not specs:
             raise ValueError("analyze() needs at least one WorkloadSpec")
-        csets = self.collect_cached_batch(specs, parallel=parallel)
-        return self._as_result(specs, self._profile_batch(csets))
+        with _observed("analyze", points=len(specs)):
+            _SESSION_POINTS.inc(len(specs))
+            with _telemetry.span("session.collect", points=len(specs)):
+                csets = self.collect_cached_batch(specs, parallel=parallel)
+            with _telemetry.span("session.model", points=len(specs)):
+                return self._as_result(specs, self._profile_batch(csets))
 
     def speedup(self, before: WorkloadSpec, after: WorkloadSpec) -> float:
         """Predicted speedup of ``after`` over ``before``.
@@ -451,18 +491,19 @@ class Session:
     # -- building blocks for layered tools --------------------------------
 
     def collect_cached(self, spec: WorkloadSpec) -> CounterSet:
-        """``collect`` behind this session's memo.
+        """``collect`` behind this session's memo + persistent cache.
 
         The scalar face of ``collect_cached_batch`` (a batch of one):
         layered tools call this so their counter acquisition shares the
-        same in-process memo a ``sweep`` would use.
+        same in-process memo and on-disk ``SweepCache`` a ``sweep`` would
+        use.
         """
         return self.collect_cached_batch([spec])[0]
 
     def collect_cached_batch(self, specs: Sequence[WorkloadSpec], *,
                              parallel: Optional[int] = None,
                              ) -> list[CounterSet]:
-        """Batch cache resolution: memo -> providers.
+        """Batch cache resolution: memo -> bulk disk reads -> providers.
 
         The sweep engine's collection phase.  Per point, in order:
 
@@ -470,9 +511,11 @@ class Session:
            duplicates *within this batch* (later occurrences of a
            fingerprint count as memo hits, exactly as the sequential
            scalar path would see them);
-        2. one ``provider.collect_batch`` per ``num_cores`` group of the
+        2. bulk ``SweepCache.get_many`` for the remaining fingerprints
+           (when ``persistent_cache`` is set);
+        3. one ``provider.collect_batch`` per ``num_cores`` group of the
            still-missing specs (``CounterFrame`` rows are rectangular),
-           with write-back to the memo.
+           with bulk write-back to the memo and the disk cache.
 
         Specs whose content cannot be hashed (``fingerprint() is None``)
         bypass the caches and are collected point by point.  Hits are
@@ -506,22 +549,46 @@ class Session:
                 continue
             first_of_fp[fp] = i
             pending.append((i, fp))
+        # bulk disk reads for the memo misses
+        misses: list[tuple[int, str, Optional[str]]] = []
+        if pending and self.sweep_cache is not None:
+            disk_keys = {
+                i: self.sweep_cache.key(self.provider.name, fp,
+                                        self.device.table_key())
+                for i, fp in pending}
+            found = self.sweep_cache.get_many(disk_keys.values())
+            for i, fp in pending:
+                hit = found.get(disk_keys[i])
+                if hit is not None:
+                    with self._memo_lock:
+                        self.stats["disk_hits"] += 1
+                        self._collect_memo[(self.provider.name, fp)] = hit
+                    out[i] = dataclasses.replace(hit, label=specs[i].label)
+                else:
+                    misses.append((i, fp, disk_keys[i]))
+        else:
+            misses = [(i, fp, None) for i, fp in pending]
         # one provider batch per num_cores group (frames are rectangular)
         by_cores: dict[int, list] = {}
-        for item in pending:
+        for item in misses:
             by_cores.setdefault(specs[item[0]].num_cores, []).append(item)
         for items in by_cores.values():
-            group = [specs[i] for i, _ in items]
+            group = [specs[i] for i, _, _ in items]
             frame = provider_collect_batch(self.provider, group,
                                            self.device, parallel)
             with self._memo_lock:
                 self.stats["collected"] += len(group)
                 self.stats["batch_calls"] += 1
-            for row, (i, fp) in enumerate(items):
+            write_back = {}
+            for row, (i, fp, disk_key) in enumerate(items):
                 cset = frame.row(row)
                 with self._memo_lock:
                     self._collect_memo[(self.provider.name, fp)] = cset
+                if disk_key is not None:
+                    write_back[disk_key] = cset
                 out[i] = dataclasses.replace(cset, label=specs[i].label)
+            if write_back:
+                self.sweep_cache.put_many(write_back)
         # duplicates resolve off their batch-mate's now-filled slot
         for i, j in duplicates:
             out[i] = dataclasses.replace(out[j], label=specs[i].label)

@@ -18,9 +18,7 @@ instrumented Hopper kernel (``InstrumentedKernelProvider``) from one and
 the same spec — the model-vs-measured split the paper's validation (§5)
 needs.
 
-This slice of the port carries the histogram family: a ``scatter_add``
-kernel source raises ``NotImplementedError`` until the scatter slice, and
-compiled-step sources come with the static-audit slice.
+Compiled-step sources come with the port's static-audit slice.
 """
 
 from __future__ import annotations
@@ -36,15 +34,6 @@ from repro_torch.core import counters as counters_mod
 from repro_torch.core import timing
 
 
-def unsupported_op(op: str) -> Exception:
-    """The error for a kernel family this slice of the port lacks."""
-    if op == "scatter_add":
-        return NotImplementedError(
-            "scatter_add kernel sources need the scatter-add kernels "
-            "(K5-K7), which come with the port's scatter slice")
-    return ValueError(f"unknown kernel op {op!r}")
-
-
 def _host(value) -> np.ndarray:
     """Host copy of an array or tensor, for hashing."""
     if hasattr(value, "detach"):
@@ -56,9 +45,9 @@ def _host(value) -> np.ndarray:
 class KernelSource:
     """A described (not yet launched) instrumented-kernel source.
 
-    ``op`` names the kernel family (``"histogram"``; ``"scatter_add"``
-    arrives with the scatter slice); ``params`` holds its source-specific
-    arguments (image, variant, bins).  Launch geometry lives on the owning ``WorkloadSpec`` so
+    ``op`` names the kernel family (``"histogram"`` | ``"scatter_add"``);
+    ``params`` holds its source-specific arguments (image / ids / values /
+    bins).  Launch geometry lives on the owning ``WorkloadSpec`` so
     ``with_()`` derivations apply to the launch too.
     """
 
@@ -75,7 +64,7 @@ class WorkloadSpec:
     ``WaveTrace`` — the escape hatch for custom instrumented sources,
     kept lazy so building a sweep's spec list costs nothing until a
     provider collects it.  ``kernel`` is the declarative form the shipped
-    providers understand (see ``from_histogram``).
+    providers understand (see ``from_histogram`` / ``from_scatter_add``).
     """
 
     label: str
@@ -221,7 +210,16 @@ class WorkloadSpec:
                 pipeline_depth=self.pipeline_depth or 2,
                 torch_device=torch_device)
             return tr
-        raise unsupported_op(self.kernel.op)
+        if self.kernel.op == "scatter_add":
+            from repro_torch.kernels.scatter_add import ops as scat_ops
+            _, c = scat_ops.instrumented_scatter_add(
+                p["ids"], p["values"], p["num_segments"],
+                num_cores=self.num_cores, job_class=p["job_class"],
+                waves_per_tile=self.waves_per_tile,
+                pipeline_depth=self.pipeline_depth or 2,
+                torch_device=torch_device)
+            return c["trace"]
+        raise ValueError(f"unknown kernel op {self.kernel.op!r}")
 
     # -- constructors -----------------------------------------------------
 
@@ -263,11 +261,7 @@ class WorkloadSpec:
     @classmethod
     def from_scatter_add(cls, ids, values, num_segments: int, *, label: str,
                          job_class: int = timing.FAO, **kw) -> "WorkloadSpec":
-        """Instrumented scatter-add launch as the counter source.
-
-        The spec is data and builds here; collecting it raises
-        ``NotImplementedError`` until the scatter slice brings K5-K7.
-        """
+        """Instrumented scatter-add launch (K6) as the counter source."""
         spec_kw = dict(kw)
         spec_kw.setdefault("bytes_read", float(np.asarray(ids).size * 4))
         return cls(label=label,

@@ -3,9 +3,9 @@
 The system has no weights: its state is the service-time table S(n, e, c),
 the wave traces the counters come from, and the scatter-unit calibration.
 These functions rebuild the port's types from plain arrays and dicts, so
-a table or trace made by the reference (``np.savez`` arrays, or its
-dataclasses' fields) can be fed to the port — for instance to test the
-port's model code apart from its own table build:
+a table, trace or counter set made by the reference (``np.savez``
+arrays, or its dataclasses' fields) can be fed to the port — for
+instance to test the port's model code apart from its own table build:
 
     Session("v5e", table=table_from_numpy(np.load(path)))
 """
@@ -17,7 +17,7 @@ from typing import Mapping
 
 import numpy as np
 
-from repro_torch.core.counters import WaveTrace
+from repro_torch.core.counters import CounterSet, WaveTrace
 from repro_torch.core.qmodel import ServiceTimeTable
 from repro_torch.core.timing import ScatterUnitParams
 
@@ -60,6 +60,21 @@ def trace_from_numpy(arrays: Mapping) -> WaveTrace:
         pipeline_depth=int(arrays["pipeline_depth"])
         if "pipeline_depth" in arrays else 2,
     )
+
+
+def counter_set_from_numpy(arrays: Mapping) -> CounterSet:
+    """A ``CounterSet`` from its fields (e.g. ``dataclasses.asdict`` of the
+    reference's): ``label``, ``O``, ``N_f``, ``N_c``, ``N_p`` and, where
+    present, the scalar fields; absent ones keep their defaults."""
+    names = ("source", "num_cores", "lanes_active", "num_waves",
+             "waves_per_tile", "pipeline_depth", "bytes_read", "flops",
+             "ici_bytes", "overhead_cycles", "wall_time_s")
+    scalars = {k: arrays[k] for k in names if k in arrays}
+    return CounterSet(
+        label=str(arrays["label"]),
+        O=np.asarray(arrays["O"]), N_f=np.asarray(arrays["N_f"]),
+        N_c=np.asarray(arrays["N_c"]), N_p=np.asarray(arrays["N_p"]),
+        meta=dict(arrays.get("meta") or {}), **scalars)
 
 
 def scatter_params_from_dict(d: Mapping) -> ScatterUnitParams:

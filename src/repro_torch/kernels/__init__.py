@@ -1,2 +1,3 @@
-"""Hopper kernels: the histogram family (paper case study, K2-K4) and
-the conflict instrumentation they inline (K1)."""
+"""Hopper kernels: the histogram family (paper case study, K2-K4), the
+scatter-add family (K5-K7) and the conflict instrumentation both inline
+(K1)."""

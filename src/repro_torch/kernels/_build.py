@@ -98,3 +98,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
         return lib
+
+
+def bind(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
+    """``load(name)`` with each C entry point's argument types declared;
+    every entry point returns its ``cudaError_t`` as an int."""
+    lib = load(name)
+    for fn_name, args in argtypes.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def raise_on_error(err: int, kernel: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")

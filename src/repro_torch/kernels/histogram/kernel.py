@@ -53,12 +53,7 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("histogram")
-    for name, args in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("histogram", _ARGTYPES)
 
 
 def padded_length(n: int, tile: int) -> int:
@@ -170,11 +165,6 @@ def _check_cuda(img: torch.Tensor, num_bins: int, tile: int,
                          f"tensor on {img.device}")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def histogram_launch(
     img: torch.Tensor,
     *,
@@ -206,7 +196,7 @@ def histogram_launch(
         if weights is not None:
             out = torch.zeros((c, num_bins), dtype=torch.float32,
                               device=img.device)
-            _raise_on(lib.repro_hist_weighted(
+            _build.raise_on_error(lib.repro_hist_weighted(
                 img.data_ptr(), weights.data_ptr(), out.data_ptr(), n, c,
                 num_bins, tile, int(reorder), stream), "hist_weighted")
             LAUNCHES["hist_weighted"] += 1
@@ -216,13 +206,13 @@ def histogram_launch(
             n_pad = padded_length(n, tile)
             deg = torch.empty(n_pad * c // instr.LANES, dtype=torch.float32,
                               device=img.device)
-            _raise_on(lib.repro_hist_instrumented(
+            _build.raise_on_error(lib.repro_hist_instrumented(
                 img.data_ptr(), out.data_ptr(), deg.data_ptr(), n, n_pad, c,
                 num_bins, tile, int(reorder), stream), "hist_instrumented")
             LAUNCHES["hist_instrumented"] += 1
             return out, deg.reshape(-1, tile * c // instr.LANES)
-        _raise_on(lib.repro_hist(img.data_ptr(), out.data_ptr(), n, c,
-                                 num_bins, tile, int(reorder), stream),
-                  "hist")
+        _build.raise_on_error(lib.repro_hist(
+            img.data_ptr(), out.data_ptr(), n, c, num_bins, tile,
+            int(reorder), stream), "hist")
         LAUNCHES["hist"] += 1
         return out

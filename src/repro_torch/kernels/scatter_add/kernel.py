@@ -1,0 +1,223 @@
+"""Hopper scatter-add and bincount kernels (K5-K7), with plain versions.
+
+The production faces of the paper's hot spot: MoE token->expert dispatch
+counting (bincount), expert-output combine and embedding-gradient
+accumulation (scatter-add).  ``csrc/scatter_add.cu`` holds three kernels,
+each the counterpart of a Pallas kernel of
+``repro/kernels/scatter_add/kernel.py``:
+
+  * K5 ``scatter_add``: segment sums of (N, D) f32/bf16/f16 values by (N,)
+    int32 ids into (S, D) f32, through a shared-memory copy of the result
+    when it fits ``SHARED_BUDGET`` and with global atomics otherwise
+    (``scatter_route``),
+  * K6 ``scatter_add_instrumented``: K5 on a committed id stream, plus the
+    stream's per-wave degrees (K1, ``csrc/wave_degrees.cuh``),
+  * K7 ``bincount``: int32 occurrence counts, S <= 8192.
+
+Each launcher runs its kernel for a CUDA tensor and the plain torch
+version for a CPU tensor; it never falls back from one to the other.  All
+keep the Pallas kernels' drop rule: an id outside [0, S), negative or not,
+adds nothing.  Unlike the Pallas launchers they take N unpadded: the
+kernels stop at the last row themselves.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import instrumentation as instr
+
+DEFAULT_TILE = 2048
+DEFAULT_SEG_BLOCK = 4096
+MAX_BINCOUNT_SEGMENTS = 8192
+# the shared route's per-block budget: two such blocks share one SM's
+# 227 KB of shared memory
+SHARED_BUDGET = 96 * 1024
+VALUE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# kernel launches since the last reset_launches(), by kernel
+LAUNCHES = {"scatter_add": 0, "scatter_add_instrumented": 0, "bincount": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "repro_scatter_add": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_scatter_add_instrumented": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P],
+    "repro_bincount": [_P, _P, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return _build.bind("scatter_add", _ARGTYPES)
+
+
+def scatter_route(num_segments: int, d: int) -> str:
+    """``"shared"`` when the (S, D) f32 result fits one block's shared
+    budget, else ``"global"``."""
+    return "shared" if num_segments * d * 4 <= SHARED_BUDGET else "global"
+
+
+def check_segment_blocking(num_segments: int, seg_block: int) -> None:
+    """The reference's refusal: a segment axis wider than one block must
+    be a whole number of blocks (``scatter_add_pallas``)."""
+    if not (num_segments % seg_block == 0 or num_segments < seg_block):
+        raise ValueError(f"{num_segments} segments is not a whole number of "
+                         f"{seg_block}-segment blocks")
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path, and the kernels' yardstick on the card)
+# ---------------------------------------------------------------------------
+
+
+def _kept(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    return (ids >= 0) & (ids < num_segments)
+
+
+def scatter_add_plain(values: torch.Tensor, ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """(S, D) sums of ``values`` rows by id, accumulated in f64, returned
+    f32; out-of-range ids drop."""
+    keep = _kept(ids, num_segments)
+    out = torch.zeros((num_segments, values.shape[1]), dtype=torch.float64,
+                      device=values.device)
+    out.index_add_(0, ids[keep].to(torch.int64),
+                   values[keep].to(torch.float64))
+    return out.to(torch.float32)
+
+
+def bincount_plain(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(S,) int32 counts; out-of-range ids drop."""
+    kept = ids[_kept(ids, num_segments)].to(torch.int64)
+    return torch.bincount(kept, minlength=num_segments).to(torch.int32)
+
+
+def scatter_add_instrumented_plain(values: torch.Tensor, ids: torch.Tensor,
+                                   num_segments: int):
+    """Plain K6: sums of the rows ``values`` has, degrees of the whole
+    committed stream ``ids``."""
+    return (scatter_add_plain(values, ids[:values.shape[0]], num_segments),
+            instr.wave_degrees_plain(ids))
+
+
+# ---------------------------------------------------------------------------
+# The launchers
+# ---------------------------------------------------------------------------
+
+
+def _check_ids(ids: torch.Tensor, device: torch.device) -> None:
+    if (ids.dtype != torch.int32 or ids.dim() != 1
+            or not ids.is_contiguous() or ids.device != device):
+        raise ValueError(f"ids must be a contiguous 1-D int32 tensor on "
+                         f"{device}, got {tuple(ids.shape)} {ids.dtype} on "
+                         f"{ids.device}")
+    if ids.numel() >= 2 ** 31:
+        raise ValueError(f"{ids.numel()} ids overflow int32 indexing")
+
+
+def _check_values(values: torch.Tensor, num_segments: int,
+                  dtypes) -> None:
+    if (values.dim() != 2 or not values.is_contiguous()
+            or values.dtype not in dtypes):
+        raise ValueError(f"values must be a contiguous (N, D) tensor of "
+                         f"{sorted(map(str, dtypes))}, got "
+                         f"{tuple(values.shape)} {values.dtype}")
+    if values.numel() >= 2 ** 31 or num_segments * values.shape[1] >= 2 ** 31:
+        raise ValueError(f"{tuple(values.shape)} values into {num_segments} "
+                         f"segments overflow int32 indexing")
+    if num_segments < 0:
+        raise ValueError(f"negative segment count {num_segments}")
+
+
+def _on_card(t: torch.Tensor, kernel: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {t.device}")
+    return True
+
+
+def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """K5: (S, D) f32 segment sums of (N, D) ``values`` by (N,) ``ids``."""
+    if not _on_card(values, "scatter_add"):
+        return scatter_add_plain(values, ids, num_segments)
+    _check_values(values, num_segments, VALUE_DTYPES)
+    _check_ids(ids, values.device)
+    n, d = values.shape
+    if ids.shape[0] != n:
+        raise ValueError(f"{ids.shape[0]} ids for {n} value rows")
+    shared = scatter_route(num_segments, d) == "shared"
+    out = torch.zeros((num_segments, d), dtype=torch.float32,
+                      device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.raise_on_error(_lib().repro_scatter_add(
+            values.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d,
+            num_segments, VALUE_DTYPES[values.dtype], int(shared), stream),
+            "scatter_add")
+    LAUNCHES["scatter_add"] += 1
+    return out
+
+
+def scatter_add_instrumented_launch(values: torch.Tensor, ids: torch.Tensor,
+                                    num_segments: int):
+    """K6 on a committed id stream.
+
+    ``ids`` is a whole number of 1024-id waves, at least as long as
+    ``values`` (N, D) f32 has rows; the ids past row N are padding.
+    Returns the (S, D) f32 sums of the N rows and the stream's per-wave
+    degrees, (len(ids) / 1024,) f32.
+    """
+    if ids.numel() % instr.LANES or ids.numel() < values.shape[0]:
+        raise ValueError(f"a committed stream of {ids.numel()} ids is not a "
+                         f"whole number of {instr.LANES}-id waves covering "
+                         f"{values.shape[0]} value rows")
+    if not _on_card(values, "scatter_add_instrumented"):
+        return scatter_add_instrumented_plain(values, ids, num_segments)
+    _check_values(values, num_segments, {torch.float32: 0})
+    _check_ids(ids, values.device)
+    n, d = values.shape
+    n_pad = ids.numel()
+    shared = scatter_route(num_segments, d) == "shared"
+    out = torch.zeros((num_segments, d), dtype=torch.float32,
+                      device=values.device)
+    deg = torch.empty(n_pad // instr.LANES, dtype=torch.float32,
+                      device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.raise_on_error(_lib().repro_scatter_add_instrumented(
+            values.data_ptr(), ids.data_ptr(), out.data_ptr(), deg.data_ptr(),
+            n, n_pad, d, num_segments, int(shared), stream),
+            "scatter_add_instrumented")
+    LAUNCHES["scatter_add_instrumented"] += 1
+    return out, deg
+
+
+def bincount_launch(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K7: (S,) int32 occurrence counts of (N,) ``ids``, S <= 8192."""
+    if not 0 <= num_segments <= MAX_BINCOUNT_SEGMENTS:
+        raise ValueError(f"bincount takes at most {MAX_BINCOUNT_SEGMENTS} "
+                         f"segments, got {num_segments}; use scatter_add")
+    if not _on_card(ids, "bincount"):
+        return bincount_plain(ids, num_segments)
+    _check_ids(ids, ids.device)
+    out = torch.zeros(num_segments, dtype=torch.int32, device=ids.device)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.raise_on_error(_lib().repro_bincount(
+            ids.data_ptr(), out.data_ptr(), ids.numel(), num_segments,
+            stream), "bincount")
+    LAUNCHES["bincount"] += 1
+    return out

@@ -45,7 +45,9 @@ def test_port_sources_import_neither_jax_nor_reference():
 
 def test_importing_the_port_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.analysis, "
-            "repro_torch.kernels.histogram.ops, repro_torch.convert\n"
+            "repro_torch.kernels.histogram.ops, repro_torch.convert, "
+            "repro_torch.kernels.scatter_add.ops, "
+            "repro_torch.analysis.sweep_cache, repro_torch.obs.telemetry\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -63,9 +65,12 @@ def test_default_device_raises_without_a_card():
     from repro_torch.core import microbench
     from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.histogram import ops
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.kernels.scatter_add import ops as scatter_ops
 
     img = np.full((256, 4), 3, np.int32)
-    before = dict(hk.LAUNCHES)
+    ids = np.zeros(2048, np.int32)
+    before = dict(hk.LAUNCHES), dict(sk.LAUNCHES)
     with pytest.raises((RuntimeError, AssertionError)):
         ops.histogram(img)
     with pytest.raises((RuntimeError, AssertionError)):
@@ -73,4 +78,14 @@ def test_default_device_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         Session("v5e", table=microbench.build_table()).collect(
             WorkloadSpec.from_histogram(img, label="x"), provider="kernel")
-    assert hk.LAUNCHES == before
+    with pytest.raises((RuntimeError, AssertionError)):
+        scatter_ops.scatter_add(np.ones((2048, 2), np.float32), ids,
+                                num_segments=16)
+    with pytest.raises((RuntimeError, AssertionError)):
+        scatter_ops.bincount(ids, num_segments=16)
+    with pytest.raises((RuntimeError, AssertionError)):
+        microbench.build_table(mode="kernel", kernel_validation_points=1)
+    with pytest.raises((RuntimeError, AssertionError)):
+        Session("v5e", table=microbench.build_table()).collect(
+            WorkloadSpec.from_indices(ids, 16, label="i"), provider="kernel")
+    assert (hk.LAUNCHES, sk.LAUNCHES) == before

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K7) against their plain versions, on the card.
 
 A CUDA kernel has no CPU mode, so every case here is marked ``cuda`` and
 skips where there is no card.  The file imports neither ``jax`` nor the
@@ -6,8 +6,8 @@ reference package, so it runs on the machine with the card as it is:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Counts and degrees must be bit-equal; K4's f32 sums are held at rtol/atol
-1e-5 to the plain version's f64 sums, because shared-memory float atomics
+Counts and degrees must be bit-equal; K4's and K5/K6's f32 sums are held
+at rtol/atol 1e-5 to the plain versions' f64 sums, because float atomics
 add in a different order on every run.
 """
 
@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from repro_torch.analysis import Session, WorkloadSpec
-from repro_torch.core import counters
+from repro_torch.core import counters, microbench
 from repro_torch.data.images import make_image
 from repro_torch.kernels.histogram import kernel as hk
 from repro_torch.kernels.histogram import ops
+from repro_torch.kernels.scatter_add import kernel as sk
+from repro_torch.kernels.scatter_add import ops as scatter_ops
 
 
 @pytest.fixture
@@ -98,3 +100,97 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="weights"):
         hk.histogram_launch(img, weights=torch.ones(64, device=cuda,
                                                     dtype=torch.float64))
+
+
+def _ids(kind, n, s, seed=4):
+    """Solid (one hot segment) or uniform ids, with out-of-range ones."""
+    rng = np.random.default_rng(seed)
+    ids = (np.full(n, s // 2) if kind == "solid"
+           else rng.integers(0, s, n)).astype(np.int32)
+    ids[rng.integers(0, n, max(n // 100, 1))] = -1
+    ids[rng.integers(0, n, max(n // 100, 1))] = s
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,s,dtype", [
+    (1000, 8, 64, torch.float32), (5000, 16, 128, torch.float32),
+    (2048, 8, 64, torch.float16), (3000, 8, 16384, torch.float32),
+    (1 << 16, 1, 4096, torch.float32), (4096, 64, 1024, torch.bfloat16)])
+@pytest.mark.parametrize("kind", ["solid", "uniform"])
+def test_scatter_kernels_match_plain(cuda, n, d, s, dtype, kind):
+    ids_np = _ids(kind, n, s)
+    ids = torch.as_tensor(ids_np, device=cuda)
+    vals = torch.as_tensor(np.random.default_rng(5).random((n, d)),
+                           device=cuda).to(dtype)
+    before = dict(sk.LAUNCHES)
+    got = sk.scatter_add_launch(vals, ids, s)
+    stream = torch.as_tensor(scatter_ops.committed_id_stream(ids_np, s),
+                             device=cuda)
+    k6_out, k6_deg = sk.scatter_add_instrumented_launch(vals.float(), stream,
+                                                        s)
+    counts = sk.bincount_launch(ids, min(s, sk.MAX_BINCOUNT_SEGMENTS))
+    torch.cuda.synchronize()
+    assert all(sk.LAUNCHES[k] == before[k] + 1 for k in before)
+    plain = sk.scatter_add_plain(vals, ids, s)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    p_out, p_deg = sk.scatter_add_instrumented_plain(vals.float(), stream, s)
+    torch.testing.assert_close(k6_out, p_out, rtol=1e-5, atol=1e-5)
+    assert torch.equal(k6_deg, p_deg)
+    np.testing.assert_array_equal(
+        k6_deg.cpu().numpy().astype(np.float64),
+        counters._degrees_full_waves(stream.cpu().numpy().reshape(-1, 1024),
+                                     32))
+    assert torch.equal(counts, sk.bincount_plain(
+        ids, min(s, sk.MAX_BINCOUNT_SEGMENTS)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(1, 2), (65536, 128), (70001, 8192)])
+def test_bincount_kernel_bitwise(cuda, n, s):
+    ids = torch.as_tensor(_ids("uniform", n, s), device=cuda)
+    assert torch.equal(sk.bincount_launch(ids, s), sk.bincount_plain(ids, s))
+
+
+@pytest.mark.cuda
+def test_solid_stream_degrees_and_tool1(cuda):
+    ids = np.zeros(1 << 16, np.int32)
+    _, c = scatter_ops.instrumented_scatter_add(ids, np.ones(ids.size), 4096)
+    assert c["degree"].mean() == 32.0
+    table = microbench.build_table(mode="kernel", kernel_validation_points=8)
+    for rec in table.meta["kernel_validation"]:
+        assert rec["e_rel_err"] < 0.05, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", ["balanced", "collapsed"])
+def test_scatter_kernel_provider_validates_exactly(cuda, skew, tmp_path):
+    rng = np.random.default_rng(0)
+    ids = (rng.integers(0, 128, 1 << 16) if skew == "balanced"
+           else np.zeros(1 << 16)).astype(np.int32)
+    sess = Session("v5e", cache_dir=tmp_path)
+    for spec in (WorkloadSpec.from_scatter_add(
+            ids, np.ones((ids.size, 1), np.float32), 128, label=skew,
+            waves_per_tile=32),
+            WorkloadSpec.from_indices(ids, 128, label=skew)):
+        report = sess.validate(spec, ("trace", "kernel"))
+        assert report.max_rel_err == 0.0
+        assert [c.batch_bitwise_equal for c in report.comparisons] == \
+            [True, True]
+
+
+@pytest.mark.cuda
+def test_scatter_kernels_refuse_what_they_cannot_take(cuda):
+    ids = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="values"):
+        sk.scatter_add_launch(torch.ones((64, 2), dtype=torch.float64,
+                                         device=cuda), ids, 8)
+    with pytest.raises(ValueError, match="ids"):
+        sk.scatter_add_launch(torch.ones((64, 2), device=cuda),
+                              ids.to(torch.int64), 8)
+    with pytest.raises(ValueError, match="values"):
+        sk.scatter_add_instrumented_launch(
+            torch.ones((64, 2), dtype=torch.float16, device=cuda),
+            torch.zeros(1024, dtype=torch.int32, device=cuda), 8)
+    with pytest.raises(ValueError, match="8192"):
+        sk.bincount_launch(ids, 8193)

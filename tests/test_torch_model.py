@@ -1,7 +1,7 @@
 """The port's host-side model against the reference, on the same inputs.
 
 ``repro_torch.core`` is a numpy copy of ``repro.core``: counters, the
-queue model, the bottleneck verdicts and Tool 1's analytic table build.
+queue model, the bottleneck verdicts and Tool 1's table build.
 Integer and degree results must be bit-identical; the model's floats are
 held to rtol 1e-9, the batch-vs-loop bound of ``tests/test_profile_batch``.
 """
@@ -83,9 +83,19 @@ def test_analytic_build_table_equals_reference(tables):
     assert got.meta == want.meta
 
 
-def test_kernel_mode_table_build_waits_for_scatter_slice():
-    with pytest.raises(NotImplementedError, match="scatter"):
-        microbench.build_table(mode="kernel")
+def test_kernel_mode_table_build_waits_for_scatter_slice(tables):
+    """The scatter slice has landed: the kernel-mode build runs K6's plain
+    version here, and its table and meta equal the reference's."""
+    want = ref_microbench.build_table(mode="kernel",
+                                      kernel_validation_points=2, seed=3)
+    got = microbench.build_table(mode="kernel", kernel_validation_points=2,
+                                 seed=3, torch_device="cpu")
+    for f in ("n_grid", "e_grid", "cfrac_grid", "T", "popc_T"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(tables[1], f))
+    assert got.meta == want.meta
+    assert got.meta["mode"] == "kernel"
+    with pytest.raises(ValueError, match="unknown build_table mode"):
+        microbench.build_table(mode="wallclock")
 
 
 def test_table_interpolator_matches(tables):

@@ -18,7 +18,7 @@ from repro.analysis import device as ref_device
 from repro.core.profiler import CacheModel as RefCacheModel
 from repro.data.images import make_image
 from repro_torch import convert
-from repro_torch.analysis import Session, WorkloadSpec
+from repro_torch.analysis import KernelSource, Session, WorkloadSpec
 from repro_torch.analysis import device as device_mod
 from repro_torch.analysis.providers import InstrumentedKernelProvider
 from repro_torch.core.profiler import CacheModel
@@ -131,16 +131,25 @@ def test_port_table_cache_is_its_own(tmp_path, monkeypatch):
 
 
 def test_later_slices_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="sweep cache"):
-        Session("v5e", cache_dir=tmp_path, persistent_cache=True)
-    sess = Session("v5e", cache_dir=tmp_path,
-                   provider=InstrumentedKernelProvider(torch_device="cpu"))
+    """What slice 1 left raising now runs (the persistent cache, scatter
+    kernel sources through both providers, the kernel provider's indices
+    route); a kernel family no slice has brought still raises."""
+    sess = Session("v5e", cache_dir=tmp_path / "t",
+                   provider=InstrumentedKernelProvider(torch_device="cpu"),
+                   persistent_cache=tmp_path / "cache")
     ids = np.zeros(2048, np.int32)
     scatter = WorkloadSpec.from_scatter_add(
         ids, np.ones(2048, np.float32), 256, label="scatter")
-    with pytest.raises(NotImplementedError, match="scatter slice"):
-        sess.collect(scatter)
-    with pytest.raises(NotImplementedError, match="scatter slice"):
-        sess.collect(scatter, provider="trace")
-    with pytest.raises(NotImplementedError, match="scatter slice"):
-        sess.collect(WorkloadSpec.from_indices(ids, 256, label="idx"))
+    indices = WorkloadSpec.from_indices(ids, 256, label="idx")
+    for spec in (scatter, indices):
+        kernel, trace = sess.collect(spec), sess.collect(spec, "trace")
+        assert kernel.e == trace.e == 32.0
+        assert kernel.total_jobs == trace.total_jobs == 2
+    sess.sweep([scatter, indices])
+    assert len(sess.sweep_cache) == 2
+    flash = WorkloadSpec(label="flash", kernel=KernelSource(
+        op="flash_attention"))
+    with pytest.raises(ValueError, match="unknown kernel op"):
+        sess.collect(flash)
+    with pytest.raises(ValueError, match="unknown kernel op"):
+        sess.collect(flash, provider="trace")
