@@ -6,20 +6,25 @@ from the root of a checkout, on a machine with an NVIDIA GPU, PyTorch
 built for CUDA and the CUDA toolkit (``nvcc``).  The port's kernels
 (``src/repro_torch/kernels/csrc``) are built from the checkout first.
 
-Two paths, each run through the port's ``Session`` and its ``"kernel"``
+Three paths.  Two run through the port's ``Session`` and its ``"kernel"``
 provider: the paper's §5 histogram case study (K1-K4), and the scatter-add
 path (K5-K7): Tool 1's kernel mode, the MoE dispatch streams of
 ``benchmarks/run.py``, the ``indices`` route and the persistent sweep
-cache.  Phases, each of which must pass:
+cache.  The third serves a dense LM: qwen2-72b at its published widths,
+with the depth cut to what one card holds, through ``make_prefill`` (each
+layer's attention in K8, flash attention) and ``generate``.  Phases,
+each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
    and list the atomics each compiled to;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at padded and odd shapes;
+   main paths' shapes and at padded and odd shapes (K8 also at the
+   reference test's shapes, blocks and bounds, before any model is on the
+   card);
 3. drive each main path with every launch count set to 0 just before it
    and read just after: the histogram path as ``examples/quickstart.py``
-   and ``repro compare`` run it, then the scatter path;
+   and ``repro compare`` run it, then the scatter path, then serving;
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take.
 
@@ -31,6 +36,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -61,10 +67,36 @@ SCATTER_SEGMENTS = 4096
 DISPATCH_TOKENS, EXPERTS = 1 << 16, 128
 COMBINE_TOKENS, TOP_K, D_MODEL = 4096, 8, 4096
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bandwidth, and the f32 rate
-# outside the tensor cores, which bounds the kernels' adds
+# the serving path: qwen2-72b at its published widths, prefill of 4
+# prompts of 2048 tokens, then 16 prompt tokens replayed and 16 generated
+SERVE_ARCH = "qwen2-72b"
+PREFILL_B, PREFILL_T = 4, 2048
+PADDED_T = 2000                      # not a whole 128-block: attend pads
+DECODE_PROMPT, DECODE_GEN = 16, 16
+F32_CHECK_LAYERS, F32_CHECK_B, F32_CHECK_T = 2, 2, 80
+# qwen2-72b layers served on one card: 36 of 80 (the rest stand for
+# further pipeline stages); serving_reckoning() checks that they fit
+SERVE_LAYERS = 36
+MEMORY_MARGIN = 2 << 30              # allocator slack beside the reckoning
+FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
+FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
+# bf16 beyond the reference test's T = 64, where a typical output is small
+# (about 0.03 at T = 2048) and 3e-2 would pass nearly anything: each
+# element within FLASH_BF16_RTOL |out| (two bf16 ulps, for the two output
+# roundings) plus FLASH_BF16_P_TOL sum_j p_j |v_j| (twice the worst error
+# of rounding P to bf16 for the P V product), and the mean |err|, over all
+# rows and over the later half, at most FLASH_BF16_MEAN of the mean |out|
+FLASH_BF16_RTOL = 1.6e-2
+FLASH_BF16_P_TOL = 2.0 ** -8
+FLASH_BF16_MEAN = 2.0 ** -8
+DECODE_TOL = 2e-2                    # tests/test_models_decode.py
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bandwidth, the f32 rate
+# outside the tensor cores, which bounds the atomic kernels' adds, and the
+# dense bf16 tensor-core rate, which bounds K8
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # which Pallas kernel of the reference each CUDA kernel replaces
 KERNELS = {
@@ -80,9 +112,12 @@ KERNELS = {
                                  "src/repro/kernels/scatter_add/kernel.py:72"),
     "bincount": ("src/repro_torch/kernels/csrc/scatter_add.cu",
                  "src/repro/kernels/scatter_add/kernel.py:60"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:27"),
 }
 HIST_KERNELS = ("hist", "hist_instrumented", "hist_weighted")
 SCATTER_KERNELS = ("scatter_add", "scatter_add_instrumented", "bincount")
+SERVE_KERNELS = ("flash_attention",)
 
 
 def log(msg: str) -> None:
@@ -108,8 +143,9 @@ def card_line() -> str:
 
 
 def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
-    """Atomic, reduction and match opcodes per kernel instantiation in
-    the SASS (shared-memory ``ATOMS``, global ``ATOMG``/``RED``)."""
+    """Atomic, reduction, match and tensor-core opcodes per kernel
+    instantiation in the SASS (shared-memory ``ATOMS``, global
+    ``ATOMG``/``RED``, ``HMMA``)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True,
@@ -123,7 +159,7 @@ def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
         elif func:
             words = line.split(";")[0].split("*/")[-1].split()
             op = next((w for w in words if not w.startswith("@")), "")
-            if op.startswith(("ATOM", "RED", "MATCH")):
+            if op.startswith(("ATOM", "RED", "MATCH", "HMMA")):
                 found[func].add(op)
     return {_template_args(f): sorted(ops) for f, ops in found.items()}
 
@@ -139,6 +175,9 @@ def _template_args(mangled: str) -> str:
     ``bincount_kernel`` from a mangled name."""
     m = re.search(r"(hist_kernel|scatter_kernel|bincount_kernel)(I?)",
                   mangled)
+    flash = re.search(r"(flash_(?:f32|bf16)_kernel)ILi(\d+)E", mangled)
+    if flash:
+        return f"{flash.group(1)}<{flash.group(2)}>"
     if m is None:
         return mangled
     name, rest = m.group(1), mangled[m.end():]
@@ -355,6 +394,125 @@ def check_scatter_kernels(dev) -> dict[str, float]:
         k7(f"odd {n} -> {segments} with strays",
            torch.as_tensor(ids_np, device=dev), segments)
     return err
+
+
+def flash_case(b, h, kv, t, d, dtype, dev, seed=0):
+    """Seeded normal q (B, H, T, d) and k, v (B, KV, T, d) on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, h, t, d), (b, kv, t, d), (b, kv, t, d))]
+
+
+def check_flash_kernel(dev) -> dict[str, float]:
+    """K8 against ``ref.attention_ref`` (per batch entry, K/V expanded for
+    GQA) and its plain version, within the reference test's bounds: 2e-4
+    in f32, 3e-2 in bf16 at its T = 64; bf16 at longer T is held to a
+    bound scaled to the output (``scaled_bf16_check``).  Returns max
+    |err| over every case."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    worst = 0.0
+
+    def check(case, q, k, v, causal, bq=128, bkv=128):
+        """(B, H, T, d) q, (B, KV, T, d) k/v; B = 1 goes through the
+        reference's unbatched (H, T, d) layout."""
+        nonlocal worst
+        group = q.shape[1] // k.shape[1]
+        kw = dict(causal=causal, bq=bq, bkv=bkv, group=group,
+                  torch_device=dev)
+        got = (ops.flash_attention(q[0], k[0], v[0], **kw)[None]
+               if q.shape[0] == 1 else ops.flash_attention(q, k, v, **kw))
+        torch.cuda.synchronize()
+        scaled = q.dtype == torch.bfloat16 and q.shape[2] > 64
+        tol = FLASH_F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
+        plain = fk.attention_plain(q, k, v, causal=causal, group=group)
+        if scaled:
+            bound_txt = scaled_bf16_check(got, plain, q, k, v, causal,
+                                          group, case)
+        else:
+            torch.testing.assert_close(got.float(), plain.float(), rtol=tol,
+                                       atol=tol, msg=f"K8 vs plain, {case}")
+            bound_txt = f"bound {tol}"
+        err = _abs_err(got, plain)
+        if q.shape[2] <= 256:                # the oracle, entry by entry
+            ke, ve = (x.repeat_interleave(group, dim=1) for x in (k, v))
+            for i in range(q.shape[0]):
+                want = ref.attention_ref(q[i], ke[i], ve[i], causal)
+                if scaled:
+                    scaled_bf16_check(got[i:i + 1], want[None], q[i:i + 1],
+                                      k[i:i + 1], v[i:i + 1], causal, group,
+                                      f"{case} vs attention_ref")
+                else:
+                    torch.testing.assert_close(
+                        got[i].float(), want.float(), rtol=tol, atol=tol,
+                        msg=f"K8 vs attention_ref, {case}")
+                err = max(err, _abs_err(got[i], want))
+        worst = max(worst, err)
+        log(f"  K8 {case}: max |err| {err:.3g}; {bound_txt}")
+
+    for h, t, d in ((2, 64, 32), (4, 128, 64), (1, 256, 16)):
+        q, k, v = flash_case(1, h, h, t, d, torch.float32, dev)
+        for causal in (True, False):
+            check(f"({h}, {t}, {d}) f32 causal={causal} bq=bkv=32", q, k, v,
+                  causal, 32, 32)
+    q, k, v = flash_case(1, 2, 2, 64, 32, torch.float32, dev, seed=1)
+    for bq, bkv in ((16, 64), (64, 16), (32, 32)):
+        check(f"(2, 64, 32) f32 bq={bq} bkv={bkv}", q, k, v, True, bq, bkv)
+    check("(2, 2, 64, 32) bf16 batched", *flash_case(
+        2, 2, 2, 64, 32, torch.bfloat16, dev, seed=2), True, 32, 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            check(f"GQA group 8 (2, 64/8, 256, 128) {str(dtype)[6:]} "
+                  f"causal={causal}", *flash_case(2, 64, 8, 256, 128, dtype,
+                                                  dev, seed=3), causal)
+    # the serving path's prefill shape; the plain version's f32 scores take
+    # 4.3 GB, so this runs before any model is on the card
+    cfg = _serve_config()
+    check(f"prefill ({PREFILL_B}, {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"{PREFILL_T}, {cfg.head_dim}) bf16 causal",
+          *flash_case(PREFILL_B, cfg.num_heads, cfg.num_kv_heads, PREFILL_T,
+                      cfg.head_dim, torch.bfloat16, dev, seed=4), True)
+    torch.cuda.empty_cache()
+    return {"flash_attention": worst}
+
+
+def scaled_bf16_check(got, want, q, k, v, causal, group, case) -> str:
+    """Holds bf16 K8 output ``got`` to ``want`` elementwise within
+    FLASH_BF16_RTOL |want| + FLASH_BF16_P_TOL (P |V|), P |V| being the
+    attention of the same scores over |v|, and in the mean within
+    FLASH_BF16_MEAN of the mean |want|, over all rows and over the later
+    half; returns the measured numbers as text."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    t = q.shape[2]
+    err = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    p_abs_v = fk.attention_plain(q.float(), k.float(), v.float().abs(),
+                                 causal=causal, group=group)
+    slack = FLASH_BF16_RTOL * mag + FLASH_BF16_P_TOL * p_abs_v
+    used = float((err / slack).max())
+    del p_abs_v, slack
+    _require(used <= 1.0, f"K8 vs plain, {case}: an element uses {used:.3g} "
+                          f"of its bound")
+    means = {}
+    for part, rows in (("all", slice(None)), ("later half", slice(t // 2,
+                                                                  None))):
+        e, m = float(err[:, :, rows].mean()), float(mag[:, :, rows].mean())
+        _require(e <= FLASH_BF16_MEAN * m,
+                 f"K8 vs plain, {case}: mean |err| {e} over {part} rows > "
+                 f"{FLASH_BF16_MEAN} x mean |out| {m}")
+        means[part] = (e, m)
+    return (f"at most {used:.3g} of the bound {FLASH_BF16_RTOL} |out| + "
+            f"2^-8 P|V| on any element; mean |err| / mean |out| "
+            + ", ".join(f"{part} {e:.3g} / {m:.3g}"
+                        for part, (e, m) in means.items())
+            + f" (bound {FLASH_BF16_MEAN:.3g})")
 
 
 def _abs_err(a, b) -> float:
@@ -606,6 +764,295 @@ def scatter_path(dev, provider, cache_dir, tables_dir) -> dict[str, float]:
     return seconds
 
 
+def _serve_config(num_layers=None, dtype=None):
+    """qwen2-72b with every width as published; depth and dtype as given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    return dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers,
+                               dtype=dtype or cfg.dtype)
+
+
+def serving_reckoning(dev, n: int) -> dict:
+    """The bytes a bf16 qwen2-72b of ``n`` layers holds at its peak in a
+    prefill of PREFILL_B x PREFILL_T tokens, against the card's free
+    memory.  The peak is the head: the weights, the bf16 logits and their
+    f32 copy, and the last hidden state; the empty cache prefill makes is
+    counted too, though it comes after the bf16 logits are freed.  A
+    layer's own activations (about 2 GB at 8192 tokens) are freed before
+    the head runs."""
+    import torch
+    cfg = _serve_config()
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    # bf16 bytes of one layer (projections, QKV bias, MLP, two norms), of
+    # its share of the empty cache, of the embedding, head and final norm
+    layer = (d * (q + 2 * kv) + q * d + 3 * d * ff + (q + 2 * kv) + 2 * d) * 2
+    cache = 2 * PREFILL_B * kv * PREFILL_T * 2
+    outside = (2 * v * d + d) * 2
+    tokens = PREFILL_B * PREFILL_T
+    logits, hidden = tokens * v * (2 + 4), tokens * d * 2
+    torch.cuda.empty_cache()  # what the allocator caches counts as free
+    free, total = torch.cuda.mem_get_info(torch.device(dev))
+    need = n * (layer + cache) + outside + logits + hidden
+    return {"free": free, "total": total, "layer": layer,
+            "cache_per_layer": cache, "embed_and_head": outside,
+            "logits": logits, "hidden": hidden, "need": need,
+            "margin": MEMORY_MARGIN}
+
+
+def serving_path(dev) -> dict:
+    """qwen2-72b served on one card: random weights drawn on the card from
+    a seeded generator, ``make_prefill`` at 4 x 2048 tokens (each layer's
+    attention through K8), ``generate``, and the decode route checked
+    against the prefill route, in bf16 at the served depth and in f32 at
+    two layers (the hard check, TF32 off).
+
+    Returns the host-clock seconds of each step and what was measured.
+    """
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.serve import step as serve_mod
+
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
+    n = SERVE_LAYERS
+    reckoning = serving_reckoning(dev, n)
+    _require(reckoning["need"] + MEMORY_MARGIN <= reckoning["free"],
+             f"{n} qwen2-72b layers do not fit beside the prefill: "
+             f"{reckoning}")
+    cfg = _serve_config(num_layers=n)
+    log(f"  {cfg.name}: {n} of {_serve_config().num_layers} layers (the rest "
+        f"stand for further pipeline stages), widths as published: d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; memory "
+        f"reckoning (bytes) {reckoning}")
+    held_before = torch.cuda.memory_allocated()
+    log(f"  allocated before the model: {held_before} bytes")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    tokens = make_batch(cfg, PREFILL_B, PREFILL_T, gen)["tokens"]
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    out.update(layers=n, weight_bytes=weight_bytes)
+    log(f"  weights: {weight_bytes} bytes ({weight_bytes / 1e9:.2f} GB); "
+        f"peak while drawing them {torch.cuda.max_memory_allocated()} bytes")
+    step("init")
+    torch.cuda.reset_peak_memory_stats()
+
+    # prefill: the forward's logits and a fresh cache, K8 once per layer
+    scfg = serve_mod.ServeConfig(max_len=PREFILL_T)
+    before = fk.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        logits, cache = serve_mod.make_prefill(model, scfg)(params, tokens)
+    step("prefill")
+    launched = fk.LAUNCHES["flash_attention"] - before
+    _require(launched == n, f"prefill launched K8 {launched} times for {n} "
+                            f"layers")
+    finite = _all_finite(logits)
+    _require(logits.shape == (PREFILL_B, PREFILL_T, cfg.padded_vocab)
+             and logits.dtype == torch.float32 and finite,
+             f"prefill logits {tuple(logits.shape)} {logits.dtype}, finite "
+             f"{finite}")
+    peak = torch.cuda.max_memory_allocated()
+    _require(peak - held_before <= reckoning["need"],
+             f"prefill peak {peak - held_before} bytes above the reckoning "
+             f"{reckoning['need']}")
+    head = logits[:, :DECODE_PROMPT].clone()
+    tail = logits[:, PADDED_T - 100:PADDED_T].clone()
+    del logits, cache
+    log(f"  prefill {PREFILL_B} x {PREFILL_T}: logits "
+        f"{(PREFILL_B, PREFILL_T, cfg.padded_vocab)} f32, finite; K8 launched "
+        f"{launched} times for {n} layers; peak memory {peak} bytes "
+        f"(reckoned at most {held_before + reckoning['need']})")
+    out["peak_memory_bytes"] = peak
+
+    # decode: the normal entry point, prompt replayed then greedy tokens
+    prompt = tokens[:, :DECODE_PROMPT]
+    gen_scfg = serve_mod.ServeConfig(max_len=DECODE_PROMPT + DECODE_GEN)
+    toks = serve_mod.generate(model, params, prompt, DECODE_GEN, gen_scfg)
+    step("decode")
+    _require(toks.shape == (PREFILL_B, DECODE_PROMPT + DECODE_GEN)
+             and torch.equal(toks[:, :DECODE_PROMPT], prompt)
+             and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+             f"generate returned {tuple(toks.shape)}")
+    steps = DECODE_PROMPT + DECODE_GEN - 1
+    log(f"  generate: {steps} decode steps of {PREFILL_B} tokens in "
+        f"{seconds['decode']:.3f} s ({seconds['decode'] / steps * 1e3:.1f} ms "
+        f"a step)")
+
+    # the decode route (plain _sdpa over the cache) against the prefill
+    # route (K8) at the same positions, teacher-forced, in bf16
+    err, agree = _decode_vs_prefill(model, params, tokens, head)
+    out.update(bf16_decode_max_abs=err, bf16_top1_agreement=agree)
+    log(f"  bf16 at {n} layers, decode vs prefill logits over "
+        f"{DECODE_PROMPT} positions: max |diff| {err:.4g}, top-1 agreement "
+        f"{agree:.4f} (reported, not bounded: bf16 rounds differently on "
+        f"the two routes)")
+    step("agreement")
+
+    # where the device time goes: one prefill, and one decode step at
+    # context 1 and at the prefill's context (the last slot of a cache
+    # of PREFILL_T slots filled with seeded values: the step's work
+    # depends on the cache's size, not on what it holds)
+    prefill_step = serve_mod.make_prefill(model, scfg)
+    with torch.no_grad():
+        out["profile_prefill"] = device_profile(
+            lambda: prefill_step(params, tokens), f"prefill {PREFILL_B} x "
+            f"{PREFILL_T}")
+        small = model.init_cache(params, PREFILL_B, DECODE_PROMPT)
+        out["profile_decode"] = device_profile(
+            lambda: model.decode_step(params, tokens[:, :1], small, pos=0),
+            f"decode step of {PREFILL_B} tokens at context 1")
+        full = model.init_cache(params, PREFILL_B, PREFILL_T)
+        fill = torch.Generator(device=dev).manual_seed(5)
+        for c in full["layers"]:
+            for name in ("k", "v"):
+                c[name].copy_(torch.randn(c[name].shape, generator=fill,
+                                          device=dev))
+        out["profile_decode_full"] = device_profile(
+            lambda: model.decode_step(params, tokens[:, -1:], full,
+                                      pos=PREFILL_T - 1),
+            f"decode step of {PREFILL_B} tokens at context {PREFILL_T}")
+    del small, full
+    step("profile")
+
+    # T not a whole 128-block: attend pads it, and positions before the
+    # cut see the same keys as in the full prefill
+    before = fk.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        padded, _ = serve_mod.make_prefill(model, scfg)(
+            params, tokens[:, :PADDED_T])
+    torch.cuda.synchronize()
+    _require(fk.LAUNCHES["flash_attention"] - before == n
+             and padded.shape[1] == PADDED_T
+             and _all_finite(padded),
+             f"padded prefill at T={PADDED_T}")
+    diff = _abs_err(padded[:, -100:], tail)
+    log(f"  padded prefill T={PADDED_T}: finite, last 100 positions' "
+        f"logits within {diff:.4g} of the T={PREFILL_T} prefill's")
+    out["padded_vs_full_max_abs"] = diff
+    del padded, params, model, head, tail
+    torch.cuda.empty_cache()
+    step("padded")
+
+    # the hard check: f32 at full width, two layers, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = _serve_config(num_layers=F32_CHECK_LAYERS, dtype="float32")
+    model = build_model(cfg32, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = model.init(gen)
+    tokens = make_batch(cfg32, F32_CHECK_B, F32_CHECK_T, gen)["tokens"]
+    before = fk.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        fwd, _ = serve_mod.make_prefill(
+            model, serve_mod.ServeConfig(max_len=F32_CHECK_T))(params, tokens)
+    _require(fk.LAUNCHES["flash_attention"] - before == F32_CHECK_LAYERS,
+             "f32 prefill did not run K8 once per layer")
+    err, agree = _decode_vs_prefill(model, params, tokens, fwd)
+    out.update(f32_decode_max_abs=err, f32_top1_agreement=agree)
+    _require(err < DECODE_TOL, f"f32 decode vs prefill max |diff| {err} >= "
+                               f"{DECODE_TOL}")
+    log(f"  f32 at {F32_CHECK_LAYERS} layers, full width, TF32 off "
+        f"(torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}): decode vs prefill logits "
+        f"over {F32_CHECK_T} positions, max |diff| {err:.4g} < {DECODE_TOL}, "
+        f"top-1 agreement {agree:.4f}")
+    del params, model, fwd
+    torch.cuda.empty_cache()
+    step("f32 check")
+    out["seconds"] = seconds
+    log("  host seconds by step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()))
+    log(f"  serving: {json.dumps(out)}")
+    return out
+
+
+def _all_finite(x) -> bool:
+    """``torch.isfinite(x).all()`` a slice at a time: on the whole of a
+    5 GB f32 tensor it would hold about 9 GB of temporaries."""
+    import torch
+    flat = x.reshape(-1)
+    return all(bool(torch.isfinite(part).all())
+               for part in flat.split(1 << 26))
+
+
+def device_profile(fn, label: str, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: host wall time, device
+    time (the sum of the CUDA kernels' own times, which one stream runs one
+    after another), the idle share 1 - device / wall, and the kernels that
+    took most of it.  The profiler's own host cost lengthens the wall
+    time, so the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    rows = [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+            for e in kernels[:top]]
+    if device_ms == 0:
+        log(f"  profile {label}: the profiler saw no device time: not "
+            f"measured")
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+    log(f"  profile {label}: wall {wall_ms:.2f} ms, device "
+        f"{device_ms:.2f} ms, idle share <= {1 - device_ms / wall_ms:.3f}; "
+        f"top kernels:")
+    for name, count, ms in rows:
+        log(f"    {ms:9.3f} ms {ms / device_ms:6.1%} x{count:<5d} {name}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / wall_ms,
+            "top": [{"kernel": n, "count": c, "ms": m} for n, c, m in rows]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _decode_vs_prefill(model, params, tokens, prefill_logits):
+    """Teacher-forced ``decode_step`` logits at positions 0..P-1 against
+    the prefill's: max |diff| and the share of equal argmaxes."""
+    import torch
+    positions = prefill_logits.shape[1]
+    cache = model.init_cache(params, tokens.shape[0], positions)
+    err, same = 0.0, 0
+    with torch.no_grad():
+        for t in range(positions):
+            logits, cache = model.decode_step(params, tokens[:, t:t + 1],
+                                              cache, pos=t)
+            want = prefill_logits[:, t]
+            err = max(err, _abs_err(logits[:, 0], want))
+            same += int((logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
+    return err, same / (positions * tokens.shape[0])
+
+
 # ---------------------------------------------------------------------------
 # 4. times
 # ---------------------------------------------------------------------------
@@ -635,9 +1082,10 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take, and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -784,6 +1232,50 @@ def time_scatter_kernels(dev) -> dict:
     return out
 
 
+def time_flash_kernel(dev) -> dict:
+    """K8 at the serving path's prefill shape (bf16, causal, GQA 64/8).
+
+    Operations: the useful causal products, 2 flop per multiply-add for
+    QK^T and for P V over the T (T + 1) / 2 visible (query, key) pairs,
+    against the dense bf16 tensor-core rate.  Bytes: q, k, v read once,
+    the output written once.  The library yardstick is
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
+    timed here only; the port never calls it.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    cfg = _serve_config()
+    b, h, kv, t, d = (PREFILL_B, cfg.num_heads, cfg.num_kv_heads, PREFILL_T,
+                      cfg.head_dim)
+    q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=5)
+    group = h // kv
+    flops = 4.0 * b * h * d * (t * (t + 1) / 2)
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    case = f"prefill {b}x{h}/{kv}x{t}x{d} bf16 causal"
+    row = {
+        "ms": time_ms(lambda: fk.flash_attention_launch(
+            q, k, v, causal=True, group=group), reps=25),
+        "plain_ms": time_ms(lambda: fk.attention_plain(
+            q, k, v, causal=True, group=group), reps=5, warmup=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=25),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    _log_row("flash_attention", case, row)
+    log(f"  K8 bound: {flops:.4g} useful flop / {BF16_OPS_PER_S:.3g} flop/s = "
+        f"{flops / BF16_OPS_PER_S * 1e3:.4f} ms; {nbytes:.4g} bytes / "
+        f"{HBM_BYTES_PER_S:.3g} B/s = "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+        f"kernel at {flops / row['ms'] / 1e9:.1f} TFLOP/s useful, "
+        f"{bound_ms / row['ms']:.3f} of the bound")
+    return {"flash_attention": {case: row}}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -800,6 +1292,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.scatter_add import kernel as sk
 
@@ -814,17 +1307,32 @@ def main() -> int:
     logs = _build.build_all()
     log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        func = name
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                func = _template_args(entry.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {func}: {line.split(':', 1)[-1].strip()}")
+    sass = {}
     for lib in sorted(logs):
-        for func, ops in sass_atomics(_build.library_path(lib)).items():
-            log(f"  SASS {func}: {' '.join(ops)}")
+        sass.update(sass_atomics(_build.library_path(lib)))
+    for func, ops in sass.items():
+        log(f"  SASS {func}: {' '.join(ops)}")
+    # K8's f32 route must not be a TF32 tensor-core product; its bf16 one
+    # must be the bf16 tensor-core product
+    for func, ops in sass.items():
+        if func.startswith("flash_f32_kernel"):
+            _require(not any(op.startswith("HMMA") for op in ops),
+                     f"{func} compiled to tensor-core ops {ops}")
+        if func.startswith("flash_bf16_kernel"):
+            _require("HMMA.16816.F32.BF16" in ops, f"{func}: SASS {ops}")
 
     t0 = phase("kernels against their plain versions")
     err = check_kernels(dev, [(MAIN_PX, 4)] + [(n, 4) for n in PAD_PX]
                         + [(5000, 3), (70000, 3)])
     err.update(check_scatter_kernels(dev))
+    err.update(check_flash_kernel(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s; max |err| {err}")
 
     launches = {}
@@ -847,6 +1355,16 @@ def main() -> int:
         launches.update({k: sk.LAUNCHES[k] for k in SCATTER_KERNELS})
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
             f"{dict(sk.LAUNCHES)}")
+
+    t0 = phase(f"main path: serving {SERVE_ARCH} prefill and decode")
+    hk.reset_launches()
+    sk.reset_launches()
+    fk.reset_launches()
+    serving = serving_path(dev)
+    torch.cuda.synchronize()
+    launches.update({k: fk.LAUNCHES[k] for k in SERVE_KERNELS})
+    log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+        f"{dict(fk.LAUNCHES)}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     _require(not missing, f"kernels not launched on the main path: {missing}")
 
@@ -854,6 +1372,7 @@ def main() -> int:
     log(f"  card: {card}")
     times = time_kernels(dev)
     times.update(time_scatter_kernels(dev))
+    times.update(time_flash_kernel(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s")
 
     heads = {
@@ -865,8 +1384,22 @@ def main() -> int:
         "bincount": ("uniform 4Mi -> 8192",
                      f"{SCATTER_IDS} ids into 8192 segments, uniform"),
     }
+    cfg = _serve_config()
+    heads["flash_attention"] = (
+        f"prefill {PREFILL_B}x{cfg.num_heads}/{cfg.num_kv_heads}x{PREFILL_T}x"
+        f"{cfg.head_dim} bf16 causal",
+        f"q ({PREFILL_B}, {cfg.num_heads}, {PREFILL_T}, {cfg.head_dim}), k/v "
+        f"({PREFILL_B}, {cfg.num_kv_heads}, {PREFILL_T}, {cfg.head_dim}) "
+        f"bf16, causal; launches over {serving['layers']}-layer prefills "
+        f"(bf16 T={PREFILL_T} and T={PADDED_T}) and the f32 "
+        f"{F32_CHECK_LAYERS}-layer check")
     heads["hist_instrumented"] = heads["hist_weighted"] = heads["hist"]
     heads["scatter_add_instrumented"] = heads["scatter_add"]
+    # K1 has no launch of its own: it is a device function that K3 and K6
+    # run inline, on every one of their launches
+    k1 = {"name": "wave_degrees",
+          "source": "src/repro_torch/kernels/csrc/wave_degrees.cuh",
+          "replaces": "src/repro/kernels/instrumentation.py:24"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         case, shape = heads[name]
@@ -875,6 +1408,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], **times[name][case],
             "shape": shape, "cases": times[name],
+            **({"inlines": k1} if name.endswith("_instrumented") else {}),
         })
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,18 @@
-"""Carry the model's state across from the reference package, as numpy.
+"""Carry state across from the reference package, as numpy.
 
-The system has no weights: its state is the service-time table S(n, e, c),
-the wave traces the counters come from, and the scatter-unit calibration.
-These functions rebuild the port's types from plain arrays and dicts, so
-a table, trace or counter set made by the reference (``np.savez``
-arrays, or its dataclasses' fields) can be fed to the port — for
-instance to test the port's model code apart from its own table build:
+The analysis has no weights: its state is the service-time table
+S(n, e, c), the wave traces the counters come from, and the scatter-unit
+calibration.  These functions rebuild the port's types from plain arrays
+and dicts, so a table, trace or counter set made by the reference
+(``np.savez`` arrays, or its dataclasses' fields) can be fed to the port —
+for instance to test the port's model code apart from its own table
+build:
 
     Session("v5e", table=table_from_numpy(np.load(path)))
+
+The LM substrate does have weights: ``lm_params_from_numpy`` takes a
+reference ``CausalLM``'s parameters, as numpy arrays, into the port's
+per-layer layout.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import json
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.counters import CounterSet, WaveTrace
 from repro_torch.core.qmodel import ServiceTimeTable
@@ -81,3 +87,41 @@ def scatter_params_from_dict(d: Mapping) -> ScatterUnitParams:
     """``ScatterUnitParams`` from its fields (e.g. ``dataclasses.asdict``
     of the reference's, or a table's ``meta["params"]``)."""
     return ScatterUnitParams(**dict(d))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A tensor of a numpy array; bfloat16 arrays (ml_dtypes) go through
+    their bits, which torch cannot read as such."""
+    a = np.array(a)  # a writable copy: the reference's arrays are read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def lm_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
+    """The port's ``CausalLM`` parameters from the reference's.
+
+    ``params`` is the reference's ``CausalLM.init`` output passed through
+    ``jax.tree.map(np.asarray, ...)``.  Its layers are stacked along a
+    leading group axis (``params["groups"]["sub0"]``); the port keeps one
+    dict per layer, so that axis is unstacked.  Only the dense plan
+    (one ``"attn"`` sub-block per group) is carried, as only it is served.
+    """
+    groups = params["groups"]
+    if (set(groups) != {"sub0"} or params.get("tail")
+            or "shared_attn" in params):
+        raise NotImplementedError("only the dense layer plan is ported "
+                                  "(ROADMAP item 10)")
+    out = {k: _tree(params[k], lambda a: _tensor(a, device))
+           for k in ("embed", "final_norm", "lm_head") if k in params}
+    out["layers"] = [
+        _tree(groups["sub0"], lambda a, i=i: _tensor(a[i], device))
+        for i in range(cfg.num_layers)]
+    return out

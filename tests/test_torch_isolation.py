@@ -47,7 +47,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.analysis, "
             "repro_torch.kernels.histogram.ops, repro_torch.convert, "
             "repro_torch.kernels.scatter_add.ops, "
-            "repro_torch.analysis.sweep_cache, repro_torch.obs.telemetry\n"
+            "repro_torch.analysis.sweep_cache, repro_torch.obs.telemetry, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.models.transformer, repro_torch.serve.step, "
+            "repro_torch.launch.serve\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -89,3 +92,30 @@ def test_default_device_raises_without_a_card():
         Session("v5e", table=microbench.build_table()).collect(
             WorkloadSpec.from_indices(ids, 16, label="i"), provider="kernel")
     assert (hk.LAUNCHES, sk.LAUNCHES) == before
+
+
+def test_serving_path_default_device_raises_without_a_card():
+    """The LM path too: K8's wrapper, the serving CLI without ``--device
+    cpu`` and a model built on the default device all refuse to run on
+    the CPU by themselves."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card; the default device works here")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model, make_batch
+
+    cfg = get_config("qwen2-72b").reduced()
+    q = np.zeros((2, 128, 32), np.float32)
+    before = dict(fk.LAUNCHES)
+    with pytest.raises((RuntimeError, AssertionError)):
+        flash_ops.flash_attention(q, q, q)
+    with pytest.raises((RuntimeError, AssertionError)):
+        serve.main(["--arch", "qwen2-72b", "--reduced", "--gen", "2"])
+    model = build_model(cfg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        model.init(torch.Generator(device=model.device))
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_batch(cfg, 2, 8)
+    assert fk.LAUNCHES == before

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K7) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K8) against their plain versions, on the card.
 
 A CUDA kernel has no CPU mode, so every case here is marked ``cuda`` and
 skips where there is no card.  The file imports neither ``jax`` nor the
@@ -8,7 +8,12 @@ reference package, so it runs on the machine with the card as it is:
 
 Counts and degrees must be bit-equal; K4's and K5/K6's f32 sums are held
 at rtol/atol 1e-5 to the plain versions' f64 sums, because float atomics
-add in a different order on every run.
+add in a different order on every run.  K8's attention is held to the
+reference's own bounds (``tests/test_kernels_flash.py``): 2e-4 in f32,
+3e-2 in bf16 at its T = 64.  At longer T a bf16 output is small (about
+0.03 at T = 2048), so there each element is held within 1.6e-2 |out| (two
+bf16 ulps) plus 2^-8 sum_j p_j |v_j| (twice the worst error of rounding P
+to bf16 for P V), and the mean |err| within 2^-8 of the mean |out|.
 """
 
 import numpy as np
@@ -18,10 +23,14 @@ import torch
 from repro_torch.analysis import Session, WorkloadSpec
 from repro_torch.core import counters, microbench
 from repro_torch.data.images import make_image
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.histogram import kernel as hk
 from repro_torch.kernels.histogram import ops
 from repro_torch.kernels.scatter_add import kernel as sk
 from repro_torch.kernels.scatter_add import ops as scatter_ops
+from repro_torch.models import attention
 
 
 @pytest.fixture
@@ -194,3 +203,96 @@ def test_scatter_kernels_refuse_what_they_cannot_take(cuda):
             torch.zeros(1024, dtype=torch.int32, device=cuda), 8)
     with pytest.raises(ValueError, match="8192"):
         sk.bincount_launch(ids, 8193)
+
+
+def _qkv(b, h, kv, t, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape, np.float32),
+                            device=device).to(dtype)
+            for shape in ((b, h, t, d), (b, kv, t, d), (b, kv, t, d))]
+
+
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def _assert_flash_close(got, want, q, k, v, causal, group):
+    """The reference's bounds, or at bf16 beyond T = 64 the bound scaled
+    to the output (module docstring)."""
+    if q.dtype == torch.float32 or q.shape[2] <= 64:
+        tol = FLASH_TOL[q.dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        return
+    err = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    p_abs_v = fk.attention_plain(q.float(), k.float(), v.float().abs(),
+                                 causal=causal, group=group)
+    assert bool((err <= 1.6e-2 * mag + 2.0 ** -8 * p_abs_v).all())
+    for rows in (slice(None), slice(q.shape[2] // 2, None)):
+        assert err[:, :, rows].mean() <= 2.0 ** -8 * mag[:, :, rows].mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,t,d", [
+    (1, 2, 2, 64, 32), (1, 4, 4, 128, 64), (1, 1, 1, 256, 16),
+    (2, 2, 2, 64, 32), (2, 8, 1, 200, 128), (1, 16, 2, 2048, 128),
+    (3, 4, 2, 100, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, b, h, kv, t, d, dtype, causal):
+    """f32 and bf16, causal and not, GQA groups 1 to 8, and lengths that
+    leave a ragged last tile (100, 200)."""
+    q, k, v = _qkv(b, h, kv, t, d, dtype, cuda)
+    before = fk.LAUNCHES["flash_attention"]
+    got = fk.flash_attention_launch(q, k, v, causal=causal, group=h // kv)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fk.attention_plain(q, k, v, causal=causal, group=h // kv)
+    _assert_flash_close(got, want, q, k, v, causal, h // kv)
+    if kv == h:
+        for i in range(b):
+            _assert_flash_close(
+                got[i:i + 1],
+                flash_ref.attention_ref(q[i], k[i], v[i], causal)[None],
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], causal, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,bkv", [(16, 64), (64, 16), (32, 32)])
+def test_flash_ops_blocks_on_the_card(cuda, bq, bkv):
+    q, k, v = _qkv(1, 2, 2, 64, 32, torch.float32, cuda, seed=1)
+    got = flash_ops.flash_attention(q[0], k[0], v[0], bq=bq, bkv=bkv)
+    torch.testing.assert_close(got, flash_ref.attention_ref(q[0], k[0], v[0]),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(1, 4, 2, 64, 32, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="backward"):
+        fk.flash_attention_launch(q.requires_grad_(), k, v, group=2)
+    q = q.detach()
+    with torch.no_grad():
+        fk.flash_attention_launch(q.requires_grad_(), k, v, group=2)
+    q = q.detach()
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_launch(q.half(), k.half(), v.half(), group=2)
+    with pytest.raises(ValueError, match="groups"):
+        fk.flash_attention_launch(q, k, v, group=4)
+    with pytest.raises(ValueError, match="whole number"):
+        flash_ops.flash_attention(q, k, v, group=2, bq=48)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_refuses_a_head_size_the_kernel_lacks(cuda):
+    """The prefill route is K8's whatever the head size: one it does not
+    take raises on the card rather than running the plain ``_sdpa``."""
+    cfg = attention.AttnConfig(d_model=64, num_heads=4, num_kv_heads=2,
+                               head_dim=8)
+    params = attention.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    x = torch.zeros((1, 128, 64), dtype=torch.bfloat16, device=cuda)
+    before = fk.LAUNCHES["flash_attention"]
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
+        attention.attend(params, x, cfg)
+    assert fk.LAUNCHES["flash_attention"] == before
