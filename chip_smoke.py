@@ -20,8 +20,8 @@ each of which must pass:
    and list the atomics each compiled to;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at padded and odd shapes (K8 also at the
-   reference test's shapes, blocks and bounds, before any model is on the
-   card);
+   reference test's shapes, blocks and bounds, and on its Hopper route
+   at ragged T, before any model is on the card);
 3. drive each main path with every launch count set to 0 just before it
    and read just after: the histogram path as ``examples/quickstart.py``
    and ``repro compare`` run it, then the scatter path, then serving;
@@ -71,7 +71,7 @@ COMBINE_TOKENS, TOP_K, D_MODEL = 4096, 8, 4096
 # prompts of 2048 tokens, then 16 prompt tokens replayed and 16 generated
 SERVE_ARCH = "qwen2-72b"
 PREFILL_B, PREFILL_T = 4, 2048
-PADDED_T = 2000                      # not a whole 128-block: attend pads
+RAGGED_T = 2000                      # not a whole 128-key tile: K8 masks it
 DECODE_PROMPT, DECODE_GEN = 16, 16
 F32_CHECK_LAYERS, F32_CHECK_B, F32_CHECK_T = 2, 2, 80
 # qwen2-72b layers served on one card: 36 of 80 (the rest stand for
@@ -143,9 +143,10 @@ def card_line() -> str:
 
 
 def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
-    """Atomic, reduction, match and tensor-core opcodes per kernel
-    instantiation in the SASS (shared-memory ``ATOMS``, global
-    ``ATOMG``/``RED``, ``HMMA``)."""
+    """Atomic, reduction, match, tensor-core, TMA and barrier opcodes per
+    kernel instantiation in the SASS (shared-memory ``ATOMS``, global
+    ``ATOMG``/``RED``, ``HMMA`` of ``mma.sync``, ``HGMMA`` of ``wgmma``,
+    ``UTMALDG`` of a TMA load, ``SYNCS`` of an ``mbarrier``)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True,
@@ -159,7 +160,8 @@ def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
         elif func:
             words = line.split(";")[0].split("*/")[-1].split()
             op = next((w for w in words if not w.startswith("@")), "")
-            if op.startswith(("ATOM", "RED", "MATCH", "HMMA")):
+            if op.startswith(("ATOM", "RED", "MATCH", "HMMA", "HGMMA",
+                              "UTMALDG", "SYNCS")):
                 found[func].add(op)
     return {_template_args(f): sorted(ops) for f, ops in found.items()}
 
@@ -175,7 +177,8 @@ def _template_args(mangled: str) -> str:
     ``bincount_kernel`` from a mangled name."""
     m = re.search(r"(hist_kernel|scatter_kernel|bincount_kernel)(I?)",
                   mangled)
-    flash = re.search(r"(flash_(?:f32|bf16)_kernel)ILi(\d+)E", mangled)
+    flash = re.search(r"(flash_(?:f32|bf16|bf16_sm90)_kernel)ILi(\d+)E",
+                      mangled)
     if flash:
         return f"{flash.group(1)}<{flash.group(2)}>"
     if m is None:
@@ -408,8 +411,10 @@ def check_flash_kernel(dev) -> dict[str, float]:
     """K8 against ``ref.attention_ref`` (per batch entry, K/V expanded for
     GQA) and its plain version, within the reference test's bounds: 2e-4
     in f32, 3e-2 in bf16 at its T = 64; bf16 at longer T is held to a
-    bound scaled to the output (``scaled_bf16_check``).  Returns max
-    |err| over every case."""
+    bound scaled to the output (``scaled_bf16_check``).  Its three routes:
+    f32, bf16 at d <= 32 (``mma.sync``) and bf16 at d = 64, 128 (``wgmma``
+    fed by TMA), the last also at ragged T.  Returns max |err| over every
+    case."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -418,14 +423,21 @@ def check_flash_kernel(dev) -> dict[str, float]:
     worst = 0.0
 
     def check(case, q, k, v, causal, bq=128, bkv=128):
-        """(B, H, T, d) q, (B, KV, T, d) k/v; B = 1 goes through the
-        reference's unbatched (H, T, d) layout."""
+        """(B, H, T, d) q, (B, KV, T, d) k/v through ``ops`` with the
+        reference's blocks (B = 1 through its unbatched (H, T, d) layout),
+        or with ``bq=None`` through the launcher, as ``attend`` calls it,
+        at any T."""
         nonlocal worst
         group = q.shape[1] // k.shape[1]
         kw = dict(causal=causal, bq=bq, bkv=bkv, group=group,
                   torch_device=dev)
-        got = (ops.flash_attention(q[0], k[0], v[0], **kw)[None]
-               if q.shape[0] == 1 else ops.flash_attention(q, k, v, **kw))
+        if bq is None:
+            got = fk.flash_attention_launch(q, k, v, causal=causal,
+                                            group=group)
+        elif q.shape[0] == 1:
+            got = ops.flash_attention(q[0], k[0], v[0], **kw)[None]
+        else:
+            got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         scaled = q.dtype == torch.bfloat16 and q.shape[2] > 64
         tol = FLASH_F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
@@ -469,6 +481,17 @@ def check_flash_kernel(dev) -> dict[str, float]:
             check(f"GQA group 8 (2, 64/8, 256, 128) {str(dtype)[6:]} "
                   f"causal={causal}", *flash_case(2, 64, 8, 256, 128, dtype,
                                                   dev, seed=3), causal)
+    # the Hopper route at ragged T: TMA's zero rows past T and the mask of
+    # the last tile, on one query row up to a tile and a row past two
+    for d in (64, 128):
+        for t in (1, 127, 129, RAGGED_T):
+            for causal in (True, False):
+                check(f"(3, 8/2, {t}, {d}) bf16 causal={causal}",
+                      *flash_case(3, 8, 2, t, d, torch.bfloat16, dev,
+                                  seed=6), causal, None, None)
+        check(f"(3, 8/2, {PREFILL_T}, {d}) bf16 causal=False",
+              *flash_case(3, 8, 2, PREFILL_T, d, torch.bfloat16, dev,
+                          seed=7), False, None, None)
     # the serving path's prefill shape; the plain version's f32 scores take
     # 4.3 GB, so this runs before any model is on the card
     cfg = _serve_config()
@@ -870,7 +893,7 @@ def serving_path(dev) -> dict:
              f"prefill peak {peak - held_before} bytes above the reckoning "
              f"{reckoning['need']}")
     head = logits[:, :DECODE_PROMPT].clone()
-    tail = logits[:, PADDED_T - 100:PADDED_T].clone()
+    tail = logits[:, RAGGED_T - 100:RAGGED_T].clone()
     del logits, cache
     log(f"  prefill {PREFILL_B} x {PREFILL_T}: logits "
         f"{(PREFILL_B, PREFILL_T, cfg.padded_vocab)} f32, finite; K8 launched "
@@ -928,24 +951,27 @@ def serving_path(dev) -> dict:
     del small, full
     step("profile")
 
-    # T not a whole 128-block: attend pads it, and positions before the
-    # cut see the same keys as in the full prefill
+    # T not a whole 128-key tile: K8 runs at the real T and masks its last
+    # tile, and positions before the cut see the same keys as in the full
+    # prefill, so their logits must be the same
     before = fk.LAUNCHES["flash_attention"]
     with torch.no_grad():
-        padded, _ = serve_mod.make_prefill(model, scfg)(
-            params, tokens[:, :PADDED_T])
+        ragged, _ = serve_mod.make_prefill(model, scfg)(
+            params, tokens[:, :RAGGED_T])
     torch.cuda.synchronize()
     _require(fk.LAUNCHES["flash_attention"] - before == n
-             and padded.shape[1] == PADDED_T
-             and _all_finite(padded),
-             f"padded prefill at T={PADDED_T}")
-    diff = _abs_err(padded[:, -100:], tail)
-    log(f"  padded prefill T={PADDED_T}: finite, last 100 positions' "
-        f"logits within {diff:.4g} of the T={PREFILL_T} prefill's")
-    out["padded_vs_full_max_abs"] = diff
-    del padded, params, model, head, tail
+             and ragged.shape[1] == RAGGED_T
+             and _all_finite(ragged),
+             f"ragged prefill at T={RAGGED_T}")
+    diff = _abs_err(ragged[:, -100:], tail)
+    _require(diff == 0.0, f"ragged prefill T={RAGGED_T}: last 100 positions "
+                          f"differ from the T={PREFILL_T} prefill by {diff}")
+    log(f"  ragged prefill T={RAGGED_T}: finite, last 100 positions' "
+        f"logits equal to the T={PREFILL_T} prefill's (max |diff| {diff!r})")
+    out["ragged_vs_full_max_abs"] = diff
+    del ragged, params, model, head, tail
     torch.cuda.empty_cache()
-    step("padded")
+    step("ragged")
 
     # the hard check: f32 at full width, two layers, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1233,7 +1259,9 @@ def time_scatter_kernels(dev) -> dict:
 
 
 def time_flash_kernel(dev) -> dict:
-    """K8 at the serving path's prefill shape (bf16, causal, GQA 64/8).
+    """K8 at the serving path's prefill shape (bf16, causal, GQA 64/8,
+    d = 128), and at granite-moe's attention widths (16/8 heads of 64)
+    over the same 4 x 2048 tokens: the Hopper route at both head sizes.
 
     Operations: the useful causal products, 2 flop per multiply-add for
     QK^T and for P V over the T (T + 1) / 2 visible (query, key) pairs,
@@ -1245,35 +1273,40 @@ def time_flash_kernel(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
 
-    cfg = _serve_config()
-    b, h, kv, t, d = (PREFILL_B, cfg.num_heads, cfg.num_kv_heads, PREFILL_T,
-                      cfg.head_dim)
-    q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=5)
-    group = h // kv
-    flops = 4.0 * b * h * d * (t * (t + 1) / 2)
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
-    bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
-    case = f"prefill {b}x{h}/{kv}x{t}x{d} bf16 causal"
-    row = {
-        "ms": time_ms(lambda: fk.flash_attention_launch(
-            q, k, v, causal=True, group=group), reps=25),
-        "plain_ms": time_ms(lambda: fk.attention_plain(
-            q, k, v, causal=True, group=group), reps=5, warmup=1),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=25),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-    }
-    _log_row("flash_attention", case, row)
-    log(f"  K8 bound: {flops:.4g} useful flop / {BF16_OPS_PER_S:.3g} flop/s = "
-        f"{flops / BF16_OPS_PER_S * 1e3:.4f} ms; {nbytes:.4g} bytes / "
-        f"{HBM_BYTES_PER_S:.3g} B/s = "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
-        f"kernel at {flops / row['ms'] / 1e9:.1f} TFLOP/s useful, "
-        f"{bound_ms / row['ms']:.3f} of the bound")
-    return {"flash_attention": {case: row}}
+    out = {}
+    for cfg in (_serve_config(), get_config("granite-moe-1b-a400m")):
+        b, h, kv, t, d = (PREFILL_B, cfg.num_heads, cfg.num_kv_heads,
+                          PREFILL_T, cfg.head_dim)
+        q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=5)
+        group = h // kv
+        flops = 4.0 * b * h * d * (t * (t + 1) / 2)
+        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+        bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
+        case = f"prefill {b}x{h}/{kv}x{t}x{d} bf16 causal"
+        row = {
+            "ms": time_ms(lambda: fk.flash_attention_launch(
+                q, k, v, causal=True, group=group), reps=25),
+            "plain_ms": time_ms(lambda: fk.attention_plain(
+                q, k, v, causal=True, group=group), reps=5, warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps=25),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        _log_row("flash_attention", case, row)
+        log(f"  K8 bound ({cfg.name}): {flops:.4g} useful flop / "
+            f"{BF16_OPS_PER_S:.3g} flop/s = "
+            f"{flops / BF16_OPS_PER_S * 1e3:.4f} ms; {nbytes:.4g} bytes / "
+            f"{HBM_BYTES_PER_S:.3g} B/s = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+            f"kernel at {flops / row['ms'] / 1e9:.1f} TFLOP/s useful, "
+            f"{bound_ms / row['ms']:.3f} of the bound")
+        out[case] = row
+        del q, k, v
+    return {"flash_attention": out}
 
 
 # ---------------------------------------------------------------------------
@@ -1312,21 +1345,37 @@ def main() -> int:
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
                 func = _template_args(entry.group(1))
-            elif "registers" in line or "spill" in line:
+            elif any(w in line for w in ("registers", "spill", "warning")):
                 log(f"  ptxas {func}: {line.split(':', 1)[-1].strip()}")
+    for d in (64, 128):
+        log(f"  flash_bf16_sm90_kernel<{d}>: {fk.shared_memory_bytes(d)} "
+            f"bytes of dynamic shared memory a block")
     sass = {}
     for lib in sorted(logs):
         sass.update(sass_atomics(_build.library_path(lib)))
     for func, ops in sass.items():
         log(f"  SASS {func}: {' '.join(ops)}")
-    # K8's f32 route must not be a TF32 tensor-core product; its bf16 one
-    # must be the bf16 tensor-core product
+    # K8's routes: f32 on no tensor-core op (a TF32 product would not be
+    # f32); bf16 at d = 16, 32 on mma.sync; bf16 at d = 64, 128 on bf16
+    # wgmma fed by TMA loads
+    routes = {"flash_f32_kernel": 0, "flash_bf16_kernel": 0,
+              "flash_bf16_sm90_kernel": 0}
     for func, ops in sass.items():
-        if func.startswith("flash_f32_kernel"):
-            _require(not any(op.startswith("HMMA") for op in ops),
+        name = func.split("<")[0]
+        if name == "flash_f32_kernel":
+            _require(not any(op.startswith(("HMMA", "HGMMA")) for op in ops),
                      f"{func} compiled to tensor-core ops {ops}")
-        if func.startswith("flash_bf16_kernel"):
+        elif name == "flash_bf16_kernel":
             _require("HMMA.16816.F32.BF16" in ops, f"{func}: SASS {ops}")
+        elif name == "flash_bf16_sm90_kernel":
+            _require(any(op.startswith("HGMMA") and "F32.BF16" in op
+                         for op in ops)
+                     and any(op.startswith("UTMALDG") for op in ops),
+                     f"{func}: SASS {ops}")
+        routes[name] = routes.get(name, 0) + 1
+    _require(all(routes[r] == n for r, n in (
+        ("flash_f32_kernel", 4), ("flash_bf16_kernel", 2),
+        ("flash_bf16_sm90_kernel", 2))), f"K8 instantiations {routes}")
 
     t0 = phase("kernels against their plain versions")
     err = check_kernels(dev, [(MAIN_PX, 4)] + [(n, 4) for n in PAD_PX]
@@ -1391,7 +1440,7 @@ def main() -> int:
         f"q ({PREFILL_B}, {cfg.num_heads}, {PREFILL_T}, {cfg.head_dim}), k/v "
         f"({PREFILL_B}, {cfg.num_kv_heads}, {PREFILL_T}, {cfg.head_dim}) "
         f"bf16, causal; launches over {serving['layers']}-layer prefills "
-        f"(bf16 T={PREFILL_T} and T={PADDED_T}) and the f32 "
+        f"(bf16 T={PREFILL_T} and T={RAGGED_T}) and the f32 "
         f"{F32_CHECK_LAYERS}-layer check")
     heads["hist_instrumented"] = heads["hist_weighted"] = heads["hist"]
     heads["scatter_add_instrumented"] = heads["scatter_add"]

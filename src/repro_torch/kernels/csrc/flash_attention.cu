@@ -14,33 +14,73 @@
 //   * causal KV tiles that lie wholly above the diagonal are skipped.  That
 //     is exact: the first tile (keys from 0) holds a key every query may
 //     see, so m is finite after it, and a tile of masked scores would add
-//     exp(-2e38 - m) = 0 to l and acc with corr = exp(0) = 1.
-//   * The reference's bq and bkv are the TPU's blocking; they change only
+//     exp(-2e38 - m) = 0 to l and acc with corr = exp(0) = 1;
+//   * the reference's bq and bkv are the TPU's blocking; they change only
 //     the order of the f32 sums.  The tiles here are this card's (below),
-//     and a ragged last tile masks its out-of-range keys like causal ones.
+//     and a ragged last tile masks its out-of-range keys like causal ones,
+//     so T need not be a whole number of tiles.
 //
-// Two routes, picked by the input dtype:
+// Three routes, picked by dtype and head size, none a fallback of another:
 //   * f32 inputs: CUDA-core FMA in true f32 (no TF32), q scaled by d^-0.5
 //     in f32 before QK^T as in the reference.  A block takes 16 query rows
 //     of one (b, h), four rows a warp; a lane takes one key of each
 //     32-key tile for the scores and d/32 output columns for P V.
-//   * bf16 inputs: tensor-core mma.sync.m16n8k16 in bf16 with f32
-//     accumulation.  A block takes 64 query rows, 16 a warp; K and V tiles
-//     of 64 keys go through shared memory; P goes from the score
-//     accumulator straight into the A operand of P V in registers.  The
-//     scale is applied to the f32 scores rather than to q, because a scaled
-//     q would have to be rounded back to bf16 for the tensor core.  P is
-//     rounded to bf16 for that product (the reference multiplies it in
-//     f32): each p_j moves by at most 2^-9 of itself, so an output moves by
-//     at most 2^-9 sum_j p_j |v_j| / l, the bound the checks scale to.
+//   * bf16 at d = 64 and 128 (every attention config of the port):
+//     flash_bf16_sm90_kernel, the Hopper design below.
+//   * bf16 at d = 16 and 32 (the reference test's shapes): mma.sync.m16n8k16
+//     in flash_bf16_kernel.  A block takes 64 query rows, 16 a warp; K and
+//     V tiles of 64 keys are copied through shared memory by all threads.
+// Both bf16 routes scale the f32 scores rather than q, because a scaled q
+// would have to be rounded back to bf16 for the tensor core.  Both round P
+// to bf16 for the P V product (the reference multiplies it in f32): each
+// p_j moves by at most 2^-9 of itself, so an output moves by at most
+// 2^-9 sum_j p_j |v_j| / l, the bound the checks scale to.
 //
 // Bound on an H100: operations.  At the serving shape (B 4, H 64, T 2048,
 // d 128, causal) the useful products are about 2.7e11 flop against about
 // 0.3 GB of q, k, v and output; at 989 TFLOP/s and 3.35 TB/s the products
-// take three times as long as the bytes.  This first kernel keeps the
-// scores out of device memory, which is what the reference's design is
-// for, and reads each K/V tile once per 64 query rows; asynchronous copies
-// (TMA), wgmma and warp specialisation are later work.
+// take three times as long as the bytes.  So the design is about keeping
+// the tensor cores fed.  The first kernel (mma.sync, now the d <= 32 route)
+// reached 0.1 of that bound at the serving shape; the Hopper route answers
+// each of its four limits:
+//   * loads were synchronous and single-buffered (all threads copied K and
+//     V, then __syncthreads): now one producer thread issues TMA loads
+//     (cp.async.bulk.tensor) of Q once and of each K and V tile into a ring
+//     of 4 stages, each reporting to a "full" mbarrier, while the consumers
+//     compute; they free a stage through an "empty" mbarrier.  The tensor
+//     maps are 3-D, (B H, T, d) for q and (B H / group, T, d) for k and v,
+//     so a box never crosses a head, and TMA fills rows at or past T with
+//     zeros: a ragged T needs no padding in memory.  A box is 64 columns
+//     (128 bytes, the 128-byte swizzle's span), so a d = 128 row is two;
+//   * tiles were small (64 query rows per K/V pass, about two blocks an
+//     SM): now a block takes 128 query rows, two consumer warpgroups of 64
+//     rows (wgmma's M) and a producer warpgroup, with its K/V ring in
+//     dynamic shared memory (about 161 KB at d = 128, 145 KB at d = 64);
+//   * V was gathered by 16-bit shared loads for P V: now V is wgmma's B
+//     operand straight from the swizzled TMA tile, MN-major (the transpose
+//     bit of a 16-bit operand);
+//   * mma.sync cannot reach the card's tensor-core rate: S = Q K^T is
+//     wgmma with both operands in shared memory, K-major, and O += P V is
+//     wgmma with P from registers: the f32 score accumulator, packed to
+//     bf16, is already in the register-A fragment layout.
+// Within a warpgroup, S_i is issued before P_{i-1} V_{i-1} and the softmax
+// of S_i runs while that product is on the tensor cores; between the two
+// warpgroups, named barriers make them take turns to issue, so that one's
+// softmax overlaps the other's products.  That needs S_i, P_{i-1} and O in
+// registers at once.  setmaxnreg moves registers from the producer (24) to
+// the consumers (240) at run time, but ptxas still fits the consumer code
+// in the 168 registers a thread of a 384-thread block gets, and where it
+// cannot, it serialises every wgmma.  So a K/V tile is 64 keys at d = 128
+// (S in 32 registers) and 128 keys at d = 64.
+// The online softmax runs on the accumulator layout (each thread holds two
+// rows; row reductions across a quad): the max is taken on the raw f32
+// scores, the scale and log2(e) fold into one FMA before ex2, masking
+// (NEG_INF) happens only on tiles that cross the diagonal or the end of T,
+// and m, l and acc stay in f32.  Against the mma.sync route's expf of the
+// scaled scores, this moves each p_j by a few f32 ulps, far inside the
+// bounds the checks hold it to.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,7 +202,7 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 // -------------------------------------------------------------------------
-// bf16 route: mma.sync.m16n8k16, bf16 x bf16 -> f32
+// bf16 route at d = 16 and 32: mma.sync.m16n8k16, bf16 x bf16 -> f32
 // -------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 128;
@@ -349,6 +389,484 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// -------------------------------------------------------------------------
+// bf16 route at d = 64 and 128: TMA, wgmma and warp specialisation
+// -------------------------------------------------------------------------
+
+constexpr int kSm90Rows = 128;                   // query rows per block
+constexpr int kSm90Consumers = 256;              // two warpgroups of 64 rows
+constexpr int kSm90Threads = kSm90Consumers + 128;  // and one producer warpgroup
+constexpr int kBoxCols = 64;                     // 128 bytes: the swizzle's span
+constexpr int kQRegion = kSm90Rows * 128;        // bytes of one box of Q
+
+template <int D>
+struct Sm90Layout {
+  // keys per K/V tile: the most that keeps a consumer within the 168
+  // registers ptxas gives a thread of a 384-thread block (at d = 128, 128
+  // keys would need about 190, and ptxas then serialises the wgmma)
+  static constexpr int kKeys = D == 128 ? 64 : 128;
+  static constexpr int kKVRegion = kKeys * 128;  // bytes of one box of a K or V tile
+  static constexpr int kBoxes = D / kBoxCols;    // boxes per row of a tile
+  static constexpr int kStages = 65536 / (kKeys * D * 2);  // 128 KB of K and V
+  static constexpr int kQBytes = kSm90Rows * D * 2;
+  static constexpr int kTileBytes = kKeys * D * 2;       // one K or V tile
+  static constexpr int kBarriers = 1 + 3 * kStages;      // q, full K, full V, empty
+  // 1024: the 128-byte swizzle wants every box 1024-byte aligned
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of the given parity to complete.  A wait that never
+// ends is a fault of the pipeline: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, spins = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++spins == (1u << 28)) __trap();
+  } while (!done);
+}
+
+// a box of `map` at (column c0, row c1, head c2) into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets in 16-byte units, layout 1.
+// K-major (Q, K): 8-row groups 1024 bytes apart (stride); the leading
+// offset is unused.  MN-major (V): 8-key groups 1024 bytes apart (stride),
+// 64-column boxes `leading` bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t leading) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(leading >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// named barriers 1 and 2: the consumer warpgroups take turns to issue
+// their products (256 threads each: one warpgroup syncs, the other arrives)
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator registers across a wgmma
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WG_ACC8(d, i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (64 x N keys, f32) {=, +=} Q (64 x 16) K^T, both K-major in shared memory;
+// N = 128 and N = 64
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24), WG_ACC8(d, 32),
+        WG_ACC8(d, 40), WG_ACC8(d, 48), WG_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x d, f32) += P (64 x 16 keys, bf16 in registers) V (16 keys x d),
+// V MN-major in shared memory; d = 128 and d = 64
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24), WG_ACC8(d, 32),
+        WG_ACC8(d, 40), WG_ACC8(d, 48), WG_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_ACC8
+
+// S (64 x 2 N keys) = Q K^T for one warpgroup: D / 16 wgmma, one group
+template <int D, int N>
+__device__ __forceinline__ void issue_scores(float (&sc)[N], uint32_t q_wg, uint32_t ks) {
+  constexpr int kKVRegion = 2 * N * 128;         // 2 N keys of 128 bytes
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {           // a box per 4 steps, 32 bytes a step
+    const uint32_t step = (kk % 4) * 32;
+    wgmma_ss(sc, sw128_desc(q_wg + (kk / 4) * kQRegion + step, 16),
+             sw128_desc(ks + (kk / 4) * kKVRegion + step, 16), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V over one tile: a wgmma per 16 keys (2048 bytes of V), one group
+template <int N, int K>
+__device__ __forceinline__ void issue_pv(float (&acc)[N], const uint32_t (&p)[K][4],
+                                         uint32_t vs) {
+  constexpr int kKVRegion = 16 * K * 128;        // 16 K keys of 128 bytes
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_rs(acc, p[kk], sw128_desc(vs + kk * 2048, kKVRegion));
+  wgmma_commit();
+}
+
+// 2^x on the multi-function unit (ex2.approx.ftz: relative error about 2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the running max (of the raw scores) and sum of a thread's two rows
+struct Softmax {
+  float m0, m1, l0, l1;
+};
+
+// The online softmax of one tile, in place: raw scores in, p = exp(scale
+// (s - m)) out, with masking (NEG_INF) only where the tile crosses the
+// diagonal or T.  Returns each row's correction exp(scale (m_old - m_new)).
+// The scale and log2(e) fold into one FMA before ex2; the max is taken on
+// the raw scores, which orders them as the scaled ones do.
+template <int N>
+__device__ __forceinline__ float2 softmax_tile(float (&sc)[N], Softmax& sm, bool masked,
+                                               int kv0, int row0, int row1, int tig, int t,
+                                               int causal, float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int key = kv0 + (j / 4) * 8 + tig * 2 + (j & 1);
+      const int row = (j & 2) ? row1 : row0;
+      if (!(key < t && (!causal || key <= row))) sc[j] = kNegInf;
+    }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    mx0 = fmaxf(mx0, fmaxf(sc[j], sc[j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[j + 2], sc[j + 3]));
+  }
+  const float mn0 = fmaxf(sm.m0, quad_max(mx0)), mn1 = fmaxf(sm.m1, quad_max(mx1));
+  const float2 corr = make_float2(ex2((sm.m0 - mn0) * scale_log2), ex2((sm.m1 - mn1) * scale_log2));
+  const float b0 = mn0 * scale_log2, b1 = mn1 * scale_log2;
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    sc[j] = ex2(fmaf(sc[j], scale_log2, -b0));
+    sc[j + 1] = ex2(fmaf(sc[j + 1], scale_log2, -b0));
+    sc[j + 2] = ex2(fmaf(sc[j + 2], scale_log2, -b1));
+    sc[j + 3] = ex2(fmaf(sc[j + 3], scale_log2, -b1));
+    sum0 += sc[j] + sc[j + 1];
+    sum1 += sc[j + 2] + sc[j + 3];
+  }
+  sm.l0 = sm.l0 * corr.x + quad_sum(sum0);
+  sm.l1 = sm.l1 * corr.y + quad_sum(sum1);
+  sm.m0 = mn0;
+  sm.m1 = mn1;
+  return corr;
+}
+
+// P in bf16 as the A operand of P V: the 16-key k-step kk is score n-tiles
+// 2 kk and 2 kk + 1, which is the register-A fragment of m64nNk16 as it stands
+template <int N>
+__device__ __forceinline__ void to_a_fragments(const float (&sc)[N], uint32_t (&p)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// q, o: (B, H, T, D); k, v: (B, H / group, T, D); tq, tk, tv map q, k and v
+// as (B H, T, D) and (B H / group, T, D) in boxes of 64 columns by 128 rows
+// (q) and by a tile's keys (k, v).
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                           int heads, int group, int t, int causal, float scale) {
+  using L = Sm90Layout<D>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kPV = kKeys / 16;                // k-steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t q_s = base;                     // Q, kBoxes boxes of 128 rows
+  const uint32_t kv_s = base + L::kQBytes;       // stage s: K at kv_s + 2 s tile, then V
+  const uint32_t q_full = kv_s + 2 * L::kStages * L::kTileBytes;
+  const uint32_t full_k = q_full + 8, full_v = full_k + 8 * L::kStages;
+  const uint32_t empty = full_v + 8 * L::kStages;
+
+  const int n_tiles_q = (t + kSm90Rows - 1) / kSm90Rows;
+  const int q0 = (n_tiles_q - 1 - blockIdx.x) * kSm90Rows;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q_head = b * heads + h;
+  const int kv_head = b * (heads / group) + h / group;
+  const int kv_end = causal ? min(q0 + kSm90Rows, t) : t;
+  const int n_kv = (kv_end + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, kSm90Consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, taken from lane 0 so that the compiler sees each role's
+  // branch as warp-uniform
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kSm90Consumers / 128) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kSm90Consumers) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < L::kBoxes; ++c)
+        tma_load(q_s + c * kQRegion, &tq, q_full, c * kBoxCols, q0, q_head);
+      for (int i = 0; i < n_kv; ++i) {
+        const int s = i % L::kStages;
+        const uint32_t ks = kv_s + 2 * s * L::kTileBytes, vs = ks + L::kTileBytes;
+        mbar_wait(empty + 8 * s, ((i / L::kStages) & 1) ^ 1);  // round 0 passes
+        mbar_expect_tx(full_k + 8 * s, L::kTileBytes);
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(ks + c * L::kKVRegion, &tk, full_k + 8 * s, c * kBoxCols, i * kKeys,
+                   kv_head);
+        mbar_expect_tx(full_v + 8 * s, L::kTileBytes);
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(vs + c * L::kKVRegion, &tv, full_v + 8 * s, c * kBoxCols, i * kKeys,
+                   kv_head);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows [first, first + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = role, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, tig = lane % 4;      // accumulator fragment coordinates
+    const int first = q0 + wg * 64;
+    const int row0 = first + warp * 16 + g;      // this thread's two rows
+    const int row1 = row0 + 8;
+    const uint32_t q_wg = q_s + wg * 64 * 128;   // 64 rows of 128 bytes in each box
+    const float scale_log2 = scale * 1.4426950408889634f;
+    Softmax sm{kNegInf, kNegInf, 0.0f, 0.0f};
+
+    // acc[4 n + e]: output column 8 n + 2 tig + (e & 1) of row0 (e < 2) or row1;
+    // sc[4 n + e]: key 8 n + 2 tig + (e & 1) of the tile, the same rows
+    float acc[D / 2], sc[kKeys / 2];
+    uint32_t p[kPV][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    const auto masked = [&](int i) {             // the tile crosses the diagonal or T
+      const int kv0 = i * kKeys;
+      return kv0 + kKeys > t || (causal && kv0 + kKeys - 1 > first);
+    };
+
+    // The two warpgroups take turns to issue their products, so that one
+    // runs its softmax while the other's products are on the tensor cores.
+    // Each takes n_kv + 1 turns; warpgroup 0 goes first, and warpgroup 1
+    // does not hand its last turn on.
+    const auto turn_begin = [&] { bar_sync(1 + wg); };
+    const auto turn_end = [&](bool last) {
+      if (wg == 0 || !last) bar_arrive(2 - wg);
+    };
+    if (wg == 1) bar_arrive(1);
+
+    // tile 0: S, softmax, P
+    mbar_wait(q_full, 0);
+    mbar_wait(full_k, 0);
+    turn_begin();
+    issue_scores<D>(sc, q_wg, kv_s);
+    turn_end(false);
+    wgmma_wait<0>();
+    hold(sc);
+    softmax_tile(sc, sm, masked(0), 0, row0, row1, tig, t, causal, scale_log2);
+    to_a_fragments(sc, p);
+
+    // tile i: S_i is issued before P_{i-1} V_{i-1}, and the softmax of S_i
+    // runs while that product is on the tensor cores
+    for (int i = 1; i < n_kv; ++i) {
+      const int s = i % L::kStages, sp = (i - 1) % L::kStages;
+      mbar_wait(full_k + 8 * s, (i / L::kStages) & 1);
+      mbar_wait(full_v + 8 * sp, ((i - 1) / L::kStages) & 1);
+      turn_begin();
+      issue_scores<D>(sc, q_wg, kv_s + 2 * s * L::kTileBytes);
+      hold(acc);
+      issue_pv(acc, p, kv_s + (2 * sp + 1) * L::kTileBytes);
+      turn_end(false);
+      wgmma_wait<1>();                           // S_i is done
+      hold(sc);
+      const float2 corr =
+          softmax_tile(sc, sm, masked(i), i * kKeys, row0, row1, tig, t, causal, scale_log2);
+      wgmma_wait<0>();                           // P_{i-1} V_{i-1} is done
+      hold(acc);
+      mbar_arrive(empty + 8 * sp);
+#pragma unroll
+      for (int j = 0; j < D / 2; j += 4) {
+        acc[j] *= corr.x;
+        acc[j + 1] *= corr.x;
+        acc[j + 2] *= corr.y;
+        acc[j + 3] *= corr.y;
+      }
+      to_a_fragments(sc, p);
+    }
+    const int sl = (n_kv - 1) % L::kStages;
+    mbar_wait(full_v + 8 * sl, ((n_kv - 1) / L::kStages) & 1);
+    hold(acc);
+    turn_begin();
+    issue_pv(acc, p, kv_s + (2 * sl + 1) * L::kTileBytes);
+    turn_end(true);
+    wgmma_wait<0>();
+    hold(acc);
+    mbar_arrive(empty + 8 * sl);
+
+    const float inv0 = 1.0f / fmaxf(sm.l0, 1e-30f), inv1 = 1.0f / fmaxf(sm.l1, 1e-30f);
+    __nv_bfloat16* oh = o + (size_t)q_head * t * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + tig * 2;
+      if (row0 < t)
+        *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * D + col) =
+            pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      if (row1 < t)
+        *reinterpret_cast<uint32_t*>(oh + (size_t)row1 * D + col) =
+            pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so that
+// the library needs no -lcuda; null if the driver lacks it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (heads, t, d) contiguous bf16 at ptr as boxes of 64 columns x `rows` rows
+// of one head, 128-byte swizzled; rows at or past t read as zeros
+bool encode_map(CUtensorMap* map, const void* ptr, int d, int t, int heads, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {kBoxCols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+                int group, int t, int causal, float scale, cudaStream_t stream) {
+  using L = Sm90Layout<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_sm90_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, D, t, batch * heads, kSm90Rows) ||
+      !encode_map(&tk, k, D, t, batch * (heads / group), L::kKeys) ||
+      !encode_map(&tv, v, D, t, batch * (heads / group), L::kKeys))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((t + kSm90Rows - 1) / kSm90Rows, heads, batch);
+  flash_bf16_sm90_kernel<D><<<grid, kSm90Threads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), heads, group, t, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
            int group, int t, int dtype, int causal, float scale, cudaStream_t stream) {
@@ -357,6 +875,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
     flash_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), heads, group, t, causal, scale);
+  } else if constexpr (D == 64 || D == 128) {
+    return launch_sm90<D>(q, k, v, o, batch, heads, group, t, causal, scale, stream);
   } else {
     const dim3 grid((t + kMmaRows - 1) / kMmaRows, heads, batch);
     flash_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
@@ -373,7 +893,9 @@ extern "C" {
 
 // q, o: (batch, heads, t, d); k, v: (batch, heads / group, t, d); all
 // contiguous, 16-byte aligned, of one dtype: 0 = f32, 1 = bf16.
-// d is 16, 32, 64 or 128.  scale is d^-0.5.
+// d is 16, 32, 64 or 128.  scale is d^-0.5.  bf16 at d = 64 or 128 runs
+// the Hopper route; a tensor map it cannot encode returns
+// cudaErrorInvalidValue.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int batch,
                           int heads, int group, int t, int d, int dtype, int causal,
                           float scale, void* stream) {
@@ -391,6 +913,19 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o, 
       return launch<128>(q, k, v, o, batch, heads, group, t, dtype, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bytes of dynamic shared memory a block of the bf16 route takes at head
+// size d: the Hopper route's Q and K/V ring, 0 on the mma.sync route
+int repro_flash_attention_smem(int d) {
+  switch (d) {
+    case 64:
+      return Sm90Layout<64>::kSmem;
+    case 128:
+      return Sm90Layout<128>::kSmem;
+    default:
+      return 0;
   }
 }
 

@@ -5,8 +5,13 @@
 online over KV tiles, optionally causal, in f32, with the output in the
 input's dtype.  One launch covers (B, H, T, d) q against (B, H / group,
 T, d) k and v: query head h reads KV head ``h // group`` (GQA), and
-``group=1`` is the reference's kernel.  f32 inputs run on the CUDA cores
-in f32, bf16 inputs on the tensor cores (``mma.sync``) with f32 sums.
+``group=1`` is the reference's kernel.  The C launcher picks one of
+three routes by dtype and head size: f32 inputs run on the CUDA cores in
+f32; bf16 inputs at d = 64 and 128 run the Hopper kernel (TMA loads into
+a ring of shared-memory stages, ``wgmma`` products, a producer and two
+consumer warpgroups); bf16 at d = 16 and 32 run ``mma.sync``.  Both bf16
+routes sum in f32.  T may be any length: the kernel masks a ragged last
+tile.
 
 The launcher runs the kernel for CUDA tensors and the plain version for
 CPU tensors; it never falls back from one to the other.  Neither has a
@@ -34,6 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
+    "repro_flash_attention_smem": [_I],
 }
 
 
@@ -45,6 +51,13 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     return _build.bind("flash_attention", _ARGTYPES)
+
+
+def shared_memory_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one block of the bf16 route at
+    ``head_dim`` (0 where that route uses static shared memory only);
+    builds the library."""
+    return _lib().repro_flash_attention_smem(head_dim)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

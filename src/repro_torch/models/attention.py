@@ -22,14 +22,11 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models import layers
 
 NEG_INF = -2.0e38
-# K8's bq = bkv: the reference kernel's default blocks; attend pads T to them
-FLASH_BLOCK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,20 +124,6 @@ def flash_route(cfg: AttnConfig, *, positions=None, kv_x=None,
             and not cfg.bf16_score_grad)
 
 
-def _flash_causal(q, k, v, group: int) -> torch.Tensor:
-    """K8 over (B, H, T, hd) q and (B, KV, T, hd) k/v, T padded at the end
-    to a whole block and cut back: exact under the causal mask, since no
-    real query sees a later (padding) key."""
-    t = q.shape[2]
-    pad = (-t) % FLASH_BLOCK
-    if pad:
-        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
-    out = flash_ops.flash_attention(q, k, v, causal=True, bq=FLASH_BLOCK,
-                                    bkv=FLASH_BLOCK, group=group,
-                                    torch_device=q.device)
-    return out[:, :, :t]
-
-
 def attend(
     params: dict,
     x: torch.Tensor,
@@ -213,7 +196,10 @@ def attend(
         new_cache = {"k": ck, "v": cv, "pos": pos + t}
 
     if use_flash:
-        out = _flash_causal(q, k, v, g)
+        # K8 at the real T: the kernel masks a ragged last tile itself
+        out = flash_kernel.flash_attention_launch(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            group=g)
     else:
         if kv_block is not None:
             raise NotImplementedError(

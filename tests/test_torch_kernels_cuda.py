@@ -232,16 +232,23 @@ def _assert_flash_close(got, want, q, k, v, causal, group):
         assert err[:, :, rows].mean() <= 2.0 ** -8 * mag[:, :, rows].mean()
 
 
+# bf16 at d = 64 and 128 runs the Hopper route (TMA, wgmma): one query
+# row, a row short of and a row past a 128-row tile, and a long ragged T,
+# at GQA groups 1, 4 and 8
+HOPPER_SHAPES = [(2, 8, 8 // group, t, d) for d in (64, 128)
+                 for t in (1, 127, 129, 2000) for group in (1, 4, 8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,t,d", [
     (1, 2, 2, 64, 32), (1, 4, 4, 128, 64), (1, 1, 1, 256, 16),
     (2, 2, 2, 64, 32), (2, 8, 1, 200, 128), (1, 16, 2, 2048, 128),
-    (3, 4, 2, 100, 64)])
+    (3, 4, 2, 100, 64)] + HOPPER_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(cuda, b, h, kv, t, d, dtype, causal):
     """f32 and bf16, causal and not, GQA groups 1 to 8, and lengths that
-    leave a ragged last tile (100, 200)."""
+    leave a ragged last tile (1, 100, 127, 129, 200, 2000)."""
     q, k, v = _qkv(b, h, kv, t, d, dtype, cuda)
     before = fk.LAUNCHES["flash_attention"]
     got = fk.flash_attention_launch(q, k, v, causal=causal, group=h // kv)

@@ -156,8 +156,8 @@ def _count_k8(monkeypatch):
 
 @pytest.mark.parametrize("t", [12, 64, 130])
 def test_attend_without_cache_takes_k8_and_matches(t, monkeypatch):
-    """The prefill route: K8 (its plain version here) over T padded to a
-    whole 128-block and cut back, against the reference's ``_sdpa``."""
+    """The prefill route: K8 (its plain version here) at the real T, with
+    no padding to a block, against the reference's ``_sdpa``."""
     rcfg, cfg, rp, p = _attn_case()
     assert attention.flash_route(cfg)
     calls = _count_k8(monkeypatch)
@@ -166,7 +166,7 @@ def test_attend_without_cache_takes_k8_and_matches(t, monkeypatch):
     want, _ = ref_attention.attend(rp, jnp.asarray(x), rcfg)
     got, cache = attention.attend(p, _t(x), cfg)
     assert cache is None
-    assert calls == [(2, 4, -(-t // 128) * 128, 16)]
+    assert calls == [(2, 4, t, 16)]
     np.testing.assert_allclose(_np(got), want, **ATTN)
 
 
