@@ -17,9 +17,11 @@ each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
-   and list the atomics each compiled to;
+   and list the atomics each compiled to, and whether K3 and K6 still
+   hold a ``MATCH``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at padded and odd shapes (K8 also at the
+   main paths' shapes and at padded and odd shapes (K3 and K6 also on the
+   designed commit groups of ``repro_torch.data.streams``; K8 also at the
    reference test's shapes, blocks and bounds, and on its Hopper route
    at ragged T, before any model is on the card);
 3. drive each main path with every launch count set to 0 just before it
@@ -167,16 +169,19 @@ def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
 
 
 # each kernel template's bool parameters, in order
-_FLAGS = {"hist_kernel": ("reorder", "weighted", "instrumented"),
-          "scatter_kernel": ("shared", "instrumented")}
+_FLAGS = {"hist_kernel": ("reorder", "weighted"),
+          "hist_instrumented_kernel": ("reorder",),
+          "scatter_kernel": ("shared",),
+          "scatter_instrumented_kernel": ("shared",)}
 _VALUE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def _template_args(mangled: str) -> str:
-    """``hist_kernel<reorder,...>``, ``scatter_kernel<bf16,shared,...>`` or
-    ``bincount_kernel`` from a mangled name."""
-    m = re.search(r"(hist_kernel|scatter_kernel|bincount_kernel)(I?)",
-                  mangled)
+    """``hist_kernel<reorder,...>``, ``scatter_kernel<bf16,shared>``,
+    ``scatter_instrumented_kernel<shared>`` or ``bincount_kernel`` from a
+    mangled name."""
+    m = re.search(r"(hist_kernel|hist_instrumented_kernel|scatter_kernel|"
+                  r"scatter_instrumented_kernel|bincount_kernel)(I?)", mangled)
     flash = re.search(r"(flash_(?:f32|bf16|bf16_sm90)_kernel)ILi(\d+)E",
                       mangled)
     if flash:
@@ -397,6 +402,75 @@ def check_scatter_kernels(dev) -> dict[str, float]:
         k7(f"odd {n} -> {segments} with strays",
            torch.as_tensor(ids_np, device=dev), segments)
     return err
+
+
+# K6 on the adversarial streams: (d, S) on the shared route and on the
+# global one (S x d x 4 bytes over the 96 KB budget)
+ADVERSARIAL_K6 = ((1, 4096), (1, 32768), (8, 1024), (8, 4096), (64, 256),
+                  (64, 1024))
+ADVERSARIAL_SHORT = 37      # value rows short of the stream: they add nothing
+
+
+def check_adversarial(dev, err: dict[str, float]) -> None:
+    """K3 and K6 on ``repro_torch.data.streams``' designed commit groups:
+    K3 (C = 3, 4; hist and hist2) on each stream laid out as an image,
+    counts and degrees bit-equal; K6 (ADVERSARIAL_K6) on each stream with
+    values for all but its last ADVERSARIAL_SHORT rows, degrees bit-equal
+    and sums within F32_TOL.  Raises the max |err| entries in ``err``."""
+    import torch
+
+    from repro_torch.core import counters
+    from repro_torch.data import streams
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.histogram import ops
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    rng = np.random.default_rng(7)
+    cases = streams.adversarial_streams()
+    for name, stream_np in cases.items():
+        for channels in (3, 4):
+            img_np = streams.stream_image(stream_np, channels)
+            img = torch.as_tensor(img_np, device=dev)
+            for variant, reorder in (("hist", False), ("hist2", True)):
+                case = f"{name}, C={channels} {variant}"
+                counts, deg = hk.histogram_launch(img, reorder=reorder,
+                                                  instrumented=True)
+                torch.cuda.synchronize()
+                p_counts, p_deg = hk.histogram_instrumented_plain(
+                    img, NUM_BINS, reorder)
+                committed = ops.committed_index_stream(img_np,
+                                                       variant=variant)
+                _require(torch.equal(counts, p_counts), f"K3 counts, {case}")
+                _require(torch.equal(deg, p_deg), f"K3 degrees, {case}")
+                _require(np.array_equal(
+                    deg.cpu().numpy().reshape(-1).astype(np.float64),
+                    counters._degrees_full_waves(
+                        committed.reshape(-1, 1024), 32)),
+                    f"K3 degrees vs committed stream, {case}")
+        ids = torch.as_tensor(stream_np, device=dev)
+        want_deg = counters._degrees_full_waves(stream_np.reshape(-1, 1024),
+                                                32)
+        n = stream_np.size - ADVERSARIAL_SHORT
+        for d, segments in ADVERSARIAL_K6:
+            case = (f"{name}, d={d} S={segments} "
+                    f"({sk.scatter_route(segments, d)})")
+            vals = torch.as_tensor(rng.standard_normal((n, d), np.float32),
+                                   device=dev)
+            out, deg = sk.scatter_add_instrumented_launch(vals, ids, segments)
+            torch.cuda.synchronize()
+            p_out, p_deg = sk.scatter_add_instrumented_plain(vals, ids,
+                                                             segments)
+            torch.testing.assert_close(out, p_out, **F32_TOL,
+                                       msg=f"K6 sums, {case}")
+            _require(torch.equal(deg, p_deg), f"K6 degrees, {case}")
+            _require(np.array_equal(deg.cpu().numpy().astype(np.float64),
+                                    want_deg),
+                     f"K6 degrees vs committed stream, {case}")
+            err["scatter_add_instrumented"] = max(
+                err["scatter_add_instrumented"], _abs_err(out, p_out))
+    log(f"  K3 (C = 3, 4; hist, hist2) and K6 ({len(ADVERSARIAL_K6)} d/S "
+        f"cases) on {len(cases)} adversarial streams: degrees and K3 counts "
+        f"bit-equal, K6 sums within {F32_TOL}")
 
 
 def flash_case(b, h, kv, t, d, dtype, dev, seed=0):
@@ -1355,6 +1429,12 @@ def main() -> int:
         sass.update(sass_atomics(_build.library_path(lib)))
     for func, ops in sass.items():
         log(f"  SASS {func}: {' '.join(ops)}")
+    # K3 and K6 take K1's degree by a sort of shuffles, not MATCH.ANY
+    for func, ops in sass.items():
+        if func.split("<")[0] in ("hist_instrumented_kernel",
+                                  "scatter_instrumented_kernel"):
+            match = [op for op in ops if op.startswith("MATCH")]
+            log(f"  {func}: MATCH {'present: ' + ' '.join(match) if match else 'absent'}")
     # K8's routes: f32 on no tensor-core op (a TF32 product would not be
     # f32); bf16 at d = 16, 32 on mma.sync; bf16 at d = 64, 128 on bf16
     # wgmma fed by TMA loads
@@ -1381,6 +1461,7 @@ def main() -> int:
     err = check_kernels(dev, [(MAIN_PX, 4)] + [(n, 4) for n in PAD_PX]
                         + [(5000, 3), (70000, 3)])
     err.update(check_scatter_kernels(dev))
+    check_adversarial(dev, err)
     err.update(check_flash_kernel(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s; max |err| {err}")
 

@@ -3,8 +3,10 @@
 Launches the instrumented Hopper kernel described by the spec and reads
 the in-kernel per-wave degrees back — nothing is synthesized on the host.
 This is the paper's "measured" column: the counters the paper wishes the
-GPU exposed, computed by the kernel from the very index stream its
-shared-memory atomics commit.
+GPU exposed, computed by the kernel (K1, inlined) from the committed index
+stream, group by group.  The degrees are the stream's, not the atomic
+traffic's: K3 commits one count atomic per pixel and step, but K6 adds
+once per distinct id in each commit group.
 
 The compute device is explicit: ``InstrumentedKernelProvider(torch_device)``
 launches on that device (the registered ``"kernel"`` instance uses

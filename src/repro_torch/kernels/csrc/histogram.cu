@@ -31,13 +31,22 @@
 // The design does nothing to hide that, on purpose; the wide shared
 // accumulator keeps the global atomics to one flush per block.
 //
-// K3's degrees: the pixels are walked in chunks of 1024 (32 warps' worth of
-// 32-pixel groups).  The reference commits channel step s of a 32-pixel
-// group together, so at step s one warp's 32 flat indices are exactly one
-// commit group, number pg * C + s for pixel group pg, in wave
-// (pg * C + s) / 32.  A chunk of 32 pixel groups therefore covers exactly C
-// whole waves, whatever C is, and the block owns them: it sums their group
-// maxima as integers in shared memory and writes each wave once.
+// K3's degrees: the reference commits channel step s of a 32-pixel group
+// together, so commit group q of the stream is step q % C of pixel group
+// q / C, and wave w holds groups 32w .. 32w + 31.  K3 gives each warp whole
+// waves: it walks a wave's 32 groups in that order, does each group's 32
+// count atomics exactly as K2 does (one shared atomicAdd(int) per pixel and
+// step, the channel rotated by hist2's rule), takes the groups' degrees
+// with K1 two at a time (group_pair_max_multiplicity), sums the 32 degrees
+// in a register and writes the wave's degree itself.  Any C works the
+// same, C = 3 included, where a pixel group's steps straddle two waves: a
+// warp reads only the steps of its own wave.  Nothing is shared between
+// warps but the histogram, so there is no per-chunk barrier and no shared
+// degree sum.  At most 32 registers a thread, so that 8 blocks fit on an
+// SM: the 16,384 waves of a 4 Mpx x 4 image are then two rounds of warps,
+// not three or four.  What bounds K3 beyond K2 is K1 on groups of many
+// values, the sort's 15 steps (wave_degrees.cuh, which lists the measured
+// cost of each candidate).
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -47,25 +56,22 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = REPRO_LANES;  // pixels a block walks per chunk
+constexpr int kChunk = REPRO_LANES;  // pixels a block of K2 or K4 walks per chunk
+constexpr int kInstrumentedBlocksPerSm = 8;  // K3: see the note above
 
-template <bool kReorder, bool kWeighted, bool kInstrumented>
+template <bool kReorder, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
     hist_kernel(const int* __restrict__ img, const float* __restrict__ weights,
-                void* __restrict__ out, float* __restrict__ deg, long long n,
-                long long num_chunks, int C, int num_bins, int tile) {
+                void* __restrict__ out, long long n, long long num_chunks, int C,
+                int num_bins, int tile) {
   using Acc = typename std::conditional<kWeighted, float, int>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   Acc* sh = reinterpret_cast<Acc*>(smem);
   const int bins = C * num_bins;
-  unsigned* wave_sum = reinterpret_cast<unsigned*>(sh + bins);
 
   for (int i = threadIdx.x; i < bins; i += blockDim.x) sh[i] = Acc(0);
-  if (kInstrumented)
-    for (int i = threadIdx.x; i < C; i += blockDim.x) wave_sum[i] = 0u;
   __syncthreads();
 
-  const int lane = threadIdx.x & (REPRO_COMMIT_GROUP - 1);
   for (long long chunk = blockIdx.x; chunk < num_chunks; chunk += gridDim.x) {
     for (int j = 0; j < kChunk; j += kThreads) {
       const long long p = chunk * kChunk + j + threadIdx.x;
@@ -83,22 +89,7 @@ __global__ void __launch_bounds__(kThreads)
           else
             atomicAdd(&sh[flat], 1);
         }
-        if constexpr (kInstrumented) {
-          const unsigned m = group_max_multiplicity(flat);
-          if (lane == 0) {
-            const long long group = (p / REPRO_COMMIT_GROUP) * C + s;
-            atomicAdd(&wave_sum[group / REPRO_COMMIT_GROUP - chunk * C], m);
-          }
-        }
       }
-    }
-    if constexpr (kInstrumented) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < C; i += blockDim.x) {
-        deg[chunk * C + i] = (float)wave_sum[i] / (float)REPRO_COMMIT_GROUP;
-        wave_sum[i] = 0u;
-      }
-      __syncthreads();
     }
   }
 
@@ -110,11 +101,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kReorder, bool kWeighted, bool kInstrumented>
-int launch(const void* img, const void* weights, void* out, void* deg, int n,
-           int num_chunks, int C, int num_bins, int tile, void* stream) {
-  auto kernel = hist_kernel<kReorder, kWeighted, kInstrumented>;
-  const size_t smem = (size_t)C * num_bins * 4 + (kInstrumented ? (size_t)C * 4 : 0);
+// K3, a warp to a wave of the committed stream (the note at the top).
+template <bool kReorder>
+__global__ void __launch_bounds__(kThreads, kInstrumentedBlocksPerSm)
+    hist_instrumented_kernel(const int* __restrict__ img, int* __restrict__ out,
+                             float* __restrict__ deg, long long n, long long num_waves,
+                             int C, int num_bins, int tile) {
+  extern __shared__ __align__(16) int counts[];
+  const int bins = C * num_bins;
+  for (int i = threadIdx.x; i < bins; i += blockDim.x) counts[i] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & (REPRO_COMMIT_GROUP - 1);
+  const long long warps = (long long)gridDim.x * (kThreads / REPRO_COMMIT_GROUP);
+  // the warp index is uniform across a warp, so every lane of it runs the
+  // same waves and groups, as the warp functions need
+  for (long long w = ((long long)blockIdx.x * kThreads + threadIdx.x) / REPRO_COMMIT_GROUP;
+       w < num_waves; w += warps) {
+    const long long q0 = w * REPRO_COMMIT_GROUP;  // the wave's first group
+    const long long pg = q0 / C;
+    int s = (int)(q0 - pg * C);
+    long long p = pg * REPRO_COMMIT_GROUP + lane;  // this lane's pixel
+    int rot = kReorder ? (int)(p % tile) : 0;
+    unsigned sum = 0;
+    for (int g = 0; g < REPRO_COMMIT_GROUP; g += 2) {
+      // two groups' count atomics, then their degrees together
+      int flat[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool real = p < n;
+        const int ch = kReorder ? (s + rot) % C : s;
+        const int v = real ? img[p * C + ch] : 0;
+        flat[h] = (int)((unsigned)ch * (unsigned)num_bins + (unsigned)v);
+        if (real && (unsigned)flat[h] < (unsigned)bins) atomicAdd(&counts[flat[h]], 1);
+        if (++s == C) {  // the next pixel group
+          s = 0;
+          p += REPRO_COMMIT_GROUP;
+          if (kReorder) rot = (int)(p % tile);
+        }
+      }
+      const uint2 m = group_pair_max_multiplicity(flat[0], flat[1]);
+      sum += m.x + m.y;
+    }
+    if (lane == 0) deg[w] = (float)sum / (float)REPRO_COMMIT_GROUP;
+  }
+
+  __syncthreads();
+  for (int i = threadIdx.x; i < bins; i += blockDim.x) {
+    const int c = counts[i];
+    if (c != 0) atomicAdd(&out[i], c);
+  }
+}
+
+// As many blocks as fit on the card at once, but no more than the work
+// needs (`work` items, kThreads to a block).
+template <typename Kernel>
+int grid_for(Kernel kernel, size_t smem, long long work, unsigned* grid) {
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -127,11 +169,37 @@ int launch(const void* img, const void* weights, void* out, void* deg, int n,
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > num_chunks) grid = num_chunks;
-  kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)img, (const float*)weights, out, (float*)deg, n, num_chunks, C,
-      num_bins, tile);
+  long long g = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (g > work) g = work;
+  *grid = g > 0 ? (unsigned)g : 1u;
+  return 0;
+}
+
+template <bool kReorder, bool kWeighted>
+int launch(const void* img, const void* weights, void* out, int n, int num_chunks, int C,
+           int num_bins, int tile, void* stream) {
+  auto kernel = hist_kernel<kReorder, kWeighted>;
+  const size_t smem = (size_t)C * num_bins * 4;
+  unsigned grid = 0;
+  const int err = grid_for(kernel, smem, num_chunks, &grid);
+  if (err) return err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)img, (const float*)weights, out, n, num_chunks, C, num_bins, tile);
+  return (int)cudaGetLastError();
+}
+
+template <bool kReorder>
+int launch_instrumented(const void* img, void* out, void* deg, int n, int num_waves, int C,
+                        int num_bins, int tile, void* stream) {
+  auto kernel = hist_instrumented_kernel<kReorder>;
+  const size_t smem = (size_t)C * num_bins * 4;
+  unsigned grid = 0;
+  const int warps_per_block = kThreads / REPRO_COMMIT_GROUP;
+  const int err = grid_for(kernel, smem, (num_waves + warps_per_block - 1) / warps_per_block,
+                           &grid);
+  if (err) return err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)img, (int*)out, (float*)deg, n, num_waves, C, num_bins, tile);
   return (int)cudaGetLastError();
 }
 
@@ -143,31 +211,26 @@ extern "C" {
 int repro_hist(const void* img, void* out, int n, int C, int num_bins, int tile,
                int reorder, void* stream) {
   const int chunks = (n + kChunk - 1) / kChunk;
-  return reorder ? launch<true, false, false>(img, nullptr, out, nullptr, n, chunks, C,
-                                              num_bins, tile, stream)
-                 : launch<false, false, false>(img, nullptr, out, nullptr, n, chunks, C,
-                                               num_bins, tile, stream);
+  return reorder ? launch<true, false>(img, nullptr, out, n, chunks, C, num_bins, tile, stream)
+                 : launch<false, false>(img, nullptr, out, n, chunks, C, num_bins, tile, stream);
 }
 
 // K4.  weights: (n,) f32; out: (C, num_bins) f32, zeroed by the caller.
 int repro_hist_weighted(const void* img, const void* weights, void* out, int n, int C,
                         int num_bins, int tile, int reorder, void* stream) {
   const int chunks = (n + kChunk - 1) / kChunk;
-  return reorder ? launch<true, true, false>(img, weights, out, nullptr, n, chunks, C,
-                                             num_bins, tile, stream)
-                 : launch<false, true, false>(img, weights, out, nullptr, n, chunks, C,
-                                              num_bins, tile, stream);
+  return reorder ? launch<true, true>(img, weights, out, n, chunks, C, num_bins, tile, stream)
+                 : launch<false, true>(img, weights, out, n, chunks, C, num_bins, tile, stream);
 }
 
 // K3.  n_pad: n rounded up to a whole tile (a multiple of 1024);
 // deg: (n_pad * C / 1024,) f32, every entry written by the kernel.
 int repro_hist_instrumented(const void* img, void* out, void* deg, int n, int n_pad,
                             int C, int num_bins, int tile, int reorder, void* stream) {
-  const int chunks = n_pad / kChunk;
-  return reorder ? launch<true, false, true>(img, nullptr, out, deg, n, chunks, C,
-                                             num_bins, tile, stream)
-                 : launch<false, false, true>(img, nullptr, out, deg, n, chunks, C,
-                                              num_bins, tile, stream);
+  const int waves = (int)((long long)n_pad * C / REPRO_LANES);
+  return reorder ? launch_instrumented<true>(img, out, deg, n, waves, C, num_bins, tile, stream)
+                 : launch_instrumented<false>(img, out, deg, n, waves, C, num_bins, tile,
+                                              stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Hopper histogram kernels (K2-K4) behind one launcher, with plain versions.
 
 The paper's case-study kernel, back on the hardware it was written for.
-``csrc/histogram.cu`` holds Listings 1-2 as one CUDA template: a
+``csrc/histogram.cu`` holds Listings 1-2 as CUDA kernels: a
 shared-memory sub-histogram per block, one ``atomicAdd`` per pixel and
 channel step, a flush of the non-zero bins to the global result.  Three
 kernels, each the counterpart of a Pallas kernel of
@@ -9,8 +9,9 @@ kernels, each the counterpart of a Pallas kernel of
 
   * K2 ``hist``: counts; ``reorder`` rotates the channel order by the
     pixel's row within the tile (``hist2``, Listing 2),
-  * K3 ``hist_instrumented``: K2 plus the per-wave degrees of the
-    step-major committed stream (K1, ``csrc/wave_degrees.cuh``),
+  * K3 ``hist_instrumented``: K2's counts plus the per-wave degrees of the
+    step-major committed stream (K1, ``csrc/wave_degrees.cuh``), a warp
+    per wave of that stream,
   * K4 ``hist_weighted``: f32 sums of a per-pixel weight (the CAS class).
 
 ``histogram_launch`` runs the kernel for a CUDA tensor and the plain

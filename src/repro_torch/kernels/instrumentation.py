@@ -9,8 +9,9 @@ duplicate count in the group.  It feeds the paper's ``O`` counter
 for bit.
 
 On the card K1 is not a kernel of its own: it is the warp-level device
-function in ``csrc/wave_degrees.cuh``, inlined into the instrumented
-histogram kernel (K3).  ``wave_degrees_plain`` is its plain version, which
+function in ``csrc/wave_degrees.cuh`` (a ballot for a group of one value,
+else a bitonic sort of the group across the warp and its longest run),
+inlined into the instrumented kernels K3 and K6.  ``wave_degrees_plain`` is its plain version, which
 the CPU path runs and against which the kernel's degrees are checked.
 """
 

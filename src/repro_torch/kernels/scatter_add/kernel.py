@@ -10,8 +10,10 @@ each the counterpart of a Pallas kernel of
     int32 ids into (S, D) f32, through a shared-memory copy of the result
     when it fits ``SHARED_BUDGET`` and with global atomics otherwise
     (``scatter_route``),
-  * K6 ``scatter_add_instrumented``: K5 on a committed id stream, plus the
-    stream's per-wave degrees (K1, ``csrc/wave_degrees.cuh``),
+  * K6 ``scatter_add_instrumented``: K5's sums on a committed id stream,
+    plus the stream's per-wave degrees (K1, ``csrc/wave_degrees.cuh``), in
+    one pass of a warp per wave that adds once per distinct id of each
+    commit group,
   * K7 ``bincount``: int32 occurrence counts, S <= 8192.
 
 Each launcher runs its kernel for a CUDA tensor and the plain torch

@@ -19,6 +19,7 @@ from repro.kernels import instrumentation as ref_instr
 from repro.kernels.histogram import ops as ref_ops
 from repro.kernels.histogram import ref as ref_ref
 from repro_torch.core import timing
+from repro_torch.data import streams
 from repro_torch.kernels import instrumentation as instr
 from repro_torch.kernels.histogram import kernel as hk
 from repro_torch.kernels.histogram import ops, ref
@@ -148,6 +149,30 @@ def test_three_channels_rotate_by_row_within_tile(n_pixels, variant):
     np.testing.assert_array_equal(
         ops.histogram(img, variant=variant, torch_device=CPU).numpy(),
         np.asarray(ref_ops.histogram(jnp.asarray(img), variant=variant)))
+
+
+ADVERSARIAL = streams.adversarial_streams()
+
+
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("channels", [3, 4])
+def test_degrees_of_adversarial_images_equal_reference(name, channels):
+    """Each designed stream laid out as an image (its ``hist`` commit
+    groups are the stream's): K3's plain degrees for ``hist`` and
+    ``hist2`` against the reference's committed stream and
+    ``_degrees_full_waves``, bit for bit; at C = 3 a pixel group's steps
+    straddle waves, and the int32 extremes wrap the flat index."""
+    img = streams.stream_image(ADVERSARIAL[name], channels)
+    for variant, reorder in (("hist", False), ("hist2", True)):
+        committed = ref_ops.committed_index_stream(img, variant=variant)
+        np.testing.assert_array_equal(
+            ops.committed_index_stream(img, variant=variant), committed)
+        _, deg = hk.histogram_instrumented_plain(torch.as_tensor(img), 256,
+                                                 reorder)
+        np.testing.assert_array_equal(
+            deg.numpy().reshape(-1).astype(np.float64),
+            ref_counters._degrees_full_waves(committed.reshape(-1, 1024),
+                                             32))
 
 
 def test_out_of_range_values_land_like_the_reference():

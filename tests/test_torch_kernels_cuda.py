@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.analysis import Session, WorkloadSpec
 from repro_torch.core import counters, microbench
+from repro_torch.data import streams
 from repro_torch.data.images import make_image
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -152,6 +153,53 @@ def test_scatter_kernels_match_plain(cuda, n, d, s, dtype, kind):
                                      32))
     assert torch.equal(counts, sk.bincount_plain(
         ids, min(s, sk.MAX_BINCOUNT_SEGMENTS)))
+
+
+ADVERSARIAL = streams.adversarial_streams()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("d,s", [(1, 4096), (1, 32768), (8, 1024), (8, 4096),
+                                 (64, 256), (64, 1024)])
+def test_k6_on_adversarial_streams(cuda, name, d, s):
+    """K6 on each designed stream, on the shared route and on the global
+    one at d = 1, 8 and 64, with values for all but the last 37 rows:
+    degrees bit-equal, sums within rtol/atol 1e-5."""
+    stream_np = ADVERSARIAL[name]
+    ids = torch.as_tensor(stream_np, device=cuda)
+    n = stream_np.size - 37
+    vals = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (n, d), np.float32), device=cuda)
+    out, deg = sk.scatter_add_instrumented_launch(vals, ids, s)
+    torch.cuda.synchronize()
+    p_out, p_deg = sk.scatter_add_instrumented_plain(vals, ids, s)
+    torch.testing.assert_close(out, p_out, rtol=1e-5, atol=1e-5)
+    assert torch.equal(deg, p_deg)
+    np.testing.assert_array_equal(
+        deg.cpu().numpy().astype(np.float64),
+        counters._degrees_full_waves(stream_np.reshape(-1, 1024), 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("reorder", [False, True])
+def test_k3_on_adversarial_streams(cuda, name, channels, reorder):
+    """K3 on each designed stream laid out as an image: counts and degrees
+    bit-equal to the plain version and to the committed stream's."""
+    img_np = streams.stream_image(ADVERSARIAL[name], channels)
+    img = torch.as_tensor(img_np, device=cuda)
+    counts, deg = hk.histogram_launch(img, reorder=reorder, instrumented=True)
+    torch.cuda.synchronize()
+    p_counts, p_deg = hk.histogram_instrumented_plain(img, 256, reorder)
+    assert torch.equal(counts, p_counts)
+    assert torch.equal(deg, p_deg)
+    committed = ops.committed_index_stream(
+        img_np, variant="hist2" if reorder else "hist")
+    np.testing.assert_array_equal(
+        deg.cpu().numpy().reshape(-1).astype(np.float64),
+        counters._degrees_full_waves(committed.reshape(-1, 1024), 32))
 
 
 @pytest.mark.cuda

@@ -21,13 +21,17 @@ import torch
 
 from repro.analysis import Session as RefSession
 from repro.analysis import WorkloadSpec as RefSpec
+from repro.core import counters as ref_counters
 from repro.core import microbench as ref_microbench
+from repro.kernels import instrumentation as ref_instr
 from repro.kernels.scatter_add import ops as ref_ops
 from repro.kernels.scatter_add import ref as ref_ref
 from repro_torch import convert
 from repro_torch.analysis import Session, WorkloadSpec
 from repro_torch.analysis.providers import InstrumentedKernelProvider
 from repro_torch.core import counters, microbench
+from repro_torch.data import streams
+from repro_torch.kernels import instrumentation as instr
 from repro_torch.kernels.scatter_add import kernel as sk
 from repro_torch.kernels.scatter_add import ops, ref
 
@@ -141,6 +145,33 @@ def test_committed_id_stream_bitwise(s, n):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         ops.committed_id_stream(torch.as_tensor(ids), s), want)
+
+
+ADVERSARIAL = streams.adversarial_streams()
+
+
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+def test_degrees_of_adversarial_streams_equal_reference(name):
+    """K1's plain version, K6's plain version and the port's trace
+    synthesis against the reference's ``wave_degrees`` and
+    ``_degrees_full_waves``, bit for bit, on each designed stream; the
+    value rows stop short of the stream, as past n in a committed one."""
+    stream = ADVERSARIAL[name]
+    got = instr.wave_degrees_plain(torch.as_tensor(stream))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref_instr.wave_degrees(jnp.asarray(stream))))
+    want = ref_counters._degrees_full_waves(stream.reshape(-1, 1024), 32)
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
+    np.testing.assert_array_equal(
+        counters._degrees_full_waves(stream.reshape(-1, 1024), 32), want)
+    vals = torch.ones((stream.size - 37, 1))
+    sums, deg = sk.scatter_add_instrumented_launch(
+        vals, torch.as_tensor(stream), streams.SEGMENTS)
+    assert torch.equal(deg, got)
+    kept = stream[:stream.size - 37]
+    kept = kept[(kept >= 0) & (kept < streams.SEGMENTS)]
+    np.testing.assert_array_equal(
+        sums[:, 0].numpy(), np.bincount(kept, minlength=streams.SEGMENTS))
 
 
 @pytest.mark.parametrize("s", [128, 8192])
