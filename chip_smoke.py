@@ -17,13 +17,14 @@ each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
-   and list the atomics each compiled to, and whether K3 and K6 still
-   hold a ``MATCH``;
+   list the atomic and warp-wide opcodes each compiled to, and require
+   that K2 kept one shared atomic per pixel and step, that K5's vector
+   route adds 16 bytes at once, and that K4 and K5 spill no register;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at padded and odd shapes (K3 and K6 also on the
-   designed commit groups of ``repro_torch.data.streams``; K8 also at the
-   reference test's shapes, blocks and bounds, and on its Hopper route
-   at ragged T, before any model is on the card);
+   main paths' shapes and at padded and odd shapes (K3-K6 also on the
+   designed commit groups of ``repro_torch.data.streams``, K5 on each of
+   its routes; K8 also at the reference test's shapes, blocks and bounds,
+   and on its Hopper route at ragged T, before any model is on the card);
 3. drive each main path with every launch count set to 0 just before it
    and read just after: the histogram path as ``examples/quickstart.py``
    and ``repro compare`` run it, then the scatter path, then serving;
@@ -145,10 +146,11 @@ def card_line() -> str:
 
 
 def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
-    """Atomic, reduction, match, tensor-core, TMA and barrier opcodes per
+    """Atomic, reduction, warp, tensor-core, TMA and barrier opcodes per
     kernel instantiation in the SASS (shared-memory ``ATOMS``, global
-    ``ATOMG``/``RED``, ``HMMA`` of ``mma.sync``, ``HGMMA`` of ``wgmma``,
-    ``UTMALDG`` of a TMA load, ``SYNCS`` of an ``mbarrier``)."""
+    ``ATOMG``/``RED``, ``MATCH``, ``VOTE`` of a ballot, ``SHFL``, ``HMMA``
+    of ``mma.sync``, ``HGMMA`` of ``wgmma``, ``UTMALDG`` of a TMA load,
+    ``SYNCS`` of an ``mbarrier``)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True,
@@ -162,26 +164,32 @@ def sass_atomics(lib_path: Path) -> dict[str, list[str]]:
         elif func:
             words = line.split(";")[0].split("*/")[-1].split()
             op = next((w for w in words if not w.startswith("@")), "")
-            if op.startswith(("ATOM", "RED", "MATCH", "HMMA", "HGMMA",
-                              "UTMALDG", "SYNCS")):
+            if op.startswith(("ATOM", "RED", "MATCH", "VOTE", "SHFL",
+                              "HMMA", "HGMMA", "UTMALDG", "SYNCS")):
                 found[func].add(op)
     return {_template_args(f): sorted(ops) for f, ops in found.items()}
 
 
 # each kernel template's bool parameters, in order
-_FLAGS = {"hist_kernel": ("reorder", "weighted"),
+_FLAGS = {"hist_kernel": ("reorder",),
+          "hist_weighted_kernel": ("reorder",),
           "hist_instrumented_kernel": ("reorder",),
-          "scatter_kernel": ("shared",),
+          "scatter_rows_kernel": ("shared",),
+          "scatter_tiles_kernel": ("shared", "vector"),
+          "scatter_owned_kernel": (),
           "scatter_instrumented_kernel": ("shared",)}
 _VALUE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def _template_args(mangled: str) -> str:
-    """``hist_kernel<reorder,...>``, ``scatter_kernel<bf16,shared>``,
+    """``hist_kernel<reorder>``, ``scatter_tiles_kernel<bf16,vector>``,
+    ``scatter_rows_kernel<f32,shared>``,
     ``scatter_instrumented_kernel<shared>`` or ``bincount_kernel`` from a
     mangled name."""
-    m = re.search(r"(hist_kernel|hist_instrumented_kernel|scatter_kernel|"
-                  r"scatter_instrumented_kernel|bincount_kernel)(I?)", mangled)
+    m = re.search(r"(hist_kernel|hist_weighted_kernel|hist_instrumented_kernel|"
+                  r"scatter_rows_kernel|scatter_tiles_kernel|"
+                  r"scatter_owned_kernel|scatter_instrumented_kernel|"
+                  r"bincount_kernel)(I?)", mangled)
     flash = re.search(r"(flash_(?:f32|bf16|bf16_sm90)_kernel)ILi(\d+)E",
                       mangled)
     if flash:
@@ -283,9 +291,12 @@ def dispatch_ids(kind: str, n: int = DISPATCH_TOKENS,
 
 def scatter_ids(kind: str, n: int = SCATTER_IDS,
                 segments: int = SCATTER_SEGMENTS) -> np.ndarray:
-    """A solid (one segment) or uniform id stream."""
+    """A solid (one segment), uniform or skewed (1/k^1.3) id stream."""
+    from repro_torch.data import streams
     if kind == "solid":
         return np.full(n, segments // 2, np.int32)
+    if kind == "skewed":
+        return streams.skewed_ids(n, segments, seed=1)
     return np.random.default_rng(1).integers(0, segments, n).astype(np.int32)
 
 
@@ -335,7 +346,7 @@ def check_scatter_kernels(dev) -> dict[str, float]:
         torch.testing.assert_close(got, plain, **F32_TOL,
                                    msg=f"K5 sums, {case}")
         err["scatter_add"] = max(err["scatter_add"], _abs_err(got, plain))
-        log(f"  K5 {case} ({sk.scatter_route(segments, vals.shape[1])}): "
+        log(f"  K5 {case} ({sk.scatter_add_route(vals, segments)}): "
             f"max |err| {_abs_err(got, plain):.3g}")
 
     def k6(case, ids_np, vals, segments):
@@ -409,14 +420,21 @@ def check_scatter_kernels(dev) -> dict[str, float]:
 ADVERSARIAL_K6 = ((1, 4096), (1, 32768), (8, 1024), (8, 4096), (64, 256),
                   (64, 1024))
 ADVERSARIAL_SHORT = 37      # value rows short of the stream: they add nothing
+# K5 on the adversarial streams: (d, S) on the shared route, on the global
+# one with scalar adds (d = 1), with vector adds (d = 8) and with owned
+# rows (d = 2048)
+ADVERSARIAL_K5 = ((1, 4096), (1, 32768), (8, 1024), (8, 4096), (2048, 4096))
 
 
 def check_adversarial(dev, err: dict[str, float]) -> None:
-    """K3 and K6 on ``repro_torch.data.streams``' designed commit groups:
-    K3 (C = 3, 4; hist and hist2) on each stream laid out as an image,
-    counts and degrees bit-equal; K6 (ADVERSARIAL_K6) on each stream with
-    values for all but its last ADVERSARIAL_SHORT rows, degrees bit-equal
-    and sums within F32_TOL.  Raises the max |err| entries in ``err``."""
+    """K3, K4, K5 and K6 on ``repro_torch.data.streams``' designed commit
+    groups: K3 and K4 (C = 3, 4; hist and hist2) on each stream laid out as
+    an image, K3's counts and degrees bit-equal, K4's sums (random weights,
+    a fifth of them 0) within F32_TOL; K5 (ADVERSARIAL_K5, f32 and bf16)
+    and K6 (ADVERSARIAL_K6) on each stream cut to its first n = size -
+    ADVERSARIAL_SHORT rows (so that K5's last warp is partial) within
+    F32_TOL, K6's degrees of the whole stream bit-equal.  Raises the max
+    |err| entries in ``err``."""
     import torch
 
     from repro_torch.core import counters
@@ -447,6 +465,16 @@ def check_adversarial(dev, err: dict[str, float]) -> None:
                     counters._degrees_full_waves(
                         committed.reshape(-1, 1024), 32)),
                     f"K3 degrees vs committed stream, {case}")
+                w_np = rng.random(img_np.shape[0]).astype(np.float32)
+                w_np[::5] = 0.0
+                w = torch.as_tensor(w_np, device=dev)
+                sums = hk.histogram_launch(img, reorder=reorder, weights=w)
+                torch.cuda.synchronize()
+                p_sums = hk.histogram_weighted_plain(img, w, NUM_BINS)
+                torch.testing.assert_close(sums, p_sums, **F32_TOL,
+                                           msg=f"K4 sums, {case}")
+                err["hist_weighted"] = max(err["hist_weighted"],
+                                           _abs_err(sums, p_sums))
         ids = torch.as_tensor(stream_np, device=dev)
         want_deg = counters._degrees_full_waves(stream_np.reshape(-1, 1024),
                                                 32)
@@ -468,9 +496,27 @@ def check_adversarial(dev, err: dict[str, float]) -> None:
                      f"K6 degrees vs committed stream, {case}")
             err["scatter_add_instrumented"] = max(
                 err["scatter_add_instrumented"], _abs_err(out, p_out))
-    log(f"  K3 (C = 3, 4; hist, hist2) and K6 ({len(ADVERSARIAL_K6)} d/S "
-        f"cases) on {len(cases)} adversarial streams: degrees and K3 counts "
-        f"bit-equal, K6 sums within {F32_TOL}")
+        routes = set()
+        for d, segments in ADVERSARIAL_K5:
+            for dtype in (torch.float32, torch.bfloat16):
+                vals = torch.as_tensor(rng.standard_normal((n, d), np.float32),
+                                       device=dev).to(dtype)
+                route = sk.scatter_add_route(vals, segments)
+                routes.add(route)
+                case = (f"{name}, {n} x {d} {str(dtype)[6:]} -> {segments} "
+                        f"({route})")
+                got = sk.scatter_add_launch(vals, ids[:n], segments)
+                torch.cuda.synchronize()
+                plain = sk.scatter_add_plain(vals, ids[:n], segments)
+                torch.testing.assert_close(got, plain, **F32_TOL,
+                                           msg=f"K5 sums, {case}")
+                err["scatter_add"] = max(err["scatter_add"],
+                                         _abs_err(got, plain))
+    log(f"  K3 and K4 (C = 3, 4; hist, hist2), K5 ({len(ADVERSARIAL_K5)} d/S "
+        f"cases x f32, bf16; routes {sorted(routes)}) and K6 "
+        f"({len(ADVERSARIAL_K6)} d/S cases) on {len(cases)} adversarial "
+        f"streams: degrees and K3 counts bit-equal, K4, K5 and K6 sums within "
+        f"{F32_TOL}")
 
 
 def flash_case(b, h, kv, t, d, dtype, dev, seed=0):
@@ -1313,6 +1359,18 @@ def time_scatter_kernels(dev) -> dict:
                lambda: sk.bincount_plain(k7_ids, 8192),
                lambda: torch.bincount(k7_ids64, minlength=8192),
                n * 4 + 8192 * 4, n)
+    ids_np = scatter_ids("skewed")
+    ids = torch.as_tensor(ids_np, device=dev)
+    ids64 = ids.to(torch.int64)
+    vals = torch.as_tensor(rng.random((ids_np.size, 1), np.float32),
+                           device=dev)
+    n = ids_np.size
+    record("scatter_add", "skewed 4Mi x 1 f32",
+           lambda: sk.scatter_add_launch(vals, ids, segs),
+           lambda: sk.scatter_add_plain(vals, ids, segs),
+           lambda: torch.zeros((segs, 1), device=dev).index_add_(
+               0, ids64, vals),
+           n * 4 + n * 4 + segs * 4, n)
     d_ids = torch.as_tensor(dispatch_ids("balanced"), device=dev)
     d_ids64 = d_ids.to(torch.int64)
     record("bincount", "dispatch 64Ki -> 128",
@@ -1421,6 +1479,14 @@ def main() -> int:
                 func = _template_args(entry.group(1))
             elif any(w in line for w in ("registers", "spill", "warning")):
                 log(f"  ptxas {func}: {line.split(':', 1)[-1].strip()}")
+                # K4 and K5 (this design's warp sums) must not spill
+                spills = re.findall(r"(\d+) bytes spill", line)
+                _require(not (func.startswith(("hist_weighted_kernel",
+                                               "scatter_rows_kernel",
+                                               "scatter_tiles_kernel",
+                                               "scatter_owned_kernel"))
+                              and any(int(b) for b in spills)),
+                         f"{func} spills registers: {line.strip()}")
     for d in (64, 128):
         log(f"  flash_bf16_sm90_kernel<{d}>: {fk.shared_memory_bytes(d)} "
             f"bytes of dynamic shared memory a block")
@@ -1429,6 +1495,17 @@ def main() -> int:
         sass.update(sass_atomics(_build.library_path(lib)))
     for func, ops in sass.items():
         log(f"  SASS {func}: {' '.join(ops)}")
+    # K2 keeps one shared atomic per pixel and step: no warp aggregation
+    # (K4 and K5 aggregate f32 adds; K5's global route adds 16-byte parts)
+    for func, ops in sass.items():
+        if func.split("<")[0] == "hist_kernel":
+            _require([op for op in ops if op.startswith(("ATOM", "RED"))]
+                     == ["ATOMS.POPC.INC.32", "REDG.E.ADD.STRONG.GPU"]
+                     and not any(op.startswith(("MATCH", "SHFL"))
+                                 for op in ops), f"K2 {func}: SASS {ops}")
+        if func.startswith("scatter_tiles_kernel<") and "vector" in func:
+            _require(any(op.startswith("REDG") and "F32x4" in op
+                         for op in ops), f"K5 {func}: no vector add in {ops}")
     # K3 and K6 take K1's degree by a sort of shuffles, not MATCH.ANY
     for func, ops in sass.items():
         if func.split("<")[0] in ("hist_instrumented_kernel",

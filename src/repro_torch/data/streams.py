@@ -8,8 +8,10 @@ ones, two alternating values, 31 distinct values and one duplicate, a
 16 + 16 split, ``-1`` strays in pairs, a partial wave padded with unique
 out-of-range sentinels (as ``scatter_add.ops.committed_id_stream`` pads),
 int32 extremes (where a signed and an unsigned order differ, and where a
-histogram's flat index wraps), a run of every length 1 ... 32, and Tool
-1's designed patterns at e = 1 ... 32.  ``stream_image`` lays a stream
+histogram's flat index wraps), a run of every length 1 ... 32, Tool 1's
+designed patterns at e = 1 ... 32, and a skewed stream (``skewed_ids``:
+a few hot ids, a long tail, as a router's expert choice or a token
+distribution gives).  ``stream_image`` lays a stream
 out as an (N, C) image whose step-major committed stream (K3's, ``hist``)
 has the same groups.
 """
@@ -23,6 +25,19 @@ from repro_torch.core.microbench import make_pattern
 LANES, GROUP = 1024, 32
 SEGMENTS = 4096          # the id range the streams mostly fall in
 PATTERN_E = (1, 2, 4, 8, 16, 32)
+SKEW = 1.3               # the exponent of skewed_ids' 1/k law
+SKEWED_WAVES = 4
+
+
+def skewed_ids(n: int, segments: int = SEGMENTS, seed: int = 0) -> np.ndarray:
+    """``n`` int32 ids in [0, segments) drawn from P(id = k - 1) ~ 1/k^SKEW,
+    by inverse CDF from ``rng.random`` (numpy's zipf draws differ between
+    installations; these do not): id 0 about a quarter of the draws at 4096
+    segments, then a long tail."""
+    cdf = np.cumsum(np.arange(1, segments + 1, dtype=np.float64) ** -SKEW)
+    u = np.random.default_rng(seed).random(n) * cdf[-1]
+    return np.minimum(np.searchsorted(cdf, u, side="right"),
+                      segments - 1).astype(np.int32)
 
 
 def _groups(rows) -> np.ndarray:
@@ -66,6 +81,7 @@ def adversarial_streams(seed: int = 0) -> dict[str, np.ndarray]:
     for e in PATTERN_E:
         out[f"make_pattern e={e}"] = make_pattern(2, e, SEGMENTS,
                                                   seed=seed + e).reshape(-1)
+    out[f"skewed 1/k^{SKEW}"] = skewed_ids(SKEWED_WAVES * LANES, seed=seed)
     return out
 
 

@@ -5,10 +5,12 @@
 //   K3  _hist_instrumented_kernel  (K2 plus K1's per-wave degrees)
 //   K4  _hist_weighted_kernel      (f32 sums of a per-pixel weight)
 // The TPU kernels commit each tile with a one-hot reduction into a VMEM
-// accumulator.  On Hopper they become what they were in the paper
+// accumulator.  On Hopper K2 and K3 become what they were in the paper
 // (Listings 1-2): each block keeps a C x num_bins sub-histogram in shared
 // memory, every thread atomicAdds its pixel's channels into it, and the
 // block flushes its non-zero bins to the global result with atomicAdd.
+// K4 sums its f32 weights the same way, but equal bins within a warp first
+// (warp_aggregate.cuh), into a padded copy.
 //
 // Semantics kept from the reference:
 //   * The TPU tile (2048 pixels) is semantics, not a block size: `hist2`
@@ -21,15 +23,28 @@
 //   * A value is dropped only when its flat index ch * num_bins + v falls
 //     outside [0, C * num_bins): a value >= num_bins inside that range lands
 //     in the next channel's bins.  The same check keeps every write in
-//     bounds.  The flat index wraps like the reference's int32 arithmetic.
+//     bounds, and comes before any sum.  The flat index wraps like the
+//     reference's int32 arithmetic.
+//
+// K2 keeps one shared atomic per pixel and channel step, on purpose: its
+// hist/hist2 contrast is the contention the paper models and the tool
+// diagnoses (a solid image sends all 32 lanes of a warp to one bin), and
+// the design does nothing to hide that; the wide shared accumulator keeps
+// the global atomics to one flush per block.  K4 may aggregate: the model's
+// counters come from K1's degrees of the committed stream (K3's, or the
+// trace provider's), never from K4's time or atomic traffic, and the
+// reference sums with one-hot products, with no atomics.  Its sums are the
+// same up to the order of the f32 adds.
 //
 // Bound on an H100: bytes.  Each pixel's C int32 channels are read once
 // (67.1 MB for the 4 Mpx x 4 channel case-study image, about 20 us at
 // 3.35 TB/s; K4 adds 4 bytes of weight a pixel).  What the data can make
-// slow is the shared-memory atomic unit itself: a solid image sends all 32
-// lanes of a warp to one bin, which is the contention the paper models.
-// The design does nothing to hide that, on purpose; the wide shared
-// accumulator keeps the global atomics to one flush per block.
+// slow is the shared-memory atomic unit: K2 and K3 count with the POPC
+// increment, and K4's f32 add is a CAS loop.  Measured on an NVIDIA H100
+// 80GB HBM3 at 700.00 W (chip_smoke.py, the 4 Mpx x 4 image; ms, bound in
+// brackets): K2 0.0321 solid, 0.0383 uniform (0.0200); K3 0.0425 solid,
+// 0.0826 uniform (0.0201); K4 0.0575 solid and 0.1247 solid `hist2`,
+// 0.0599 uniform (0.0250).  PERF.md has every case.
 //
 // K3's degrees: the reference commits channel step s of a 32-pixel group
 // together, so commit group q of the stream is step q % C of pixel group
@@ -49,8 +64,7 @@
 // cost of each candidate).
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
+#include "warp_aggregate.cuh"
 #include "wave_degrees.cuh"
 
 namespace {
@@ -58,18 +72,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChunk = REPRO_LANES;  // pixels a block of K2 or K4 walks per chunk
 constexpr int kInstrumentedBlocksPerSm = 8;  // K3: see the note above
+constexpr int kWeightedThreads = 1024;       // K4: a pixel to a thread of the chunk
 
-template <bool kReorder, bool kWeighted>
+// K2: one shared atomicAdd(int) per pixel and channel step.
+template <bool kReorder>
 __global__ void __launch_bounds__(kThreads)
-    hist_kernel(const int* __restrict__ img, const float* __restrict__ weights,
-                void* __restrict__ out, long long n, long long num_chunks, int C,
-                int num_bins, int tile) {
-  using Acc = typename std::conditional<kWeighted, float, int>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Acc* sh = reinterpret_cast<Acc*>(smem);
+    hist_kernel(const int* __restrict__ img, int* __restrict__ out, long long n,
+                long long num_chunks, int C, int num_bins, int tile) {
+  extern __shared__ __align__(16) int counts[];
   const int bins = C * num_bins;
 
-  for (int i = threadIdx.x; i < bins; i += blockDim.x) sh[i] = Acc(0);
+  for (int i = threadIdx.x; i < bins; i += blockDim.x) counts[i] = 0;
   __syncthreads();
 
   for (long long chunk = blockIdx.x; chunk < num_chunks; chunk += gridDim.x) {
@@ -77,28 +90,72 @@ __global__ void __launch_bounds__(kThreads)
       const long long p = chunk * kChunk + j + threadIdx.x;
       const bool real = p < n;
       const int rot = kReorder ? (int)(p % tile) : 0;
-      float w = 0.0f;
-      if (kWeighted && real) w = weights[p];
       for (int s = 0; s < C; ++s) {
         const int ch = kReorder ? (s + rot) % C : s;
         const int v = real ? img[p * C + ch] : 0;
         const int flat = (int)((unsigned)ch * (unsigned)num_bins + (unsigned)v);
-        if (real && (unsigned)flat < (unsigned)bins) {
-          if constexpr (kWeighted)
-            atomicAdd(&sh[flat], w);
-          else
-            atomicAdd(&sh[flat], 1);
-        }
+        if (real && (unsigned)flat < (unsigned)bins) atomicAdd(&counts[flat], 1);
       }
     }
   }
 
   __syncthreads();
-  Acc* dst = reinterpret_cast<Acc*>(out);
   for (int i = threadIdx.x; i < bins; i += blockDim.x) {
-    const Acc v = sh[i];
-    if (v != Acc(0)) atomicAdd(&dst[i], v);
+    const int c = counts[i];
+    if (c != 0) atomicAdd(&out[i], c);
   }
+}
+
+// K4: a thread to a pixel, a block to a 1024-pixel chunk, into a padded
+// shared copy (padded_slot: one value's bins in the C channels fall in C
+// different banks), flushed once a block.  Step 0 of a chunk decides for
+// the warp how the chunk's C steps add: when lane 0's flat index fills
+// kMatchLanes lanes or more (or the warp is hot), every step goes through
+// add_aggregated (the note at the top); otherwise each lane adds its own
+// weight, with no warp-wide instruction between its CAS loops, as K2 adds
+// its counts.  The chunk loop is uniform across the block, so every lane
+// of a warp runs the same steps; a pixel past n takes the neutral flat
+// index -1.
+template <bool kReorder>
+__global__ void __launch_bounds__(kWeightedThreads)
+    hist_weighted_kernel(const int* __restrict__ img, const float* __restrict__ weights,
+                         float* __restrict__ out, long long n, long long num_chunks, int C,
+                         int num_bins, int tile) {
+  static_assert(kChunk == kWeightedThreads, "a thread to a pixel of the chunk");
+  __shared__ float scratch[kWeightedThreads];  // a warp's 32 words each
+  extern __shared__ __align__(16) float sums[];
+  const int bins = C * num_bins;
+
+  for (int i = threadIdx.x; i < repro_agg::padded_slot(bins); i += blockDim.x)
+    sums[i] = 0.0f;
+  __syncthreads();
+
+  float* const warp_scratch = scratch + (threadIdx.x & ~31u);
+  bool hot = false;  // add_aggregated's state
+  for (long long chunk = blockIdx.x; chunk < num_chunks; chunk += gridDim.x) {
+    const long long p = chunk * kChunk + threadIdx.x;
+    const bool real = p < n;
+    const float w = real ? weights[p] : 0.0f;
+    // hist2's channel (s + p % tile) % C, stepped without a division; p
+    // and p * C fit 32 bits (the host checked n * C < 2^31)
+    int ch = kReorder ? (int)((unsigned)p % (unsigned)tile % (unsigned)C) : 0;
+    bool contended = hot;
+    for (int s = 0; s < C; ++s, ch = ch + 1 == C ? 0 : ch + 1) {
+      const int v = real ? img[p * C + ch] : 0;
+      const int flat = real ? (int)((unsigned)ch * (unsigned)num_bins + (unsigned)v) : -1;
+      if (s == 0 && !contended)
+        contended = (unsigned)__popc(__ballot_sync(
+                        repro_k1::kFull, flat == __shfl_sync(repro_k1::kFull, flat, 0))) >=
+                    repro_k1::kMatchLanes;
+      if (contended)
+        repro_agg::add_aggregated</*kPadded=*/true>(sums, flat, w, (unsigned)bins, hot,
+                                                    warp_scratch);
+      else if ((unsigned)flat < (unsigned)bins)
+        atomicAdd(&sums[repro_agg::padded_slot(flat)], w);
+    }
+  }
+
+  repro_agg::flush_copy</*kPadded=*/true>(sums, out, bins);
 }
 
 // K3, a warp to a wave of the committed stream (the note at the top).
@@ -153,10 +210,11 @@ __global__ void __launch_bounds__(kThreads, kInstrumentedBlocksPerSm)
   }
 }
 
-// As many blocks as fit on the card at once, but no more than the work
-// needs (`work` items, kThreads to a block).
+// As many blocks of `threads` as fit on the card at once, but no more than
+// the work needs (`work` blocks).
 template <typename Kernel>
-int grid_for(Kernel kernel, size_t smem, long long work, unsigned* grid) {
+int grid_for(Kernel kernel, size_t smem, long long work, unsigned* grid,
+             int threads = kThreads) {
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -167,7 +225,7 @@ int grid_for(Kernel kernel, size_t smem, long long work, unsigned* grid) {
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
   long long g = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (g > work) g = work;
@@ -175,16 +233,30 @@ int grid_for(Kernel kernel, size_t smem, long long work, unsigned* grid) {
   return 0;
 }
 
-template <bool kReorder, bool kWeighted>
-int launch(const void* img, const void* weights, void* out, int n, int num_chunks, int C,
-           int num_bins, int tile, void* stream) {
-  auto kernel = hist_kernel<kReorder, kWeighted>;
+template <bool kReorder>
+int launch(const void* img, void* out, int n, int num_chunks, int C, int num_bins, int tile,
+           void* stream) {
+  auto kernel = hist_kernel<kReorder>;
   const size_t smem = (size_t)C * num_bins * 4;
   unsigned grid = 0;
   const int err = grid_for(kernel, smem, num_chunks, &grid);
   if (err) return err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)img, (const float*)weights, out, n, num_chunks, C, num_bins, tile);
+      (const int*)img, (int*)out, n, num_chunks, C, num_bins, tile);
+  return (int)cudaGetLastError();
+}
+
+template <bool kReorder>
+int launch_weighted(const void* img, const void* weights, void* out, int n, int num_chunks,
+                    int C, int num_bins, int tile, void* stream) {
+  auto kernel = hist_weighted_kernel<kReorder>;
+  const int bins = C * num_bins;
+  const size_t smem = (size_t)(bins + (bins >> 5)) * 4;  // padded_slot(bins) words
+  unsigned grid = 0;
+  const int err = grid_for(kernel, smem, num_chunks, &grid, kWeightedThreads);
+  if (err) return err;
+  kernel<<<grid, kWeightedThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)img, (const float*)weights, (float*)out, n, num_chunks, C, num_bins, tile);
   return (int)cudaGetLastError();
 }
 
@@ -211,16 +283,17 @@ extern "C" {
 int repro_hist(const void* img, void* out, int n, int C, int num_bins, int tile,
                int reorder, void* stream) {
   const int chunks = (n + kChunk - 1) / kChunk;
-  return reorder ? launch<true, false>(img, nullptr, out, n, chunks, C, num_bins, tile, stream)
-                 : launch<false, false>(img, nullptr, out, n, chunks, C, num_bins, tile, stream);
+  return reorder ? launch<true>(img, out, n, chunks, C, num_bins, tile, stream)
+                 : launch<false>(img, out, n, chunks, C, num_bins, tile, stream);
 }
 
 // K4.  weights: (n,) f32; out: (C, num_bins) f32, zeroed by the caller.
 int repro_hist_weighted(const void* img, const void* weights, void* out, int n, int C,
                         int num_bins, int tile, int reorder, void* stream) {
   const int chunks = (n + kChunk - 1) / kChunk;
-  return reorder ? launch<true, true>(img, weights, out, n, chunks, C, num_bins, tile, stream)
-                 : launch<false, true>(img, weights, out, n, chunks, C, num_bins, tile, stream);
+  return reorder
+             ? launch_weighted<true>(img, weights, out, n, chunks, C, num_bins, tile, stream)
+             : launch_weighted<false>(img, weights, out, n, chunks, C, num_bins, tile, stream);
 }
 
 // K3.  n_pad: n rounded up to a whole tile (a multiple of 1024);

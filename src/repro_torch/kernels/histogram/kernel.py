@@ -12,7 +12,8 @@ kernels, each the counterpart of a Pallas kernel of
   * K3 ``hist_instrumented``: K2's counts plus the per-wave degrees of the
     step-major committed stream (K1, ``csrc/wave_degrees.cuh``), a warp
     per wave of that stream,
-  * K4 ``hist_weighted``: f32 sums of a per-pixel weight (the CAS class).
+  * K4 ``hist_weighted``: f32 sums of a per-pixel weight (the CAS class),
+    equal bins summed within a warp before they are added.
 
 ``histogram_launch`` runs the kernel for a CUDA tensor and the plain
 torch version for a CPU tensor; it never falls back from one to the
@@ -33,8 +34,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import instrumentation as instr
 
 DEFAULT_TILE = 2048
-# dynamic shared memory one block may opt into on Hopper (227 KB)
+# shared memory one block may opt into on Hopper (227 KB), static and
+# dynamic together
 MAX_SHARED_BYTES = 232448
+# K4's static shared memory: 32 words of scratch for each warp of its
+# 1024-thread block (csrc/histogram.cu: hist_weighted_kernel)
+WEIGHTED_STATIC_BYTES = 4 * 1024
 
 # kernel launches since the last reset_launches(), by kernel
 LAUNCHES = {"hist": 0, "hist_instrumented": 0, "hist_weighted": 0}
@@ -152,7 +157,12 @@ def _check_cuda(img: torch.Tensor, num_bins: int, tile: int,
                          f"{num_bins} bins")
     if padded_length(n, tile) * c >= 2 ** 31:
         raise ValueError(f"{n} px x {c} channels overflows int32 indexing")
-    smem = 4 * c * num_bins + (4 * c if instrumented else 0)
+    bins = c * num_bins
+    smem = 4 * (bins + (c if instrumented else 0))
+    if weights is not None:
+        # K4 pads its copy with a word after each 32
+        # (csrc/warp_aggregate.cuh: padded_slot), beside its scratch
+        smem = 4 * (bins + bins // 32) + WEIGHTED_STATIC_BYTES
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"{c} channels x {num_bins} bins needs {smem} B of "
                          f"shared memory; a block has {MAX_SHARED_BYTES}")

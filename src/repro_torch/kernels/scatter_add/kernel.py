@@ -8,8 +8,10 @@ each the counterpart of a Pallas kernel of
 
   * K5 ``scatter_add``: segment sums of (N, D) f32/bf16/f16 values by (N,)
     int32 ids into (S, D) f32, through a shared-memory copy of the result
-    when it fits ``SHARED_BUDGET`` and with global atomics otherwise
-    (``scatter_route``),
+    when it fits ``SHARED_BUDGET`` and with global atomics otherwise,
+    16-byte vector adds where the rows allow, and for wide rows with no
+    atomics, each output row summed by one block (``scatter_add_route``);
+    equal ids are summed within a warp before they are added,
   * K6 ``scatter_add_instrumented``: K5's sums on a committed id stream,
     plus the stream's per-wave degrees (K1, ``csrc/wave_degrees.cuh``), in
     one pass of a warp per wave that adds once per distinct id of each
@@ -40,6 +42,13 @@ MAX_BINCOUNT_SEGMENTS = 8192
 # 227 KB of shared memory
 SHARED_BUDGET = 96 * 1024
 VALUE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# K5's routes as its C entry point numbers them
+K5_ROUTES = {"global": 0, "shared": 1, "global-vector": 2, "global-owned": 3}
+# the owned route's least row, in values: vector tiles pay an L2 add per
+# value, owned rows pay their bytes and every block's read of every id;
+# owned rows won from 2048 values a row (f32 and bf16) and lost at 1024
+# (tools/bench_cas_kernels.py --routes, PERF.md)
+OWNED_MIN_COLUMNS = 2048
 
 # kernel launches since the last reset_launches(), by kernel
 LAUNCHES = {"scatter_add": 0, "scatter_add_instrumented": 0, "bincount": 0}
@@ -67,6 +76,23 @@ def scatter_route(num_segments: int, d: int) -> str:
     """``"shared"`` when the (S, D) f32 result fits one block's shared
     budget, else ``"global"``."""
     return "shared" if num_segments * d * 4 <= SHARED_BUDGET else "global"
+
+
+def scatter_add_route(values: torch.Tensor, num_segments: int) -> str:
+    """K5's route for ``values``: ``scatter_route``'s, and on the global
+    route, where each row splits into 16-byte parts (D a multiple of 4,
+    every row and the base 16-byte aligned) that the kernel loads whole,
+    ``"global-owned"`` for rows of ``OWNED_MIN_COLUMNS`` values or more
+    (each output row summed by one block, no atomics) and
+    ``"global-vector"`` (f32 vector adds) for narrower ones."""
+    d = values.shape[1]
+    route = scatter_route(num_segments, d)
+    row_bytes = d * values.element_size()
+    if (route == "global" and d % 4 == 0 and row_bytes % 16 == 0
+            and values.data_ptr() % 16 == 0):
+        return ("global-owned" if d >= OWNED_MIN_COLUMNS
+                else "global-vector")
+    return route
 
 
 def check_segment_blocking(num_segments: int, seg_block: int) -> None:
@@ -160,14 +186,14 @@ def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
     n, d = values.shape
     if ids.shape[0] != n:
         raise ValueError(f"{ids.shape[0]} ids for {n} value rows")
-    shared = scatter_route(num_segments, d) == "shared"
+    route = K5_ROUTES[scatter_add_route(values, num_segments)]
     out = torch.zeros((num_segments, d), dtype=torch.float32,
                       device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.raise_on_error(_lib().repro_scatter_add(
             values.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d,
-            num_segments, VALUE_DTYPES[values.dtype], int(shared), stream),
+            num_segments, VALUE_DTYPES[values.dtype], route, stream),
             "scatter_add")
     LAUNCHES["scatter_add"] += 1
     return out

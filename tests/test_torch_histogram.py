@@ -175,6 +175,26 @@ def test_degrees_of_adversarial_images_equal_reference(name, channels):
                                              32))
 
 
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("variant", ["hist", "hist2"])
+def test_weighted_histogram_of_adversarial_images_equals_reference(
+        name, channels, variant):
+    """K4 through the port's ops (its plain version, the kernel's
+    yardstick on the card) against the reference's Pallas kernel on each
+    designed stream laid out as an image, with random weights of which a
+    fifth are 0: flat indices that wrap or fall outside the range drop in
+    both; sums within rtol/atol 1e-5."""
+    img = streams.stream_image(ADVERSARIAL[name], channels)
+    w = np.random.default_rng(11).random(img.shape[0]).astype(np.float32)
+    w[::5] = 0.0
+    got = ops.histogram_weighted(img, w, variant=variant, torch_device=CPU)
+    want = ref_ops.histogram_weighted(jnp.asarray(img), jnp.asarray(w),
+                                      variant=variant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_out_of_range_values_land_like_the_reference():
     """A value >= num_bins inside the flat range lands in the next
     channel's bins; a flat index outside [0, C * num_bins) drops."""
@@ -186,6 +206,25 @@ def test_out_of_range_values_land_like_the_reference():
         got = ops.histogram(img, variant=variant, torch_device=CPU)
         want = ref_ops.histogram(jnp.asarray(img), variant=variant)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("num_bins, fits", [(55359, True), (55360, False)])
+def test_weighted_launch_counts_its_static_scratch(num_bins, fits):
+    """K4's block holds its padded copy (a word after each 32) and 4 KB of
+    per-warp scratch in one 227 KB budget: the largest one-channel weighted
+    histogram that fits has 55,359 bins, and one bin more is refused before
+    any launch."""
+    img = torch.zeros((64, 1), dtype=torch.int32)
+    w = torch.ones(64)
+    words = num_bins + num_bins // 32
+    assert (4 * words + hk.WEIGHTED_STATIC_BYTES <= hk.MAX_SHARED_BYTES) == fits
+    if fits:
+        hk._check_cuda(img, num_bins, hk.DEFAULT_TILE, w, False)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            hk._check_cuda(img, num_bins, hk.DEFAULT_TILE, w, False)
+    # the counting kernels have no scratch: they take the same bins
+    hk._check_cuda(img, num_bins, hk.DEFAULT_TILE, None, False)
 
 
 def test_wrappers_take_no_device_by_themselves():

@@ -8,7 +8,8 @@ reference package, so it runs on the machine with the card as it is:
 
 Counts and degrees must be bit-equal; K4's and K5/K6's f32 sums are held
 at rtol/atol 1e-5 to the plain versions' f64 sums, because float atomics
-add in a different order on every run.  K8's attention is held to the
+add in a different order on every run (K4 and K5 sum equal keys within a
+warp first, a shorter chain of f32 adds).  K8's attention is held to the
 reference's own bounds (``tests/test_kernels_flash.py``): 2e-4 in f32,
 3e-2 in bf16 at its T = 64.  At longer T a bf16 output is small (about
 0.03 at T = 2048), so there each element is held within 1.6e-2 |out| (two
@@ -179,6 +180,108 @@ def test_k6_on_adversarial_streams(cuda, name, d, s):
     np.testing.assert_array_equal(
         deg.cpu().numpy().astype(np.float64),
         counters._degrees_full_waves(stream_np.reshape(-1, 1024), 32))
+
+
+# (d, S) of each K5 route: shared copies of S x d f32 within the 96 KB
+# budget, global ones past it
+K5_ROUTES = {(1, "shared"): 4096, (1, "global"): 32768,
+             (8, "shared"): 1024, (8, "global"): 4096,
+             (64, "shared"): 256, (64, "global"): 1024,
+             (2048, "global"): 4096}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("d,route", list(K5_ROUTES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_on_adversarial_streams(cuda, name, d, route, dtype):
+    """K5 on each designed stream cut to its first size - 37 rows (a
+    partial last warp at d = 1), on both routes (the global one with
+    vector adds at d = 8, 64, and owned rows at d = 2048): sums within
+    rtol/atol 1e-5."""
+    s = K5_ROUTES[d, route]
+    ids_np = ADVERSARIAL[name][:-37]
+    ids = torch.as_tensor(ids_np, device=cuda)
+    vals = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (ids_np.size, d), np.float32), device=cuda).to(dtype)
+    assert sk.scatter_route(s, d) == route
+    if route == "global" and d > 1:
+        route = ("global-owned" if d >= sk.OWNED_MIN_COLUMNS
+                 else "global-vector")
+    assert sk.scatter_add_route(vals, s) == route
+    before = sk.LAUNCHES["scatter_add"]
+    got = sk.scatter_add_launch(vals, ids, s)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["scatter_add"] == before + 1
+    torch.testing.assert_close(got, sk.scatter_add_plain(vals, ids, s),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d % 4 != 0", "unaligned rows",
+                                  "unaligned base"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_scalar_global_route(cuda, case, dtype):
+    """The global route adds scalars where a row does not split into
+    16-byte parts: d = 6; bf16 at d = 4 (8-byte rows); a view of the
+    values that starts 4 or 2 bytes past an aligned address."""
+    rng = np.random.default_rng(11)
+    d = {"d % 4 != 0": 6, "unaligned rows": 4, "unaligned base": 8}[case]
+    if case == "unaligned rows" and dtype == torch.float32:
+        d = 5
+    n, s = 5000, 16384
+    flat = torch.as_tensor(rng.standard_normal(n * d + 1, np.float32),
+                           device=cuda).to(dtype)
+    vals = (flat[1:] if case == "unaligned base" else flat[:-1]).view(n, d)
+    ids = torch.as_tensor(_ids("solid" if dtype == torch.bfloat16
+                               else "uniform", n, s), device=cuda)
+    assert sk.scatter_add_route(vals, s) == "global"
+    got = sk.scatter_add_launch(vals, ids, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sk.scatter_add_plain(vals, ids, s),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["solid", "uniform", "skewed"])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 2048),
+                                     (torch.bfloat16, 2048)])
+def test_k5_owned_route_beyond_one_list(cuda, kind, dtype, d):
+    """The owned route on 10,000 rows, more than a block lists before it
+    sums (4096): a solid stream sends them all to one block, which sums
+    three lists into one output row; strays drop."""
+    n, s = 10000, 4096
+    rng = np.random.default_rng(13)
+    ids_np = (streams.skewed_ids(n, s, seed=13) if kind == "skewed"
+              else _ids(kind, n, s))
+    vals = torch.as_tensor(rng.standard_normal((n, d), np.float32),
+                           device=cuda).to(dtype)
+    ids = torch.as_tensor(ids_np, device=cuda)
+    assert sk.scatter_add_route(vals, s) == "global-owned"
+    got = sk.scatter_add_launch(vals, ids, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sk.scatter_add_plain(vals, ids, s),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("reorder", [False, True])
+def test_k4_on_adversarial_images(cuda, name, channels, reorder):
+    """K4 on each designed stream laid out as an image, with random
+    weights of which a fifth are 0: sums within rtol/atol 1e-5."""
+    img = torch.as_tensor(streams.stream_image(ADVERSARIAL[name], channels),
+                          device=cuda)
+    w_np = np.random.default_rng(12).random(img.shape[0]).astype(np.float32)
+    w_np[::5] = 0.0
+    w = torch.as_tensor(w_np, device=cuda)
+    before = hk.LAUNCHES["hist_weighted"]
+    got = hk.histogram_launch(img, reorder=reorder, weights=w)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["hist_weighted"] == before + 1
+    torch.testing.assert_close(got, hk.histogram_weighted_plain(img, w, 256),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -88,6 +88,30 @@ def test_blocked_segment_axis_vocab_scale():
     assert sk.scatter_route(4096, 1) == "shared"
 
 
+@pytest.mark.parametrize("s,d,dtype,offset,route", [
+    (4096, 1, torch.float32, 0, "shared"),
+    (32768, 1, torch.float32, 0, "global"),
+    (1024, 8, torch.float32, 0, "shared"),
+    (4096, 8, torch.float32, 0, "global-vector"),
+    (4096, 8, torch.bfloat16, 0, "global-vector"),
+    (32768, 4, torch.bfloat16, 0, "global"),       # 8-byte rows
+    (16384, 6, torch.float32, 0, "global"),        # d % 4 != 0
+    (4096, 8, torch.float32, 1, "global"),         # base 4 bytes off
+    (4096, 1024, torch.float32, 0, "global-vector"),
+    (4096, 2048, torch.float32, 0, "global-owned"),
+    (4096, 2048, torch.bfloat16, 0, "global-owned"),
+    (4096, 1024, torch.bfloat16, 0, "global-vector"),
+])
+def test_k5_route_from_shapes_and_alignment(s, d, dtype, offset, route):
+    """K5's route: shared when the (S, D) f32 copy fits 96 KB; on the
+    global route 16-byte parts where D % 4 == 0 and rows and base are
+    16-byte aligned, and owned rows from 2048 values a row."""
+    flat = torch.zeros(8 * d + offset, dtype=dtype)
+    vals = flat[offset:].view(8, d)
+    assert sk.scatter_add_route(vals, s) == route
+    assert sk.K5_ROUTES[route] in range(4)
+
+
 def test_segment_axis_must_be_whole_blocks():
     vals, ids = _case(100, 2, 6000)
     with pytest.raises(AssertionError):
@@ -172,6 +196,27 @@ def test_degrees_of_adversarial_streams_equal_reference(name):
     kept = kept[(kept >= 0) & (kept < streams.SEGMENTS)]
     np.testing.assert_array_equal(
         sums[:, 0].numpy(), np.bincount(kept, minlength=streams.SEGMENTS))
+
+
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_add_of_adversarial_streams_equals_reference(name, d, dtype):
+    """K5 through the port's ops (its plain version, the kernel's yardstick
+    on the card) against the reference's Pallas kernel on each designed
+    stream cut to its first size - 37 rows: strays, sentinels and int32
+    extremes drop in both; bf16 values are the same rounding of the same
+    f32 draws on both sides; sums within rtol/atol 1e-5."""
+    ids = ADVERSARIAL[name][:-37]
+    vals = np.random.default_rng(10).standard_normal(
+        (ids.size, d)).astype(np.float32)
+    got = ops.scatter_add(torch.as_tensor(vals).to(getattr(torch, dtype)),
+                          ids, num_segments=streams.SEGMENTS,
+                          torch_device=CPU)
+    want = ref_ops.scatter_add(jnp.asarray(vals).astype(dtype),
+                               jnp.asarray(ids),
+                               num_segments=streams.SEGMENTS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("s", [128, 8192])
