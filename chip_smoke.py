@@ -62,12 +62,14 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 atomics sum in run-to-run order
 COMPARE_PX = [2 ** p for p in range(5, 23, 3)]
 
 # the scatter path: 4 Mi ids (the histogram's 4 Mpx) into 4096 segments,
-# the MoE dispatch of benchmarks/run.py (65,536 tokens over 128 experts),
+# the MoE dispatch of benchmarks/run.py (65,536 tokens over 128 experts;
+# a decode step of 4 tokens x top-8 gives 32 ids),
 # and the MoE combine at qwen3-moe-235b-a22b's widths (4096 tokens x
 # top-8 expert rows of d_model 4096, bf16, summed per token)
 SCATTER_IDS = 1 << 22
 SCATTER_SEGMENTS = 4096
 DISPATCH_TOKENS, EXPERTS = 1 << 16, 128
+DECODE_IDS = 32            # one decode step of 4 tokens x top-8
 COMBINE_TOKENS, TOP_K, D_MODEL = 4096, 8, 4096
 
 # the serving path: qwen2-72b at its published widths, prefill of 4
@@ -177,19 +179,20 @@ _FLAGS = {"hist_kernel": ("reorder",),
           "scatter_rows_kernel": ("shared",),
           "scatter_tiles_kernel": ("shared", "vector"),
           "scatter_owned_kernel": (),
-          "scatter_instrumented_kernel": ("shared",)}
+          "scatter_instrumented_kernel": ("shared",),
+          "bincount_kernel": ("store",)}
 _VALUE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def _template_args(mangled: str) -> str:
     """``hist_kernel<reorder>``, ``scatter_tiles_kernel<bf16,vector>``,
     ``scatter_rows_kernel<f32,shared>``,
-    ``scatter_instrumented_kernel<shared>`` or ``bincount_kernel`` from a
-    mangled name."""
+    ``scatter_instrumented_kernel<shared>`` or ``bincount_kernel<store>``
+    from a mangled name."""
     m = re.search(r"(hist_kernel|hist_weighted_kernel|hist_instrumented_kernel|"
                   r"scatter_rows_kernel|scatter_tiles_kernel|"
                   r"scatter_owned_kernel|scatter_instrumented_kernel|"
-                  r"bincount_kernel)(I?)", mangled)
+                  r"bincount_kernel|bincount_zero_kernel)(I?)", mangled)
     flash = re.search(r"(flash_(?:f32|bf16|bf16_sm90)_kernel)ILi(\d+)E",
                       mangled)
     if flash:
@@ -370,11 +373,17 @@ def check_scatter_kernels(dev) -> dict[str, float]:
         return mean
 
     def k7(case, ids, segments):
+        # the output is allocated, not zeroed: a freed block of 0x7f bytes
+        # of its size comes back to it, so that a bin left unwritten shows
+        dirty = torch.full((segments,), 0x7F7F7F7F, dtype=torch.int32,
+                           device=ids.device)
+        del dirty
         got = sk.bincount_launch(ids, segments)
         torch.cuda.synchronize()
         _require(torch.equal(got, sk.bincount_plain(ids, segments)),
                  f"K7 counts, {case}")
-        log(f"  K7 {case}: bit-equal")
+        log(f"  K7 {case} ({sk.bincount_route(ids.numel(), segments)}): "
+            f"bit-equal")
 
     for kind in ("solid", "uniform"):
         ids_np = scatter_ids(kind)
@@ -412,6 +421,27 @@ def check_scatter_kernels(dev) -> dict[str, float]:
                               segments)
         k7(f"odd {n} -> {segments} with strays",
            torch.as_tensor(ids_np, device=dev), segments)
+    # K7's edges: n % 4 = 1, 2, 3 and 0 ids, S = 1, 128, 8192, both routes
+    # (BINCOUNT_BLOCK_IDS on either side), views that start 4 and 12 bytes
+    # into a 16-byte word, strays, and the skewed, collapsed and decode
+    # streams
+    block = sk.BINCOUNT_BLOCK_IDS
+    for n in (0, 1, 2, 3, 5, 32, block, block + 1, 70001, SCATTER_IDS + 3):
+        for segments in (1, 128, 8192):
+            ids_np = _with_strays(
+                rng.integers(0, segments, n + 3).astype(np.int32), segments)
+            whole = torch.as_tensor(ids_np, device=dev)
+            for off in (0, 1, 3):
+                k7(f"{n} -> {segments} with strays, ids[{off}:]",
+                   whole[off:off + n], segments)
+    k7(f"skewed {SCATTER_IDS} -> 8192", torch.as_tensor(
+        scatter_ids("skewed", segments=8192), device=dev), 8192)
+    k7(f"skewed {SCATTER_IDS} -> 8192, ids[1:]", torch.as_tensor(
+        scatter_ids("skewed", segments=8192), device=dev)[1:], 8192)
+    k7(f"collapsed {DISPATCH_TOKENS} -> {EXPERTS}, ids[1:]", torch.as_tensor(
+        dispatch_ids("collapsed"), device=dev)[1:], EXPERTS)
+    k7(f"decode {DECODE_IDS} -> {EXPERTS}", torch.as_tensor(
+        dispatch_ids("balanced")[:DECODE_IDS], device=dev), EXPERTS)
     return err
 
 
@@ -1204,21 +1234,30 @@ def _decode_vs_prefill(model, params, tokens, prefill_logits):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int, warmup: int = 3) -> float:
+COLD_BYTES = 128 << 20     # written before a cold call: more than L2's 50 MB
+
+
+def time_ms(fn, reps: int, warmup: int = 3, cold: bool = False) -> float:
     """Median device time of one call, by CUDA events around each call.
 
     A short sleep on the stream before the start event lets the host
     enqueue the call before the card reaches it, so the events time the
-    card's work and not the wrapper's host overhead.
+    card's work and not the wrapper's host overhead.  ``cold``: a 128 MB
+    buffer is written on the stream before the sleep, untimed, so that
+    the call finds its inputs in device memory and not in L2.
     """
     import torch
+    evict = (torch.empty(COLD_BYTES // 4, dtype=torch.int32, device="cuda")
+             if cold else None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for rep in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            evict.fill_(rep)
         torch.cuda._sleep(2_000_000)
         start.record()
         fn()
@@ -1297,7 +1336,8 @@ def time_kernels(dev) -> dict:
 def _log_row(name: str, case: str, row: dict) -> None:
     lib = ("n/a" if row["library_ms"] is None
            else f"{row['library_ms']:.4f}")
-    log(f"  {name:18s} {case:14s} kernel {row['ms']:.4f} ms  "
+    cold = f" (cold {row['cold_ms']:.4f})" if "cold_ms" in row else ""
+    log(f"  {name:18s} {case:14s} kernel {row['ms']:.4f} ms{cold}  "
         f"plain {row['plain_ms']:.4f} ms  library {lib} ms  "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
@@ -1309,7 +1349,8 @@ def time_scatter_kernels(dev) -> dict:
     Operations: one f32 add per (row, d) update that lands.  The library
     yardsticks: ``Tensor.index_add_`` on f32 values (cast outside the
     timed call; every id here is in range, which it needs) for K5,
-    ``torch.bincount`` for K7, none for K6.
+    ``torch.bincount`` for K7, none for K6.  K7's rows are also timed
+    cold (``cold_ms``: its ids in device memory, not in L2).
     """
     import torch
 
@@ -1328,8 +1369,19 @@ def time_scatter_kernels(dev) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
+        if name == "bincount":  # and with its ids in device memory
+            row["cold_ms"] = time_ms(kernel, reps=25, cold=True)
         out[name][case] = row
         _log_row(name, case, row)
+
+    def k7(case, ids_np, segments):
+        ids = torch.as_tensor(ids_np, device=dev)
+        ids64 = ids.to(torch.int64)
+        record("bincount", case,
+               lambda: sk.bincount_launch(ids, segments),
+               lambda: sk.bincount_plain(ids, segments),
+               lambda: torch.bincount(ids64, minlength=segments),
+               ids.numel() * 4 + segments * 4, ids.numel())
 
     rng = np.random.default_rng(6)
     segs = SCATTER_SEGMENTS
@@ -1352,13 +1404,7 @@ def time_scatter_kernels(dev) -> dict:
                lambda: sk.scatter_add_instrumented_launch(vals, stream, segs),
                lambda: sk.scatter_add_instrumented_plain(vals, stream, segs),
                None, n * 4 + n * 4 + segs * 4 + n // 1024 * 4, n)
-        k7_ids = torch.as_tensor(scatter_ids(kind, segments=8192), device=dev)
-        k7_ids64 = k7_ids.to(torch.int64)
-        record("bincount", f"{kind} 4Mi -> 8192",
-               lambda: sk.bincount_launch(k7_ids, 8192),
-               lambda: sk.bincount_plain(k7_ids, 8192),
-               lambda: torch.bincount(k7_ids64, minlength=8192),
-               n * 4 + 8192 * 4, n)
+        k7(f"{kind} 4Mi -> 8192", scatter_ids(kind, segments=8192), 8192)
     ids_np = scatter_ids("skewed")
     ids = torch.as_tensor(ids_np, device=dev)
     ids64 = ids.to(torch.int64)
@@ -1371,13 +1417,11 @@ def time_scatter_kernels(dev) -> dict:
            lambda: torch.zeros((segs, 1), device=dev).index_add_(
                0, ids64, vals),
            n * 4 + n * 4 + segs * 4, n)
-    d_ids = torch.as_tensor(dispatch_ids("balanced"), device=dev)
-    d_ids64 = d_ids.to(torch.int64)
-    record("bincount", "dispatch 64Ki -> 128",
-           lambda: sk.bincount_launch(d_ids, EXPERTS),
-           lambda: sk.bincount_plain(d_ids, EXPERTS),
-           lambda: torch.bincount(d_ids64, minlength=EXPERTS),
-           d_ids.numel() * 4 + EXPERTS * 4, d_ids.numel())
+    k7("skewed 4Mi -> 8192", scatter_ids("skewed", segments=8192), 8192)
+    k7("dispatch 64Ki -> 128", dispatch_ids("balanced"), EXPERTS)
+    k7("dispatch collapsed 64Ki -> 128", dispatch_ids("collapsed"), EXPERTS)
+    k7(f"decode {DECODE_IDS} -> 128", dispatch_ids("balanced")[:DECODE_IDS],
+       EXPERTS)
     vals, ids = combine_case(dev)
     vals32, ids64 = vals.float(), ids.to(torch.int64)
     rows, d = vals.shape
@@ -1479,12 +1523,14 @@ def main() -> int:
                 func = _template_args(entry.group(1))
             elif any(w in line for w in ("registers", "spill", "warning")):
                 log(f"  ptxas {func}: {line.split(':', 1)[-1].strip()}")
-                # K4 and K5 (this design's warp sums) must not spill
+                # K4 and K5 (this design's warp sums) and K7 (its loads in
+                # flight) must not spill
                 spills = re.findall(r"(\d+) bytes spill", line)
                 _require(not (func.startswith(("hist_weighted_kernel",
                                                "scatter_rows_kernel",
                                                "scatter_tiles_kernel",
-                                               "scatter_owned_kernel"))
+                                               "scatter_owned_kernel",
+                                               "bincount_"))
                               and any(int(b) for b in spills)),
                          f"{func} spills registers: {line.strip()}")
     for d in (64, 128):
@@ -1506,6 +1552,13 @@ def main() -> int:
         if func.startswith("scatter_tiles_kernel<") and "vector" in func:
             _require(any(op.startswith("REDG") and "F32x4" in op
                          for op in ops), f"K5 {func}: no vector add in {ops}")
+        # K7 counts with the POPC increment (no CAS loop); the grid route
+        # adds each count to L2 once, the one-block route stores them
+        if func.split("<")[0] == "bincount_kernel":
+            atomics = [op for op in ops if op.startswith(("ATOM", "RED"))]
+            flush = [] if "store" in func else ["REDG.E.ADD.STRONG.GPU"]
+            _require(atomics == ["ATOMS.POPC.INC.32"] + flush,
+                     f"K7 {func}: SASS {ops}")
     # K3 and K6 take K1's degree by a sort of shuffles, not MATCH.ANY
     for func, ops in sass.items():
         if func.split("<")[0] in ("hist_instrumented_kernel",
@@ -1577,6 +1630,10 @@ def main() -> int:
 
     t0 = phase("times at the main paths' shapes")
     log(f"  card: {card}")
+    # the floor of a launch-bound row: one launch of a kernel that does
+    # nothing (the sleep kernel for 0 cycles), timed as every row is
+    log(f"  empty kernel launch: "
+        f"{time_ms(lambda: torch.cuda._sleep(0), reps=25):.4f} ms")
     times = time_kernels(dev)
     times.update(time_scatter_kernels(dev))
     times.update(time_flash_kernel(dev))

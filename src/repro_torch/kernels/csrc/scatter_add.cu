@@ -38,8 +38,17 @@
 //     bank).  Lane 0 writes the wave's degree, the 32 group maxima summed
 //     as integers and divided once (exact in f32).  One 1024-thread block
 //     to an SM: each block flushes its copy once.
-//   * K7: a shared int[S] histogram, atomicAdd of 1 with the result unused
-//     (the POPC increment class), flushed the same way.
+//   * K7 (bincount.cuh): a shared int[S] histogram, atomicAdd of 1 with the
+//     result unused (the POPC increment class), read one id a thread while
+//     the grid has a thread for each id and in 16-byte words beyond.  Up to
+//     kernel.py's BINCOUNT_BLOCK_IDS ids one block stores every count (one
+//     launch, no zeroed output).  Above, a kernel zeroes out while one
+//     block an SM counts (a programmatic dependent launch: cheaper than a
+//     fill or a memset before the count), then adds its non-zero counts.
+//     Clusters that sum their copies through distributed shared memory,
+//     one block an SM with twice the ids, a cooperative launch in two
+//     phases and one cluster that stores were slower on the H100
+//     (tools/bincount_candidates.cu, PERF.md).
 //
 // Semantics kept from the reference:
 //   * The drop rule: an id outside [0, S), negative ids included, adds
@@ -72,15 +81,19 @@
 // address; at L2 a vector add saves only 8-31% of its four scalar adds
 // (tools/bench_cas_kernels.py --routes).
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; ms,
-// bound in brackets): K5 on 4 Mi ids x 1 f32 into 4096 segments 0.0308
-// solid, 0.0212 uniform, 0.0619 skewed (0.0100), the MoE combine of
-// 32,768 x 4096 bf16 rows 0.1932 (0.1002); K6 0.0348 solid, 0.0432
-// uniform (0.0100); K7 0.0160 on 4 Mi uniform ids (0.0050).  PERF.md has
-// every case.
+// bound in brackets): K5 on 4 Mi ids x 1 f32 into 4096 segments 0.0311
+// solid, 0.0212 uniform, 0.0617 skewed (0.0100), the MoE combine of
+// 32,768 x 4096 bf16 rows 0.1924 (0.1002); K6 0.0349 solid, 0.0435
+// uniform (0.0100); K7 on 4 Mi uniform ids into 8192 bins 0.0119, cold
+// 0.0178 (0.0050), on the MoE dispatch's 65,536 ids into 128 0.0062 and
+// on a decode step's 32 ids 0.0054, where one empty kernel launch takes
+// 0.0050.  Scattered int32 adds reach L2's atomic unit at 48 G/s onto
+// 8192 addresses (tools/bench_bincount.py).  PERF.md has every case.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "bincount.cuh"
 #include "warp_aggregate.cuh"
 #include "wave_degrees.cuh"
 
@@ -88,6 +101,9 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kGroupsPerWave = REPRO_LANES / REPRO_COMMIT_GROUP;
+
+// K7: 16-byte loads a thread in flight.
+constexpr int kK7Loads = 2;
 
 // The values of a part on K5's vector route (four, one f32 vector add; 16
 // or 8 bytes) and on its owned route (16 bytes).
@@ -550,22 +566,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K7 (bincount.cuh): a 1024-thread block counts its share of the ids into
+// its shared copy, then stores it (kStore: the grid is one block) or adds
+// it into the zeroed out.
+template <bool kStore>
+__global__ void __launch_bounds__(kThreads, 1)
     bincount_kernel(const int* __restrict__ ids, int* __restrict__ out, int n,
                     int num_segments) {
   extern __shared__ __align__(16) int counts[];
-  for (int i = threadIdx.x; i < num_segments; i += blockDim.x) counts[i] = 0;
-  __syncthreads();
-  const unsigned stride = gridDim.x * blockDim.x;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < (unsigned)n; i += stride) {
-    const int id = ids[i];
-    if ((unsigned)id < (unsigned)num_segments) atomicAdd(&counts[id], 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < num_segments; i += blockDim.x) {
-    const int c = counts[i];
-    if (c != 0) atomicAdd(&out[i], c);
-  }
+  repro_k7::bincount_block<kStore, kK7Loads>(counts, ids, out, n, num_segments);
+}
+
+// K7's grid route zeroes out in a kernel of its own, which lets the
+// counting kernel launch at once (programmatic dependent launch): the
+// counting waits for it only before its flush.
+__global__ void bincount_zero_kernel(int* __restrict__ out, int num_segments) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  for (int i = threadIdx.x; i < num_segments; i += blockDim.x) out[i] = 0;
 }
 
 // As many blocks as fit on the card at once, at most per_sm_cap on each SM
@@ -668,6 +685,44 @@ int launch_instrumented(const void* values, const void* ids, void* out, void* de
   return (int)cudaGetLastError();
 }
 
+// K7: one block (kStore), or one block an SM, but no more blocks than give
+// each thread one id, launched to depend on bincount_zero_kernel.  Both
+// take the largest shared-memory carveout: a block of the counting kernel
+// that lands on the zeroing kernel's SM then starts at once, where with
+// two carveouts it waits for the SM to drain (0.0130 against 0.0116 ms on
+// 4 Mi uniform ids, PERF.md).
+template <bool kStore>
+int launch_bincount(const void* ids, void* out, int n, int num_segments, void* stream) {
+  auto kernel = bincount_kernel<kStore>;
+  const size_t bytes = (size_t)num_segments * sizeof(int);  // the copy, and out
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(1);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  if (!kStore) {
+    for (const void* f : {(const void*)bincount_zero_kernel, (const void*)kernel}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          f, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int grid = 0;
+    int err = grid_for(kernel, bytes, n, &grid, /*per_sm_cap=*/1);
+    if (err) return err;
+    config.gridDim = dim3((unsigned)grid);
+    config.attrs = attr;
+    config.numAttrs = 1;
+    bincount_zero_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>((int*)out, num_segments);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const cudaError_t err =
+      cudaLaunchKernelEx(&config, kernel, (const int*)ids, (int*)out, n, num_segments);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -703,15 +758,17 @@ int repro_scatter_add_instrumented(const void* values, const void* ids, void* ou
                                              num_segments, stream);
 }
 
-// K7.  ids: (n,) int32; out: (num_segments,) int32, zeroed by the caller.
+// K7.  ids: (n,) int32; out: (num_segments,) int32, zeroed here by a
+// kernel of its own (what it held before the call does not matter) into
+// which one block an SM adds its counts.
 int repro_bincount(const void* ids, void* out, int n, int num_segments, void* stream) {
-  const size_t smem = (size_t)num_segments * sizeof(int);
-  int grid = 0;
-  const int err = grid_for(bincount_kernel, smem, n, &grid);
-  if (err) return err;
-  bincount_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>((const int*)ids, (int*)out,
-                                                                  n, num_segments);
-  return (int)cudaGetLastError();
+  return launch_bincount<false>(ids, out, n, num_segments, stream);
+}
+
+// K7 in one block, which stores all num_segments counts into out (what
+// out held before the call does not matter).
+int repro_bincount_block(const void* ids, void* out, int n, int num_segments, void* stream) {
+  return launch_bincount<true>(ids, out, n, num_segments, stream);
 }
 
 }  // extern "C"

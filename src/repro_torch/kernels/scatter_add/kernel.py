@@ -16,7 +16,12 @@ each the counterpart of a Pallas kernel of
     plus the stream's per-wave degrees (K1, ``csrc/wave_degrees.cuh``), in
     one pass of a warp per wave that adds once per distinct id of each
     commit group,
-  * K7 ``bincount``: int32 occurrence counts, S <= 8192.
+  * K7 ``bincount``: int32 occurrence counts, S <= 8192, by the POPC
+    increment into a shared copy a block, reading 16-byte words where the
+    grid has fewer threads than ids; one block stores every count of a
+    short stream (one launch), one block an SM adds its counts into an
+    output that a kernel it overlaps zeroes for a longer one
+    (``bincount_route``).
 
 Each launcher runs its kernel for a CUDA tensor and the plain torch
 version for a CPU tensor; it never falls back from one to the other.  All
@@ -38,6 +43,10 @@ from repro_torch.kernels import instrumentation as instr
 DEFAULT_TILE = 2048
 DEFAULT_SEG_BLOCK = 4096
 MAX_BINCOUNT_SEGMENTS = 8192
+# K7's one-block route takes streams up to this many ids: where it saves
+# the output's zeroing kernel and one SM still reads the ids in about the
+# time that many would (tools/bench_bincount.py --candidates, PERF.md)
+BINCOUNT_BLOCK_IDS = 1 << 13
 # the shared route's per-block budget: two such blocks share one SM's
 # 227 KB of shared memory
 SHARED_BUDGET = 96 * 1024
@@ -59,6 +68,7 @@ _ARGTYPES = {
     "repro_scatter_add_instrumented": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _P],
     "repro_bincount": [_P, _P, _I, _I, _P],
+    "repro_bincount_block": [_P, _P, _I, _I, _P],
 }
 
 
@@ -93,6 +103,17 @@ def scatter_add_route(values: torch.Tensor, num_segments: int) -> str:
         return ("global-owned" if d >= OWNED_MIN_COLUMNS
                 else "global-vector")
     return route
+
+
+def bincount_route(n: int, num_segments: int) -> str:
+    """K7's route for ``n`` ids into ``num_segments`` bins: ``"block"`` (one
+    block stores every count: one launch) up to ``BINCOUNT_BLOCK_IDS`` ids,
+    else ``"grid"`` (a kernel zeroes the output while one block an SM
+    counts, then adds its counts into it).  Refuses more than ``MAX_BINCOUNT_SEGMENTS`` bins."""
+    if not 0 <= num_segments <= MAX_BINCOUNT_SEGMENTS:
+        raise ValueError(f"bincount takes at most {MAX_BINCOUNT_SEGMENTS} "
+                         f"segments, got {num_segments}; use scatter_add")
+    return "block" if n <= BINCOUNT_BLOCK_IDS else "grid"
 
 
 def check_segment_blocking(num_segments: int, seg_block: int) -> None:
@@ -235,17 +256,18 @@ def scatter_add_instrumented_launch(values: torch.Tensor, ids: torch.Tensor,
 
 def bincount_launch(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """K7: (S,) int32 occurrence counts of (N,) ``ids``, S <= 8192."""
-    if not 0 <= num_segments <= MAX_BINCOUNT_SEGMENTS:
-        raise ValueError(f"bincount takes at most {MAX_BINCOUNT_SEGMENTS} "
-                         f"segments, got {num_segments}; use scatter_add")
+    route = bincount_route(ids.numel(), num_segments)
     if not _on_card(ids, "bincount"):
         return bincount_plain(ids, num_segments)
     _check_ids(ids, ids.device)
-    out = torch.zeros(num_segments, dtype=torch.int32, device=ids.device)
+    # the kernel stores every count, or its launcher zeroes out first
+    out = torch.empty(num_segments, dtype=torch.int32, device=ids.device)
+    entry = (_lib().repro_bincount_block if route == "block"
+             else _lib().repro_bincount)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.raise_on_error(_lib().repro_bincount(
-            ids.data_ptr(), out.data_ptr(), ids.numel(), num_segments,
-            stream), "bincount")
+        _build.raise_on_error(entry(ids.data_ptr(), out.data_ptr(),
+                                    ids.numel(), num_segments, stream),
+                              "bincount")
     LAUNCHES["bincount"] += 1
     return out

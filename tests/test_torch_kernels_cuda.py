@@ -305,11 +305,51 @@ def test_k3_on_adversarial_streams(cuda, name, channels, reorder):
         counters._degrees_full_waves(committed.reshape(-1, 1024), 32))
 
 
+def _k7_ids(kind, n, s):
+    """K7's streams: uniform or solid with strays (``_ids``), skewed
+    (``streams.skewed_ids``) or collapsed (every id 0)."""
+    if n == 0:
+        return np.zeros(0, np.int32)
+    if kind == "skewed":
+        return streams.skewed_ids(n, s, seed=5)
+    if kind == "collapsed":
+        return np.zeros(n, np.int32)
+    return _ids(kind, n, s)
+
+
+_BLOCK = sk.BINCOUNT_BLOCK_IDS
+# (stream, n, S, offset of the view ids[offset:]): n % 4 of 0-3, no ids,
+# S = 1, 128 and 8192, views 4 bytes into a 16-byte word, both sides of
+# the one-block route's limit, and the adversarial streams
+_K7_CASES = sorted(
+    {("uniform", 1, 2, 0), ("uniform", 65536, 128, 0),
+     ("uniform", 70001, 8192, 0)}
+    | {("uniform", n, s, off) for n in (0, 1, 3, 5, 70001)
+       for s in (1, 128, 8192) for off in (0, 1)}
+    | {("uniform", n, s, off) for n in (_BLOCK, _BLOCK + 1)
+       for s in (128, 8192) for off in (0, 1)}
+    | {("uniform", (1 << 22) + 3, 8192, 1), ("solid", 70001, 8192, 0),
+       ("solid", 1 << 20, 8192, 1), ("skewed", 70001, 8192, 1),
+       ("skewed", 1 << 20, 8192, 0), ("skewed", 4099, 128, 0),
+       ("collapsed", 65536, 128, 0), ("collapsed", 65536, 128, 1),
+       ("collapsed", 32, 128, 0)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,s", [(1, 2), (65536, 128), (70001, 8192)])
-def test_bincount_kernel_bitwise(cuda, n, s):
-    ids = torch.as_tensor(_ids("uniform", n, s), device=cuda)
-    assert torch.equal(sk.bincount_launch(ids, s), sk.bincount_plain(ids, s))
+@pytest.mark.parametrize("kind,n,s,off", _K7_CASES)
+def test_bincount_kernel_bitwise(cuda, kind, n, s, off):
+    """K7 bit-equal to the plain version on either route, into an output
+    block that held 0x7f bytes before the call (the block route stores
+    every count into an unzeroed allocation, the grid route's launcher
+    zeroes it)."""
+    ids = torch.as_tensor(_k7_ids(kind, n + off, s), device=cuda)[off:]
+    dirty = torch.full((s,), 0x7F7F7F7F, dtype=torch.int32, device=cuda)
+    del dirty  # the caching allocator hands this block to the output
+    before = sk.LAUNCHES["bincount"]
+    got = sk.bincount_launch(ids, s)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["bincount"] == before + 1
+    assert torch.equal(got, sk.bincount_plain(ids, s))
 
 
 @pytest.mark.cuda

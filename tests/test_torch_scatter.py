@@ -122,10 +122,38 @@ def test_segment_axis_must_be_whole_blocks():
         ops.instrumented_scatter_add(ids, vals, 6000, torch_device=CPU)
 
 
-@pytest.mark.parametrize("n,s,seed", [(1, 2, 0), (100, 7, 1), (2048, 128, 2),
-                                      (3000, 200, 3), (5000, 8192, 4)])
-def test_bincount_matches_reference(n, s, seed):
-    ids = np.random.default_rng(seed).integers(0, s, n).astype(np.int32)
+def _bincount_ids(kind, n, s, seed):
+    if kind == "skewed":
+        return streams.skewed_ids(n, s, seed=seed)
+    if kind == "collapsed":
+        return np.zeros(n, np.int32)
+    return np.random.default_rng(seed).integers(0, s, n).astype(np.int32)
+
+
+# (stream, n, S, seed): the uniform cases keep their first ids; n % 4 of
+# 1-3, S = 1, S = 8192 with 70,001 ids, and the skewed and collapsed
+# streams (K7's adversarial cases on the card)
+_BINCOUNT_CASES = [
+    pytest.param("uniform", 1, 2, 0, id="1-2-0"),
+    pytest.param("uniform", 100, 7, 1, id="100-7-1"),
+    pytest.param("uniform", 2048, 128, 2, id="2048-128-2"),
+    pytest.param("uniform", 3000, 200, 3, id="3000-200-3"),
+    pytest.param("uniform", 5000, 8192, 4, id="5000-8192-4"),
+    pytest.param("uniform", 4097, 128, 5, id="uniform-4097-128"),
+    pytest.param("uniform", 4098, 1000, 6, id="uniform-4098-1000"),
+    pytest.param("uniform", 4099, 3, 7, id="uniform-4099-3"),
+    pytest.param("uniform", 1000, 1, 8, id="uniform-1000-1"),
+    pytest.param("uniform", 70001, 8192, 9, id="uniform-70001-8192"),
+    pytest.param("skewed", 70001, 8192, 10, id="skewed-70001-8192"),
+    pytest.param("skewed", 5003, 128, 11, id="skewed-5003-128"),
+    pytest.param("collapsed", 65536, 128, 0, id="collapsed-65536-128"),
+    pytest.param("collapsed", 33, 1, 0, id="collapsed-33-1"),
+]
+
+
+@pytest.mark.parametrize("kind,n,s,seed", _BINCOUNT_CASES)
+def test_bincount_matches_reference(kind, n, s, seed):
+    ids = _bincount_ids(kind, n, s, seed)
     got = ops.bincount(ids, num_segments=s, torch_device=CPU)
     want = np.asarray(ref_ops.bincount(jnp.asarray(ids), num_segments=s))
     assert got.dtype == torch.int32
@@ -138,6 +166,24 @@ def test_bincount_refuses_more_than_8192_segments():
     with pytest.raises(ValueError, match="8192"):
         ops.bincount(np.zeros(4, np.int32), num_segments=8193,
                      torch_device=CPU)
+
+
+@pytest.mark.parametrize("n,s,route", [
+    (0, 128, "block"), (32, 128, "block"), (sk.BINCOUNT_BLOCK_IDS, 1, "block"),
+    (sk.BINCOUNT_BLOCK_IDS, 8192, "block"),
+    (sk.BINCOUNT_BLOCK_IDS + 1, 128, "grid"), (1 << 16, 128, "grid"),
+    (1 << 22, 8192, "grid"), (1 << 22, 0, "grid")])
+def test_bincount_route_boundaries(n, s, route):
+    """One block stores every count up to BINCOUNT_BLOCK_IDS ids (a decode
+    step's 32 included); the MoE dispatch's 65,536 ids and longer streams
+    take the grid route."""
+    assert sk.bincount_route(n, s) == route
+
+
+@pytest.mark.parametrize("s", [-1, 8193, 1 << 20])
+def test_bincount_route_refuses_what_the_kernel_cannot_take(s):
+    with pytest.raises(ValueError, match="8192"):
+        sk.bincount_route(16, s)
 
 
 def test_out_of_range_ids_drop_like_the_reference():
