@@ -7,13 +7,14 @@ built for CUDA and the CUDA toolkit (``nvcc``).  The port's kernels
 (``src/repro_torch/kernels/csrc``) are built from the checkout first.
 
 Three paths.  Two run through the port's ``Session`` and its ``"kernel"``
-provider: the paper's §5 histogram case study (K1-K4), and the scatter-add
-path (K5-K7): Tool 1's kernel mode, the MoE dispatch streams of
-``benchmarks/run.py``, the ``indices`` route and the persistent sweep
-cache.  The third serves a dense LM: qwen2-72b at its published widths,
-with the depth cut to what one card holds, through ``make_prefill`` (each
-layer's attention in K8, flash attention) and ``generate``.  Phases,
-each of which must pass:
+provider: the paper's §5 histogram case study (K1-K4), driven as
+``python -m repro_torch`` runs it (``validate``, ``compare``, ``advise``,
+``heatmap``, ``sweep``), and the scatter-add path (K5-K7): Tool 1's
+kernel mode, the MoE dispatch streams of ``benchmarks/run.py``, the
+``indices`` route and the persistent sweep cache.  The third serves a
+dense LM: qwen2-72b at its published widths, with the depth cut to what
+one card holds, through ``make_prefill`` (each layer's attention in K8,
+flash attention) and ``generate``.  Phases, each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
@@ -26,8 +27,11 @@ each of which must pass:
    its routes; K8 also at the reference test's shapes, blocks and bounds,
    and on its Hopper route at ragged T, before any model is on the card);
 3. drive each main path with every launch count set to 0 just before it
-   and read just after: the histogram path as ``examples/quickstart.py``
-   and ``repro compare`` run it, then the scatter path, then serving;
+   and read just after: the histogram path as
+   ``examples/torch_quickstart.py`` and the port's command line run it
+   (each command in-process through ``repro_torch.cli.main.main`` with
+   ``--provider kernel``, its host seconds and launches logged), then the
+   scatter path, then serving;
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take.
 
@@ -39,8 +43,11 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -704,17 +711,25 @@ def _require(ok: bool, what: str) -> None:
 
 def main_path(dev, provider, px_small: int, px_main: int,
               compare_px, cache_dir) -> dict[str, float]:
-    """quickstart.py's tour and ``repro compare``'s case study, through
-    the port's Session with ``provider`` as the measured counter source.
+    """quickstart.py's tour through the port's Session, then the paper's
+    tools as ``python -m repro_torch`` runs them, in-process through
+    ``repro_torch.cli.main.main`` with ``provider`` as the measured counter
+    source on ``dev``: ``validate``, ``compare`` through both providers,
+    ``advise --validate-top 1``, ``heatmap``, a cold then a warm ``sweep``
+    (in the results root ``REPRO_TORCH_RESULTS`` names), and ``--version``
+    in a process of its own.
 
     Returns the host-clock seconds of each step.
     """
     import torch
 
-    from repro_torch.analysis import Session, WorkloadSpec, get_device
-    from repro_torch.core.profiler import CacheModel
+    import repro_torch
+    from repro_torch.analysis import Session, WorkloadSpec
+    from repro_torch.cli.main import main as cli_main
     from repro_torch.data.images import make_image
+    from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.histogram import ops
+    from repro_torch.kernels.scatter_add import kernel as sk
 
     seconds = {}
     t0 = time.perf_counter()
@@ -726,6 +741,26 @@ def main_path(dev, provider, px_small: int, px_main: int,
         now = time.perf_counter()
         seconds[name] = now - t0
         t0 = now
+
+    def launched() -> dict:
+        return {**hk.LAUNCHES, **sk.LAUNCHES}
+
+    def cli(name, *argv) -> str:
+        """One command's stdout; its host seconds and launches logged."""
+        nonlocal t0
+        before = launched()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(list(argv) + ["--torch-device", dev,
+                                        "--cache-dir", str(cache_dir)])
+        step(f"cli/{name}")
+        delta = {k: n - before.get(k, 0) for k, n in launched().items()
+                 if n != before.get(k, 0)}
+        log(f"  cli {name}: {seconds[f'cli/{name}']:.3f} s, launches "
+            f"{delta}")
+        _require(rc == 0, f"python -m repro_torch {' '.join(argv)}: rc {rc}")
+        return buf.getvalue()
 
     sess = Session("v5e", cache_dir=cache_dir, provider=provider)
     step("table")
@@ -766,73 +801,97 @@ def main_path(dev, provider, px_small: int, px_main: int,
     step("collect/kernel")
 
     # §5: modeled ("trace") against measured (the kernel provider)
+    image = ("--workload", "histogram", "--pixels", str(px_main))
     for kind in ("solid", "uniform"):
-        img = make_image(kind, px_main)
         for variant in ("hist", "hist2"):
-            spec = WorkloadSpec.from_histogram(
-                img, label=f"{kind}/{variant}", variant=variant,
-                force_fao=True, waves_per_tile=32)
-            rep = sess.validate(spec, providers=("trace", provider))
-            beq = [c.batch_bitwise_equal for c in rep.comparisons]
-            e = rep.comparisons[1].counters["e"]
+            rep = json.loads(cli(
+                f"validate {kind}/{variant}", "validate", *image, "--dist",
+                kind, "--variant", variant, "--waves-per-tile", "32",
+                "--format", "json"))
+            ref, measured = rep["comparisons"]
+            beq = [c["batch_bitwise_equal"] for c in rep["comparisons"]]
+            e = measured["counters"]["e"]
             _require(np.isfinite(e) and e >= 1.0, f"validate e {e}")
-            _require(rep.max_rel_err == 0.0 and beq == [True, True],
-                     f"validate {kind}/{variant}: max rel err "
-                     f"{rep.max_rel_err}, batch bit-equal {beq}")
-            log(f"  validate {kind}/{variant} {px_main}px: e {e!r}, "
-                f"max rel err 0.0, batch bit-identical")
-    step("validate")
+            _require((ref["provider"], measured["provider"])
+                     == ("trace", "kernel")
+                     and all(v == 0.0 for v in measured["rel_err"].values())
+                     and beq == [True, True],
+                     f"validate {kind}/{variant}: {rep}")
+            log(f"    e {e!r}, max rel err 0.0, batch bit-identical")
 
     # repro compare: the case study through both providers, identical
-    device = get_device("v5e").with_(cache=CacheModel(
-        llc_bytes=1 << 21, miss_latency_cycles=800, hide_concurrency=48))
-    by_provider = {}
-    for prov in ("trace", provider):
-        s = Session(device, table=sess.table, provider=prov)
-        by_provider[s.provider.name] = compare(s, compare_px)
-    trace_rows, kernel_rows = by_provider["trace"], by_provider["kernel"]
-    _require(trace_rows == kernel_rows,
+    pixels = [str(px) for px in compare_px]
+    reports = {prov: cli(f"compare/{prov}", "compare", "--provider", prov,
+                         "--pixels", *pixels, "--format", "json",
+                         "--no-artifact", "--no-cache")
+               for prov in ("trace", provider)}
+    _require(reports["trace"] == reports[provider],
              "compare: kernel provider's verdicts and shifts differ from "
              "the trace provider's")
-    rows, shifts = kernel_rows
-    log(f"  compare: {len(rows)} points, {len(shifts)} size-axis shift(s), "
-        f"identical through the trace and kernel providers")
-    for line in shifts:
+    payload = json.loads(reports[provider])
+    log(f"    {len(payload['points'])} points, "
+        f"{len(payload['size_shifts'])} size-axis shift(s), identical "
+        f"through the trace and kernel providers")
+    for line in payload["size_shifts"]:
         log(f"    shift {line}")
-    step("compare")
+    log(f"    verdict: {payload['verdict']}")
+
+    # the advisor on the paper's solid image, its winner measured
+    rep = json.loads(cli("advise", "advise", *image, "--dist", "solid",
+                         "--provider", provider, "--validate-top", "1",
+                         "--format", "json", "--no-artifact", "--no-cache"))
+    top = rep["candidates"][0]
+    _require("rotation" in top["families"].split("+")
+             and top.get("validation_e_rel_err") == 0.0
+             and top.get("validation_max_rel_err") == 0.0,
+             f"advise: top-1 {top}")
+    log(f"    top-1 {top['transforms']} x{top['predicted_speedup']!r} of "
+        f"{rep['stats']['candidates']} candidates, {rep['stats']}; "
+        f"validated e rel err 0.0")
+
+    # the heat map of the same image
+    hm = json.loads(cli("heatmap", "heatmap", *image, "--dist", "solid",
+                        "--provider", provider, "--format", "json",
+                        "--no-artifact"))
+    _require(hm["peak_degree"] == 32.0 and hm["counters"]["e"] == 32.0
+             and hm["total_hits"] == px_main * 4
+             and 0.0 < hm["top_bin_share"] < 1.0,
+             f"heatmap: peak {hm['peak_degree']}, e "
+             f"{hm['counters']['e']}, hits {hm['total_hits']}, share "
+             f"{hm['top_bin_share']}")
+    log(f"    peak wave degree {hm['peak_degree']}, top-bin share "
+        f"{hm['top_bin_share']!r} (bin {hm['top_bin']}), hot bins "
+        f"{hm['hot_bins']}")
+
+    # a cold then a warm sweep over the persistent cache
+    sweep = ("sweep", *image[:-1], str(px_main // 4), str(px_main),
+             "--dist", "solid", "--waves-per-tile", "8", "32",
+             "--provider", provider, "--no-artifact")
+    before = launched()
+    cold = cli("sweep/cold", *sweep).splitlines()
+    mid = launched()
+    warm = cli("sweep/warm", *sweep).splitlines()
+    _require(cold[-1] == "cache: 4 collected, 0 memo hits, 0 disk hits"
+             and warm[-1] == "cache: 0 collected, 0 memo hits, 4 disk hits"
+             and cold[:-1] == warm[:-1] and mid != before
+             and launched() == mid,
+             f"sweep cold {cold[-1]!r}, warm {warm[-1]!r}")
+    log(f"    {cold[-1]} -> {warm[-1]}; reports identical")
+
+    # the entry point itself
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "--version"],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    step("cli/--version")
+    _require(proc.returncode == 0 and proc.stdout.strip()
+             == f"repro_torch {repro_torch.__version__}",
+             f"python -m repro_torch --version: {proc}")
+    log(f"  cli --version (a process of its own): "
+        f"{seconds['cli/--version']:.3f} s, {proc.stdout.strip()}")
     log("  host seconds by step: " + ", ".join(
         f"{k} {v:.3f}" for k, v in seconds.items()))
     return seconds
-
-
-def compare(sess, pixels) -> tuple[list, list]:
-    """``repro compare``'s rows and size-axis shift events."""
-    from repro_torch.analysis import WorkloadSpec
-    from repro_torch.data.images import make_image
-
-    def spec(kind, px, variant):
-        return WorkloadSpec.from_histogram(
-            make_image(kind, px), label=f"{kind}/{px}px/{variant}",
-            variant=variant, waves_per_tile=8)
-
-    rows, size_shifts = [], []
-    for kind in ("solid", "uniform"):
-        for variant in ("hist", "hist2"):
-            res = sess.sweep([spec(kind, px, variant) for px in pixels])
-            size_shifts.extend(
-                f"{kind}/{variant}: {s.unit_before}->{s.unit_after} "
-                f"({s.label_before} -> {s.label_after})" for s in res.shifts)
-        for px in pixels:
-            res = sess.sweep([spec(kind, px, "hist"),
-                              spec(kind, px, "hist2")])
-            h, h2 = res.profiles
-            shift = res.shifts[0] if res.shifts else None
-            rows.append((kind, px, h.scatter_utilization, h.bottleneck,
-                         h2.scatter_utilization, h2.bottleneck,
-                         float(res.speedup_vs_first[1]),
-                         f"{shift.unit_before}->{shift.unit_after}"
-                         if shift else ""))
-    return rows, size_shifts
 
 
 def scatter_path(dev, provider, cache_dir, tables_dir) -> dict[str, float]:
@@ -1598,7 +1657,9 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tables = Path(tmp) / "tables"
-        t0 = phase("main path: the histogram case study")
+        # the CLI's artifacts and counter cache stay out of the checkout
+        os.environ["REPRO_TORCH_RESULTS"] = str(Path(tmp) / "results")
+        t0 = phase("main path: the histogram case study and the CLI")
         hk.reset_launches()
         sk.reset_launches()
         main_path(dev, "kernel", 1 << 18, MAIN_PX, COMPARE_PX, tables)

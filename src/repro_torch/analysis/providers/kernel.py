@@ -26,7 +26,6 @@ import numpy as np
 from repro_torch.analysis.providers.base import (collect_batch_fallback,
                                                  register_provider)
 from repro_torch.core.counters import CounterFrame, CounterSet
-from repro_torch.kernels.scatter_add import ops as scat_ops
 
 
 class InstrumentedKernelProvider:
@@ -80,6 +79,11 @@ class InstrumentedKernelProvider:
         diverge from the trace provider's (which models the raw stream),
         turning every ``validate()`` into a false alarm.  Refuse instead.
         """
+        # lazy, as the workload's own kernel dispatch: importing the
+        # analysis layer (``python -m repro_torch --version``, ``devices``)
+        # loads no torch
+        from repro_torch.kernels.scatter_add import ops as scat_ops
+
         idx = np.asarray(spec.indices).reshape(-1)
         tile = scat_ops.sk.DEFAULT_TILE
         if idx.size % tile != 0:

@@ -95,6 +95,25 @@ class TraceProvider:
             bytes_read=spec.bytes_read, flops=spec.flops,
             overhead_cycles=spec.overhead_cycles, source=self.name)
 
+    def committed_stream(self, spec):
+        """(stream, job_class, waves_per_tile) for attributable specs.
+
+        The public stream-planning hook the observability layer rides
+        (``repro_torch.obs.heatmap``): the exact committed index stream,
+        class, and geometry this provider feeds ``trace_from_indices``,
+        so per-bin attribution stays bit-consistent with ``collect``.
+        Sources that carry no index stream (pre-recorded ``trace``,
+        opaque ``run``) cannot be attributed per bin.
+        """
+        if spec.kernel is not None:
+            return self._stream_plan(spec)
+        if spec.indices is not None:
+            return (np.asarray(spec.indices).reshape(-1),
+                    spec.job_class, spec.waves_per_tile or 1)
+        raise ValueError(
+            f"spec {spec.label!r} has no committed index stream to "
+            f"attribute (kernel/indices sources only)")
+
     def _stream_plan(self, spec):
         """(committed stream, job class, waves_per_tile) for a kernel spec.
 

@@ -17,10 +17,12 @@ verdicts:
 
 ``validate`` is the paper's §5 as an API call: collect the same spec
 through several providers (modeled vs measured) and report per-counter
-relative errors and the utilization delta.
+relative errors and the utilization delta.  ``advise`` searches workload
+transforms for a predicted fix (``repro_torch.advisor``) and ``heatmap``
+attributes contention to bins and waves (``repro_torch.obs.heatmap``).
 
-The layers above and beside the pipeline (``advise``, ``audit``,
-``lint``, ``heatmap``) come with their own slices of the port.
+The static layers (``audit``, ``lint``) come with their own slices of
+the port.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ from repro_torch.core import bottleneck, profiler, qmodel
 from repro_torch.core import counters as counters_mod
 from repro_torch.core.counters import CounterFrame, CounterSet
 from repro_torch.obs import telemetry as _telemetry
+from repro_torch.obs.heatmap import (DEFAULT_HOT_DEGREE, Heatmap,
+                                     heatmap_for_spec)
 
 _SESSION_CALLS = _telemetry.counter(
     "repro_session_calls_total", "Session entry-point invocations",
@@ -469,6 +473,46 @@ class Session:
             device=self.device.name, label=spec.label,
             reference=provs[0].name, comparisons=comparisons)
 
+    def advise(self, spec: WorkloadSpec, *, catalog=None, depth: int = 2,
+               beam_width: int = 8, top_k: int = 5, validate_top: int = 0,
+               parallel: Optional[int] = None,
+               kernel_provider: Union[str, CounterProvider] = "kernel"):
+        """Search workload transforms around ``spec``; rank predicted fixes.
+
+        The ``repro_torch.advisor`` subsystem as a session call: enumerate
+        legal transform compositions (channel rotation, bin replication,
+        CAS→FAO substitution, launch geometry, lane interleave — or a
+        custom ``catalog``), collect each candidate's counters through
+        this session's provider + memo + persistent cache, score every
+        frontier with one columnar ``profile_batch`` evaluation, and
+        return the ranked ``AdvisorReport``.  ``validate_top`` re-checks
+        that many top candidates through ``kernel_provider`` (paper §5's
+        model-vs-measured; the registered ``"kernel"`` launches on the
+        card, an ``InstrumentedKernelProvider(torch_device=...)`` where
+        the caller says).
+        """
+        from repro_torch.advisor.search import AdvisorSearch  # layer above
+        return AdvisorSearch(
+            self, catalog=catalog, depth=depth, beam_width=beam_width,
+            kernel_provider=kernel_provider,
+        ).search(spec, top_k=top_k, validate_top=validate_top,
+                 parallel=parallel)
+
+    def heatmap(self, spec: WorkloadSpec, *,
+                hot_degree: float = DEFAULT_HOT_DEGREE) -> Heatmap:
+        """Per-bin contention attribution for one workload point.
+
+        Turns the trace provider's committed index stream into per-bin
+        hit counts, serialized-replay counts, per-bin max wave degree,
+        and the per-wave contention series (``repro_torch.obs.heatmap``)
+        — "the unit is saturated" becomes "these bins are, and the skew
+        peaks at wave W".  The embedded ``CounterSet`` is bitwise-equal
+        to what ``profile`` reports for the same spec; only ``kernel``
+        and ``indices`` sources carry a stream to attribute.
+        """
+        with _observed("heatmap", label=spec.label):
+            return heatmap_for_spec(spec, hot_degree=hot_degree)
+
     # -- reporting --------------------------------------------------------
 
     @property
@@ -488,7 +532,7 @@ class Session:
                                "sweep() before report()")
         return self._last.render(fmt)
 
-    # -- building blocks for layered tools --------------------------------
+    # -- building blocks for layered tools (the advisor) ------------------
 
     def collect_cached(self, spec: WorkloadSpec) -> CounterSet:
         """``collect`` behind this session's memo + persistent cache.

@@ -1,0 +1,674 @@
+"""``python -m repro_torch`` — the paper's tool as a command line.
+
+Seven subcommands over the ``repro_torch.analysis`` Session API:
+
+    devices    list registered devices and their table-cache state
+    profile    one workload -> utilization report + verdict
+    heatmap    per-bin contention attribution for one workload point:
+               hit/replay counts per destination bin, per-bin max wave
+               degree, and the per-wave contention sparkline
+               (repro_torch.obs.heatmap)
+    sweep      cartesian grid sweep (sizes x geometry), batch-collected;
+               --shards N --shard-index i slices the grid across
+               processes (merging through the persistent counter cache),
+               --merge assembles the full grid from the cache
+    advise     search workload transforms, rank model-predicted fixes
+    validate   multi-provider counter comparison (paper §5)
+    compare    the §5 hist-vs-hist2 case study with a shift verdict
+
+Every command prints its report to stdout (``--format text|json|csv``;
+``devices`` and ``validate`` render ``text|json`` only — unsupported
+values are rejected by argparse ``choices`` before any work happens)
+and can persist it with ``--output PATH``; ``heatmap``, ``sweep``,
+``advise`` and ``compare`` additionally drop an artifact under
+``results/torch/cli/`` unless told not to, and ``sweep``, ``advise`` and
+``compare`` cache the collected counters under ``results/torch/cache/``
+(``--no-cache`` opts out) so a repeated run skips collection and goes
+straight to the columnar batch model evaluation.  ``REPRO_TORCH_RESULTS``
+moves ``results/torch/``.
+
+The instrumented kernels (``--provider kernel``, ``validate``'s
+``kernel`` provider, ``advise --validate-top N``) run on
+``--torch-device`` (default ``cuda``); ``--torch-device cpu`` runs their
+plain versions.  Without a card a command that needs them is refused up
+front (exit code 2) — nothing falls back to the CPU by itself.
+``--provider trace`` is host numpy wherever it runs.
+
+The CLI builds ordinary ``WorkloadSpec``s and calls the same Session
+methods the Python API exposes, so its numbers are bit-identical to a
+scripted run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+from typing import Optional, Sequence
+
+from repro_torch import __version__
+from repro_torch.analysis import (DEVICES, InstrumentedKernelProvider,
+                                  Session, WorkloadSpec)
+from repro_torch.cli import workloads as wl
+from repro_torch.core import bottleneck
+
+DEFAULT_JOBS = 8   # sweep-parallelism knob (thread pool over providers)
+
+
+def _positive_int(text: str) -> int:
+    """argparse type: an integer >= 1 (rejects 0/-N up front, exit 2)."""
+    try:
+        value = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid int value: {text!r}")
+    if value < 1:
+        raise argparse.ArgumentTypeError(
+            f"must be a positive integer, got {text!r}")
+    return value
+
+
+def _nonneg_int(text: str) -> int:
+    """argparse type: an integer >= 0."""
+    try:
+        value = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid int value: {text!r}")
+    if value < 0:
+        raise argparse.ArgumentTypeError(
+            f"must be a non-negative integer, got {text!r}")
+    return value
+
+
+def _positive_float(text: str) -> float:
+    """argparse type: a finite float > 0."""
+    try:
+        value = float(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid float value: {text!r}")
+    if not value > 0 or value != value or value == float("inf"):
+        raise argparse.ArgumentTypeError(
+            f"must be a positive finite number, got {text!r}")
+    return value
+
+
+def _torch_device(text: str) -> str:
+    """argparse type: a device string torch understands (cuda, cuda:0, cpu)."""
+    import torch   # here, not at import: `--version` loads no torch
+
+    try:
+        torch.device(text)
+    except RuntimeError:
+        raise argparse.ArgumentTypeError(f"invalid torch device: {text!r}")
+    return text
+
+
+def results_dir() -> Path:
+    """``results/torch/`` at the repo root (``REPRO_TORCH_RESULTS``
+    overrides).
+
+    Delegates to the one shared resolution rule in
+    ``repro_torch.analysis.sweep_cache`` so CLI artifacts and the
+    persistent counter cache can never disagree about where results live.
+    """
+    from repro_torch.analysis.sweep_cache import results_root
+    return results_root()
+
+
+def _emit(report: str, args, default_artifact: Optional[str] = None) -> None:
+    """Print the report; persist it when asked (or by default for sweeps).
+
+    stdout carries only the report (parseable json/csv); the artifact
+    path goes to stderr so piping the output stays clean.
+    """
+    sys.stdout.write(report if report.endswith("\n") else report + "\n")
+    path = getattr(args, "output", None)
+    if path is None and default_artifact is not None \
+            and not getattr(args, "no_artifact", False):
+        path = results_dir() / "cli" / default_artifact
+    if path:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(report)
+        print(f"wrote {path}", file=sys.stderr)
+
+
+def _provider(args, name: str):
+    """A provider name as the session takes it: ``kernel`` becomes an
+    ``InstrumentedKernelProvider`` on ``--torch-device``, never the
+    registered instance (which launches on ``cuda`` whatever was asked)."""
+    if name == "kernel":
+        return InstrumentedKernelProvider(torch_device=args.torch_device)
+    return name
+
+
+def _session(args) -> Session:
+    return Session(args.device, provider=_provider(args, args.provider),
+                   cache_dir=args.cache_dir,
+                   shift_tol=getattr(args, "shift_tol", bottleneck.SHIFT_TOL))
+
+
+def _sweep_cache(args):
+    """Sweep commands cache collected counters under results/torch/cache/.
+
+    A re-run of the same sweep (same provider + content fingerprints +
+    device calibration) then skips counter collection entirely and goes
+    straight to the batch model evaluation.  ``--no-cache`` opts out;
+    the cache root follows ``results_dir()`` (so ``REPRO_TORCH_RESULTS``
+    relocates it, and ``rm -rf results/torch/cache`` clears it).
+    """
+    if getattr(args, "no_cache", False):
+        return False
+    from repro_torch.analysis import SweepCache
+    return SweepCache()   # default root: results_dir() / "cache"
+
+
+# -- subcommands -------------------------------------------------------------
+
+
+def cmd_devices(args) -> int:
+    rows = [DEVICES[name].describe(args.cache_dir)
+            for name in sorted(DEVICES)]
+    if args.format == "json":
+        _emit(json.dumps(rows, indent=2), args)
+        return 0
+    lines = [f"{len(rows)} registered device(s):"]
+    for r in rows:
+        cached = "cached" if r["table_cached"] else "not built"
+        lines.append(
+            f"  {r['name']:>6}  {r['cores']} cores  "
+            f"{r['clock_ghz']:.2f} GHz  {r['hbm_gbps']:7.0f} GB/s  "
+            f"table: {cached:>9}  {r['description']}")
+    _emit("\n".join(lines), args)
+    return 0
+
+
+def _one_spec(args, what: str) -> WorkloadSpec:
+    specs, axes = wl.build_specs(args)
+    specs = wl.expand_grid(specs, axes)
+    if len(specs) != 1:
+        raise ValueError(
+            f"{args.command} takes exactly one workload point, got "
+            f"{len(specs)}{what}")
+    return specs[0]
+
+
+def cmd_profile(args) -> int:
+    spec = _one_spec(args, " — use 'sweep' for multi-value axes")
+    sess = _session(args)
+    sess.profile(spec)
+    _emit(sess.report(args.format), args)
+    return 0
+
+
+def cmd_heatmap(args) -> int:
+    """Per-bin contention attribution for exactly one workload point."""
+    spec = _one_spec(args, " — use 'sweep' for multi-value axes")
+    sess = _session(args)
+    hm = sess.heatmap(spec, hot_degree=args.hot_degree)
+    ext = {"text": "txt", "json": "json", "csv": "csv"}[args.format]
+    _emit(hm.render(args.format, top_k=args.top_k), args,
+          default_artifact=f"heatmap-{spec.label}.{ext}")
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    """Grid sweep; also one shard of a distributed sweep, or its merge.
+
+    ``--shards N --shard-index i`` sweeps the deterministic stride
+    ``specs[i::N]`` of the full grid — run one process per shard (any
+    order, even concurrently: cache writes are atomic) and they share
+    the persistent counter cache as the backing store.  ``--merge``
+    then sweeps the full grid normally; with every point already cached
+    it collects nothing and renders bit-identically to a single-process
+    sweep (missing points are simply re-collected — the cache is an
+    accelerator, never a correctness input).
+    """
+    base_specs, axes = wl.build_specs(args)
+    specs = wl.expand_grid(base_specs, axes)
+    devices = args.devices or [args.device]
+    jobs = args.jobs if args.jobs is not None else min(DEFAULT_JOBS,
+                                                       len(specs))
+    results = {}
+    stats = {"collected": 0, "memo_hits": 0, "disk_hits": 0}
+    for dev in devices:
+        sess = Session(dev, provider=_provider(args, args.provider),
+                       cache_dir=args.cache_dir, shift_tol=args.shift_tol,
+                       persistent_cache=_sweep_cache(args))
+        results[sess.device.name] = sess.sweep(
+            specs, parallel=jobs, shards=args.shards,
+            shard_index=args.shard_index)
+        for k in stats:
+            stats[k] += sess.stats[k]
+    tag = "-".join(results)
+    if args.shards > 1:
+        # per-shard artifact names keep concurrent shard processes from
+        # overwriting each other's reports
+        tag += f"-shard{args.shard_index}of{args.shards}"
+    ext = {"text": "txt", "json": "json", "csv": "csv"}[args.format]
+    report = _render_sweeps(results, args.format)
+    if args.format == "text":
+        # collection accounting footer (text only: json/csv stay parseable
+        # and bit-identical between cold and warm runs)
+        report = (report if report.endswith("\n") else report + "\n") + (
+            f"cache: {stats['collected']} collected, "
+            f"{stats['memo_hits']} memo hits, "
+            f"{stats['disk_hits']} disk hits\n")
+    _emit(report, args, default_artifact=f"sweep-{tag}.{ext}")
+    return 0
+
+
+def _render_sweeps(results: dict, fmt: str) -> str:
+    """Render one or several per-device SweepResults as a single report.
+
+    The single-device case is exactly ``SweepResult.render`` (the Session
+    API's own output); a device axis nests json under device names and
+    prefixes csv rows with a ``device`` column.
+    """
+    if len(results) == 1:
+        return next(iter(results.values())).render(fmt)
+    if fmt == "json":
+        payload = {name: json.loads(r.render("json"))
+                   for name, r in results.items()}
+        return json.dumps({"devices": payload}, indent=2)
+    if fmt == "csv":
+        from repro_torch.analysis.render import rows_to_csv
+        rows = []
+        for name, r in results.items():
+            for row in r.to_rows():
+                rows.append({"device": name, **row})
+        return rows_to_csv(rows)
+    return "\n".join(r.render("text") for r in results.values())
+
+
+def cmd_advise(args) -> int:
+    """Model-driven optimization advisor over one workload point.
+
+    Enumerates transform compositions around the workload (channel
+    rotation, bin replication, CAS→FAO substitution, launch geometry,
+    lane interleave), scores every frontier with one columnar
+    ``profile_batch`` evaluation, and prints the ranked predicted fixes.
+    Counter collection is cache-aware like ``sweep``
+    (``results/torch/cache/`` by default, ``--no-cache`` opts out), so
+    re-advising a workload collects nothing; ``--validate-top N``
+    re-checks the N top-ranked kernel-source candidates through the
+    instrumented kernels on ``--torch-device`` (paper §5's
+    model-vs-measured).
+    """
+    spec = _one_spec(args, " — the advisor searches the transform space "
+                           "itself")
+    sess = Session(args.device, provider=_provider(args, args.provider),
+                   cache_dir=args.cache_dir,
+                   persistent_cache=_sweep_cache(args))
+    report = sess.advise(
+        spec, depth=args.depth, beam_width=args.beam_width,
+        top_k=args.top_k, validate_top=args.validate_top,
+        parallel=args.jobs, kernel_provider=_provider(args, "kernel"))
+    ext = {"text": "txt", "json": "json", "csv": "csv"}[args.format]
+    _emit(report.render(args.format), args,
+          default_artifact=f"advise-{sess.device.name}.{ext}")
+    return 0
+
+
+def cmd_validate(args) -> int:
+    spec = _one_spec(args, "")
+    sess = _session(args)
+    report = sess.validate(
+        spec, providers=[_provider(args, p) for p in args.providers])
+    _emit(report.render(args.format), args)
+    return 0
+
+
+def cmd_compare(args) -> int:
+    """Rerun the paper's §5 hist-vs-hist2 case study end to end.
+
+    Mirrors ``examples/torch_histogram_casestudy.py``: the device carries
+    the case study's LLC emulation (``--llc-bytes``/``--miss-latency``/
+    ``--hide-concurrency``), every (kind, size) is profiled under both
+    the naive ``hist`` and the conflict-reordered ``hist2`` kernel, and
+    the report carries both verdicts, the modeled speedup, the per-pair
+    bottleneck shift, and the size-axis shift events per variant — the
+    paper's headline result as one command.  All numbers come from the
+    same ``Session.sweep`` the Python API runs, so they are bit-identical
+    to a scripted session.
+    """
+    from repro_torch.analysis import get_device
+    from repro_torch.core.profiler import CacheModel
+    device = get_device(args.device).with_(cache=CacheModel(
+        llc_bytes=args.llc_bytes, miss_latency_cycles=args.miss_latency,
+        hide_concurrency=args.hide_concurrency))
+    sess = Session(device, provider=_provider(args, args.provider),
+                   cache_dir=args.cache_dir, shift_tol=args.shift_tol,
+                   persistent_cache=_sweep_cache(args))
+
+    def spec(kind, px, variant):
+        img = wl.make_image(kind, px, seed=args.seed)
+        return WorkloadSpec.from_histogram(
+            img, label=f"{kind}/{px}px/{variant}", variant=variant,
+            num_bins=args.num_bins, num_cores=args.num_cores,
+            waves_per_tile=args.waves_per_tile,
+            overhead_cycles=args.overhead_cycles)
+
+    rows, size_shifts = [], []
+    for kind in args.kind:
+        # size-axis sweeps per variant (the casestudy's shift detection);
+        # their counters populate the memo, so the per-size pair sweeps
+        # below re-profile without re-collecting
+        for variant in ("hist", "hist2"):
+            res = sess.sweep([spec(kind, px, variant) for px in args.pixels],
+                             parallel=args.jobs)
+            size_shifts.extend(
+                f"{kind}/{variant}: {s.unit_before}->{s.unit_after} "
+                f"({s.label_before} -> {s.label_after})"
+                for s in res.shifts)
+        for px in args.pixels:
+            result = sess.sweep(
+                [spec(kind, px, "hist"), spec(kind, px, "hist2")])
+            h, h2 = result.profiles
+            shift = result.shifts[0] if result.shifts else None
+            rows.append({
+                "kind": kind,
+                "pixels": px,
+                "hist_U": h.scatter_utilization,
+                "hist_bottleneck": h.bottleneck,
+                "hist2_U": h2.scatter_utilization,
+                "hist2_bottleneck": h2.bottleneck,
+                "speedup": float(result.speedup_vs_first[1]),
+                "shift": (f"{shift.unit_before}->{shift.unit_after}"
+                          if shift else ""),
+            })
+    relieved = sum(1 for r in rows if r["hist_bottleneck"] == "scatter"
+                   and r["hist2_bottleneck"] != "scatter")
+    if relieved:
+        verdict = (f"hist2 reordering moves the bottleneck off the "
+                   f"shared-memory atomic unit at {relieved}/{len(rows)} "
+                   f"points")
+    elif size_shifts:
+        verdict = (f"hist2 lowers scatter utilization but the leading unit "
+                   f"is unchanged at every size; the bottleneck shifts "
+                   f"along the size axis instead ({len(size_shifts)} "
+                   f"event(s), see size-axis lines)")
+    else:
+        verdict = ("no bottleneck shift: hist2 reordering does not relieve "
+                   "the shared-memory atomic unit at any swept point")
+
+    if args.format == "json":
+        payload = {"device": sess.device.name, "points": rows,
+                   "size_shifts": size_shifts, "verdict": verdict}
+        report = json.dumps(payload, indent=2)
+    elif args.format == "csv":
+        import csv as csv_mod
+        import io
+        buf = io.StringIO()
+        w = csv_mod.DictWriter(buf, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+        report = buf.getvalue()
+    else:
+        lines = [f"== compare: hist vs hist2 on {sess.device.name} =="]
+        for r in rows:
+            shift = f"  shift: {r['shift']}" if r["shift"] else ""
+            lines.append(
+                f"{r['kind']:>8} {r['pixels']:>9}px  "
+                f"hist U={r['hist_U']:6.2%} ({r['hist_bottleneck']})  "
+                f"hist2 U={r['hist2_U']:6.2%} ({r['hist2_bottleneck']})  "
+                f"speedup x{r['speedup']:.2f}{shift}")
+        for line in size_shifts:
+            lines.append(f"size-axis bottleneck shift: {line}")
+        lines.append(f"verdict: {verdict}")
+        report = "\n".join(lines)
+    ext = {"text": "txt", "json": "json", "csv": "csv"}[args.format]
+    _emit(report, args,
+          default_artifact=f"compare-{sess.device.name}.{ext}")
+    return 0
+
+
+# -- parser ------------------------------------------------------------------
+
+
+def _add_common(p: argparse.ArgumentParser, *, formats=("text", "json",
+                                                        "csv")) -> None:
+    p.add_argument("--device", default="v5e",
+                   help="modeled device registry name (see 'devices'; "
+                        "default v5e)")
+    p.add_argument("--provider", default="trace",
+                   help="counter provider: trace|kernel|microbench "
+                        "(default trace)")
+    p.add_argument("--torch-device", type=_torch_device, default="cuda",
+                   help="where the instrumented kernels run (default "
+                        "cuda; cpu runs their plain versions)")
+    p.add_argument("--format", choices=formats, default="text",
+                   help="report format (default text)")
+    p.add_argument("--output", metavar="PATH", default=None,
+                   help="also write the report to PATH")
+    p.add_argument("--cache-dir", default=None,
+                   help="service-time table cache dir "
+                        "(default results/torch/tables/)")
+
+
+def _add_workload(p: argparse.ArgumentParser, *, multi: bool) -> None:
+    n = {"nargs": "+"} if multi else {}
+    g = p.add_argument_group("workload")
+    g.add_argument("--workload", choices=wl.WORKLOADS, default="indices",
+                   help="workload family (default indices)")
+    g.add_argument("--size", type=wl.parse_int, default=None, **n,
+                   help="index-stream length, e.g. 65536 or 2^16 "
+                        "(indices/scatter)")
+    g.add_argument("--pixels", type=wl.parse_int, default=None, **n,
+                   help="image pixels, e.g. 2^20 (histogram)")
+    g.add_argument("--dist", choices=("solid", "uniform"), default="uniform",
+                   help="stream/image contents: solid=max contention, "
+                        "uniform=low (default uniform)")
+    g.add_argument("--variant", choices=("hist", "hist2"), default="hist",
+                   help="histogram kernel variant (hist2 = conflict "
+                        "reordering; default hist)")
+    g.add_argument("--num-bins", type=int, default=256)
+    g.add_argument("--num-segments", type=int, default=256,
+                   help="scatter-add destination segments (default 256)")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--label", default=None,
+                   help="base label (default derived from the arguments)")
+    geo = p.add_argument_group("launch geometry / roofline")
+    geo.add_argument("--waves-per-tile", type=int, default=None, **n)
+    geo.add_argument("--pipeline-depth", type=int, default=None, **n)
+    geo.add_argument("--num-cores", type=int, default=8)
+    geo.add_argument("--bytes-read", type=float, default=None)
+    geo.add_argument("--flops", type=float, default=None)
+    geo.add_argument("--overhead-cycles", type=float, default=500.0)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch",
+        description="Shared-memory atomic bottleneck profiler "
+                    "(the paper's two tools as a command line, with the "
+                    "instrumented kernels on an NVIDIA GPU)")
+    # handled by argparse before subcommand dispatch: `repro_torch
+    # --version` exits 0 without requiring (or running) any subcommand
+    ap.add_argument("--version", action="version",
+                    version=f"%(prog)s {__version__}")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("devices", help="list registered devices")
+    p.add_argument("--format", choices=("text", "json"), default="text")
+    p.add_argument("--output", metavar="PATH", default=None)
+    p.add_argument("--cache-dir", default=None)
+    p.set_defaults(func=cmd_devices)
+
+    p = sub.add_parser("profile", help="profile one workload point")
+    _add_common(p)
+    _add_workload(p, multi=False)
+    p.set_defaults(func=cmd_profile)
+
+    p = sub.add_parser(
+        "heatmap", help="per-bin contention attribution for one point")
+    _add_common(p)
+    _add_workload(p, multi=False)
+    p.add_argument("--top-k", type=_positive_int, default=16,
+                   help="bins shown in the text/json grid (default 16)")
+    p.add_argument("--hot-degree", type=_positive_float, default=2.0,
+                   help="wave degree at or above which a bin counts as "
+                        "hot (default 2.0)")
+    p.add_argument("--no-artifact", action="store_true",
+                   help="do not write the report under results/torch/cli/")
+    p.set_defaults(func=cmd_heatmap)
+
+    p = sub.add_parser(
+        "sweep", help="grid sweep: sizes x geometry, concurrent points")
+    _add_common(p)
+    _add_workload(p, multi=True)
+    p.add_argument("--devices", nargs="+", default=None, metavar="DEV",
+                   help="sweep the grid on several devices "
+                        "(outermost axis; overrides --device)")
+    p.add_argument("--jobs", type=_positive_int, default=None,
+                   help=f"concurrent collection threads (default "
+                        f"min({DEFAULT_JOBS}, points); 1 = serial)")
+    p.add_argument("--shards", type=_positive_int, default=1,
+                   help="split the grid into this many deterministic "
+                        "stride slices; this process sweeps only "
+                        "--shard-index's slice (shards merge through the "
+                        "persistent counter cache; default 1)")
+    p.add_argument("--shard-index", type=_nonneg_int, default=0,
+                   help="which slice of a --shards split this process "
+                        "owns (0-based; default 0)")
+    p.add_argument("--merge", action="store_true",
+                   help="assemble the full grid from the persistent "
+                        "counter cache (a warm full sweep: collects "
+                        "nothing when every shard has run; incompatible "
+                        "with --shards/--no-cache)")
+    p.add_argument("--shift-tol", type=float, default=bottleneck.SHIFT_TOL,
+                   help="relative lead a new unit needs to count as a "
+                        "bottleneck shift (default %(default)s)")
+    p.add_argument("--no-artifact", action="store_true",
+                   help="do not write the default results/torch/cli/ "
+                        "artifact")
+    p.add_argument("--no-cache", action="store_true",
+                   help="do not read/write the results/torch/cache/ "
+                        "counter cache (re-collect every point)")
+    p.set_defaults(func=cmd_sweep)
+
+    p = sub.add_parser(
+        "advise",
+        help="search workload transforms, rank predicted fixes")
+    _add_common(p)
+    _add_workload(p, multi=False)
+    p.add_argument("--top-k", type=int, default=5,
+                   help="how many ranked candidates to report "
+                        "(default %(default)s)")
+    p.add_argument("--validate-top", type=int, default=0,
+                   help="re-validate the N top-ranked kernel-source "
+                        "candidates via the kernel provider on "
+                        "--torch-device (default 0)")
+    p.add_argument("--depth", type=int, default=2,
+                   help="max transforms composed per candidate "
+                        "(default %(default)s)")
+    p.add_argument("--beam-width", type=int, default=8,
+                   help="compositions each search level extends "
+                        "(default %(default)s)")
+    p.add_argument("--jobs", type=_positive_int, default=None,
+                   help="concurrent collection threads per frontier")
+    p.add_argument("--no-artifact", action="store_true",
+                   help="do not write the default results/torch/cli/ "
+                        "artifact")
+    p.add_argument("--no-cache", action="store_true",
+                   help="do not read/write the results/torch/cache/ "
+                        "counter cache (re-collect every candidate)")
+    p.set_defaults(func=cmd_advise)
+
+    p = sub.add_parser(
+        "validate",
+        help="multi-provider counter comparison (paper §5)")
+    _add_common(p, formats=("text", "json"))
+    _add_workload(p, multi=False)
+    p.add_argument("--providers", nargs="+", default=["trace", "kernel"],
+                   help="first provider is the reference "
+                        "(default: trace kernel)")
+    p.set_defaults(func=cmd_validate)
+
+    p = sub.add_parser(
+        "compare",
+        help="§5 case study: hist vs hist2 bottleneck-shift verdict")
+    _add_common(p)
+    p.add_argument("--kind", nargs="+", choices=("solid", "uniform"),
+                   default=["solid", "uniform"])
+    p.add_argument("--pixels", type=wl.parse_int, nargs="+",
+                   default=[2 ** 14, 2 ** 17, 2 ** 20])
+    p.add_argument("--waves-per-tile", type=int, default=8,
+                   help="launch occupancy (default 8, the casestudy's "
+                        "shift-study setting)")
+    p.add_argument("--num-bins", type=int, default=256)
+    p.add_argument("--num-cores", type=int, default=8)
+    p.add_argument("--overhead-cycles", type=float, default=500.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--shift-tol", type=float, default=bottleneck.SHIFT_TOL)
+    # the casestudy's LLC emulation (examples/torch_histogram_casestudy.py)
+    p.add_argument("--llc-bytes", type=wl.parse_int, default=1 << 21)
+    p.add_argument("--miss-latency", type=float, default=800.0)
+    p.add_argument("--hide-concurrency", type=float, default=48.0)
+    p.add_argument("--jobs", type=_positive_int, default=None,
+                   help="concurrent collection threads per sweep")
+    p.add_argument("--no-artifact", action="store_true")
+    p.add_argument("--no-cache", action="store_true",
+                   help="do not read/write the results/torch/cache/ "
+                        "counter cache (re-collect every point)")
+    p.set_defaults(func=cmd_compare)
+
+    return ap
+
+
+def _needs_kernel(args) -> bool:
+    """Whether the command will launch the instrumented kernels
+    (``heatmap`` reads the trace provider's stream whatever the provider)."""
+    if args.command == "validate":
+        return "kernel" in args.providers
+    if args.command == "advise" and args.validate_top > 0:
+        return True
+    return args.command != "heatmap" \
+        and getattr(args, "provider", None) == "kernel"
+
+
+def _validate_args(ap: argparse.ArgumentParser, args) -> None:
+    """Cross-field argument validation, up front (argparse exit code 2).
+
+    Per-field range checks live in the argparse types
+    (``_positive_int``/``_nonneg_int``); anything relating two flags, or
+    a flag to the machine, is checked here, before any session or device
+    work starts.
+    """
+    shards = getattr(args, "shards", 1)
+    shard_index = getattr(args, "shard_index", 0)
+    if shard_index >= shards:
+        ap.error(f"--shard-index {shard_index} is out of range for "
+                 f"--shards {shards} (valid: 0..{shards - 1})")
+    if getattr(args, "merge", False):
+        if shards > 1 or shard_index:
+            ap.error("--merge assembles the full grid from the cache; "
+                     "drop --shards/--shard-index")
+        if getattr(args, "no_cache", False):
+            ap.error("--merge reads the persistent counter cache; it "
+                     "cannot be combined with --no-cache")
+    if not _needs_kernel(args):
+        return
+    import torch
+
+    if torch.device(args.torch_device).type == "cuda" \
+            and not torch.cuda.is_available():
+        ap.error(f"{args.command} runs the instrumented kernels on "
+                 f"--torch-device {args.torch_device}, and no CUDA device "
+                 f"is available; pass --torch-device cpu to run their "
+                 f"plain versions on the CPU")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _validate_args(ap, args)
+    try:
+        return args.func(args)
+    except (ValueError, KeyError, FileNotFoundError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,10 @@
 """The port stands apart from the reference and from the CPU.
 
-``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-``repro``: a module compared with itself proves nothing.  And the
-kernel wrappers never pick the CPU by themselves: without a card, the
-default device raises.
+``repro_torch``, its examples (``examples/torch_*.py``) and
+``chip_smoke.py`` import neither ``jax`` nor ``repro``: a module
+compared with itself proves nothing.  And the kernel wrappers never pick
+the CPU by themselves: without a card, the default device raises, and
+the command line refuses a command that needs the kernels.
 """
 
 import ast
@@ -22,7 +23,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path):
@@ -38,6 +41,7 @@ def _imported_roots(path):
 def test_port_sources_import_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
+    assert len([f for f in files if f.parent.name == "examples"]) == 4
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -50,7 +54,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.analysis.sweep_cache, repro_torch.obs.telemetry, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.transformer, repro_torch.serve.step, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.cli.main, "
+            "repro_torch.advisor, repro_torch.obs.heatmap\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -119,3 +124,75 @@ def test_serving_path_default_device_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         make_batch(cfg, 2, 8)
     assert fk.LAUNCHES == before
+
+
+# the commands that launch the instrumented kernels, each without
+# --torch-device cpu
+KERNEL_COMMANDS = [
+    ["validate", "--workload", "histogram", "--pixels", "2^12"],
+    ["validate", "--size", "2^12", "--torch-device", "cuda:0",
+     "--providers", "trace", "kernel"],
+    ["profile", "--workload", "histogram", "--pixels", "2^12",
+     "--provider", "kernel"],
+    ["sweep", "--size", "2^12", "--waves-per-tile", "4", "8",
+     "--provider", "kernel", "--no-artifact", "--no-cache"],
+    ["compare", "--pixels", "2^10", "--provider", "kernel",
+     "--no-artifact", "--no-cache"],
+    ["advise", "--workload", "histogram", "--pixels", "2^12",
+     "--validate-top", "1", "--no-artifact", "--no-cache"],
+]
+
+
+@pytest.mark.parametrize("argv", KERNEL_COMMANDS,
+                         ids=[a[0] + str(i) for i, a in
+                              enumerate(KERNEL_COMMANDS)])
+def test_cli_without_a_card_refuses_kernel_commands(argv, monkeypatch,
+                                                    capsys):
+    """No fallback: without a card and without ``--torch-device cpu`` a
+    command that needs the kernels exits 2 before any work, and neither
+    a kernel nor its plain version nor the trace synthesis runs."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card; the default device works here")
+    from repro_torch.analysis.providers import kernel as kernel_prov
+    from repro_torch.analysis.providers import trace as trace_prov
+    from repro_torch.cli.main import main
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    calls = []
+    for cls in (kernel_prov.InstrumentedKernelProvider,
+                trace_prov.TraceProvider):
+        for name in ("collect", "collect_batch"):
+            monkeypatch.setattr(cls, name,
+                                lambda *a, **kw: calls.append(a))
+    for mod in (hk, sk):
+        for name in dir(mod):
+            if name.startswith("_plain") or name.endswith("_plain"):
+                monkeypatch.setattr(mod, name,
+                                    lambda *a, **kw: calls.append(a))
+    before = dict(hk.LAUNCHES), dict(sk.LAUNCHES)
+    with pytest.raises(SystemExit) as exc:
+        main(argv)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--torch-device cpu" in err
+    assert calls == []
+    assert (hk.LAUNCHES, sk.LAUNCHES) == before
+
+
+def test_advise_validation_defaults_to_the_card(tmp_path):
+    """``Session.advise``'s default kernel provider is the registered
+    ``"kernel"``, which launches on the card: without one it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card; the default device works here")
+    from repro_torch.analysis import Session, WorkloadSpec
+    from repro_torch.core import microbench
+    from repro_torch.kernels.histogram import kernel as hk
+
+    img = np.full((4096, 4), 3, np.int32)
+    spec = WorkloadSpec.from_histogram(img, label="x", waves_per_tile=8)
+    sess = Session("v5e", table=microbench.build_table())
+    before = dict(hk.LAUNCHES)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sess.advise(spec, depth=1, validate_top=1)
+    assert hk.LAUNCHES == before
