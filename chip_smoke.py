@@ -6,12 +6,15 @@ from the root of a checkout, on a machine with an NVIDIA GPU, PyTorch
 built for CUDA and the CUDA toolkit (``nvcc``).  The port's kernels
 (``src/repro_torch/kernels/csrc``) are built from the checkout first.
 
-Three paths.  Two run through the port's ``Session`` and its ``"kernel"``
+Four paths.  Three run through the port's ``Session`` and its ``"kernel"``
 provider: the paper's §5 histogram case study (K1-K4), driven as
 ``python -m repro_torch`` runs it (``validate``, ``compare``, ``advise``,
-``heatmap``, ``sweep``), and the scatter-add path (K5-K7): Tool 1's
+``heatmap``, ``sweep``), the scatter-add path (K5-K7): Tool 1's
 kernel mode, the MoE dispatch streams of ``benchmarks/run.py``, the
-``indices`` route and the persistent sweep cache.  The third serves a
+``indices`` route and the persistent sweep cache, and the profiling
+service with the kernel provider (K3, K6) as its primary: clean jobs
+over HTTP, a chaos burst under the seeded fault schedule, and
+``python -m repro_torch serve``/``client`` as processes.  The last serves a
 dense LM: qwen2-72b at its published widths, with the depth cut to what
 one card holds, through ``make_prefill`` (each layer's attention in K8,
 flash attention) and ``generate``.  Phases, each of which must pass:
@@ -31,7 +34,9 @@ flash attention) and ``generate``.  Phases, each of which must pass:
    ``examples/torch_quickstart.py`` and the port's command line run it
    (each command in-process through ``repro_torch.cli.main.main`` with
    ``--provider kernel``, its host seconds and launches logged), then the
-   scatter path, then serving;
+   scatter path, then the service (each job's host seconds and launches
+   logged; no response may be degraded outside the chaos burst, and in
+   it none but by an injected fault), then serving;
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take.
 
@@ -130,6 +135,8 @@ KERNELS = {
 HIST_KERNELS = ("hist", "hist_instrumented", "hist_weighted")
 SCATTER_KERNELS = ("scatter_add", "scatter_add_instrumented", "bincount")
 SERVE_KERNELS = ("flash_attention",)
+# the service path's kernels: K3 for histogram jobs, K6 for indices jobs
+SERVICE_KERNELS = ("hist_instrumented", "scatter_add_instrumented")
 
 
 def log(msg: str) -> None:
@@ -996,6 +1003,317 @@ def scatter_path(dev, provider, cache_dir, tables_dir) -> dict[str, float]:
     return seconds
 
 
+def service_path(dev, results: Path, px_main: int, n_ids: int,
+                 segments: int, burst: int = 64) -> dict[str, float]:
+    """The profiling service with the kernel provider as its primary:
+
+    (a) a clean service behind its HTTP server, one job at a time through
+        ``ServiceClient`` (``validate`` on the four images, ``profile`` of
+        the ``indices`` stream, ``advise --validate-top 1``, a sweep cold
+        then warm), every response undegraded and every breaker closed;
+    (b) chaos: the reference chaos test's fault schedule on the kernel
+        primary, a mixed burst from 8 client threads, every fallback one
+        that the schedule injected, then its profile and sweep jobs
+        again, warm;
+    (c) ``python -m repro_torch serve`` and ``client`` as processes.
+
+    Returns the host-clock seconds of each step.
+    """
+    import signal
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.analysis import Session
+    from repro_torch.analysis.resilience import counter_set_error, is_degraded
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.service import (ProfilingService, ServiceClient,
+                                     ServiceConfig, ServiceError)
+    from repro_torch.service.jobs import build_workload_specs, mixed_burst
+    from repro_torch.service.server import make_http_server
+
+    seconds = {}
+    path_kernels = ("hist_instrumented", "scatter_add_instrumented")
+
+    def launched() -> dict:
+        return {**hk.LAUNCHES, **sk.LAUNCHES}
+
+    def delta(before) -> dict:
+        return {k: n - before[k] for k, n in launched().items()
+                if n != before[k]}
+
+    def running(config):
+        """(service, its HTTP server, a client), the server serving."""
+        svc = ProfilingService(config).start()
+        server = make_http_server(svc, port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return svc, server, ServiceClient(
+            "127.0.0.1", server.server_address[1], timeout_s=300)
+
+    def closed(svc, server):
+        server.shutdown()
+        server.server_close()
+        svc.stop()
+
+    # (a) clean, one job at a time over HTTP
+    os.environ["REPRO_TORCH_RESULTS"] = str(results / "clean")
+    svc, server, client = running(ServiceConfig(
+        provider="kernel", fallbacks=("trace",), torch_device=dev,
+        workers=4))
+
+    def submit(label, job, kernels=True) -> dict:
+        """One job's result; its host seconds and launches logged."""
+        name = f"{job['kind']} {label}"
+        before = launched()
+        t0 = time.perf_counter()
+        body = client.submit({**job, "timeout_s": 120})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        seconds[f"service/{name}"] = time.perf_counter() - t0
+        got = delta(before)
+        log(f"  service {name}: {seconds[f'service/{name}']:.3f} s, "
+            f"launches {got}")
+        breakers = client.status()["breakers"]
+        _require(body["ok"] and body["degraded"] is False
+                 and body["fallback_providers"] == []
+                 and all(b["state"] == "closed" for b in breakers.values()),
+                 f"service {name}: degraded {body['degraded']}, fallbacks "
+                 f"{body['fallback_providers']}, breakers {breakers}")
+        _require(not kernels or any(got.get(k) for k in path_kernels),
+                 f"service {name}: launched neither K3 nor K6 ({got})")
+        return body["result"]
+
+    try:
+        _require(client.health() == {"ok": True}, "service health")
+        for kind in ("solid", "uniform"):
+            for variant in ("hist", "hist2"):
+                rep = submit(f"{kind}/{variant}", {
+                    "kind": "validate",
+                    "workload": {"workload": "histogram", "pixels": px_main,
+                                 "dist": kind, "variant": variant,
+                                 "waves_per_tile": 32}})
+                ref, measured = rep["comparisons"]
+                _require((ref["provider"], measured["provider"])
+                         == ("trace", "kernel")
+                         and all(v == 0.0
+                                 for v in measured["rel_err"].values())
+                         and [c["batch_bitwise_equal"]
+                              for c in rep["comparisons"]] == [True, True],
+                         f"service validate {kind}/{variant}: {rep}")
+                log(f"    e {measured['counters']['e']!r}, max rel err 0.0, "
+                    f"batch bit-identical")
+        trace = Session("v5e")
+        for kind in ("uniform", "solid"):
+            workload = {"workload": "indices", "size": n_ids, "dist": kind,
+                        "num_bins": segments, "waves_per_tile": 32}
+            rep = submit(f"indices {kind}",
+                         {"kind": "profile", "workload": workload})
+            want = json.loads(trace.analyze(
+                build_workload_specs(workload)).render("json"))["points"]
+            point = rep["points"][0]
+            _require(rep["points"] == want,
+                     f"service indices {kind}: {point} against the trace "
+                     f"provider's {want}")
+            log(f"    {n_ids} ids into {segments}: e {point['e']!r}, "
+                f"{point['bottleneck']}, equal to the trace provider's")
+        rep = submit(f"solid {px_main}px", {
+            "kind": "advise",
+            "workload": {"workload": "histogram", "pixels": px_main,
+                         "dist": "solid"},
+            "options": {"validate_top": 1}})
+        top = rep["candidates"][0]
+        _require("rotation" in top["families"].split("+")
+                 and top.get("validation_e_rel_err") == 0.0
+                 and top.get("validation_max_rel_err") == 0.0,
+                 f"service advise: top-1 {top}")
+        log(f"    top-1 {top['transforms']} x{top['predicted_speedup']!r} "
+            f"of {rep['stats']['candidates']} candidates; validated e rel "
+            f"err 0.0")
+        sweep = {"kind": "sweep",
+                 "workload": {"workload": "histogram",
+                              "pixels": [px_main // 4, px_main],
+                              "dist": "solid", "waves_per_tile": [8, 32]}}
+        reports = []
+        for run in ("cold", "warm"):
+            stats = client.status()["sessions"]["v5e"]
+            before = launched()
+            reports.append(submit(run, sweep, kernels=run == "cold"))
+            after = client.status()["sessions"]["v5e"]
+            collected = after["collected"] - stats["collected"]
+            log(f"    {run}: {collected} collected, session {after}")
+        _require(collected == 0 and launched() == before
+                 and reports[0] == reports[1],
+                 f"service warm sweep: {collected} collected, launches "
+                 f"{delta(before)}")
+    finally:
+        closed(svc, server)
+
+    # (b) chaos on the card: 20% faults, 5% corrupt counters, no retries
+    os.environ["REPRO_TORCH_RESULTS"] = str(results / "chaos")
+    svc, server, _ = running(ServiceConfig(
+        provider="kernel", fallbacks=("trace",), torch_device=dev,
+        workers=4, queue_depth=256, timeout_s=60.0, max_timeout_s=120.0,
+        retries=0, breaker_threshold=10 ** 6, fault_rate=0.2,
+        corrupt_rate=0.05, fault_seed=42))
+    port = server.server_address[1]
+    # A launch that fails only under the worker pool would fall back to
+    # `trace` like an injected fault does.  So watch both ends: what the
+    # kernel provider itself raises or returns broken, and each degraded
+    # counter set the chain hands back.  With no retries, each injected
+    # fault and each injected corruption costs exactly one fallback, and
+    # no other fallback may happen.
+    kernel_faults, fallbacks = [], []
+    watch_lock = threading.Lock()
+    kernel_collect, chain_collect = svc.kernel.collect, svc.provider.collect
+
+    def watched_kernel(spec, device):
+        try:
+            cset = kernel_collect(spec, device)
+        except Exception as exc:
+            with watch_lock:
+                kernel_faults.append(
+                    f"{spec.label}: {type(exc).__name__}: {exc}")
+            raise
+        problem = counter_set_error(cset)
+        if problem:
+            with watch_lock:
+                kernel_faults.append(f"{spec.label}: {problem}")
+        return cset
+
+    def watched_chain(spec, device):
+        cset = chain_collect(spec, device)
+        if is_degraded(cset):
+            with watch_lock:
+                fallbacks.append(cset.meta.get("fallback_provider"))
+        return cset
+
+    svc.kernel.collect = watched_kernel
+    svc.provider.collect = watched_chain
+
+    def post(job):
+        try:
+            return 200, ServiceClient("127.0.0.1", port,
+                                      timeout_s=300).submit(job)
+        except ServiceError as exc:
+            return exc.status, exc.body
+
+    try:
+        jobs = mixed_burst(burst, np.random.default_rng(0),
+                           sizes=(1 << 14, 1 << 15, 1 << 16), histogram=True,
+                           validate_providers=None)
+        before = launched()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            results_ = list(pool.map(post, jobs))
+        seconds["service/chaos"] = time.perf_counter() - t0
+        got = delta(before)
+        degraded = [b for _, b in results_ if b.get("degraded")]
+        faults = svc.fault.stats_snapshot()
+        cache = svc.cache.stats()
+        log(f"  service chaos: {len(jobs)} jobs from 8 threads, "
+            f"{seconds['service/chaos']:.3f} s, launches {got}; "
+            f"{len(degraded)} degraded, counters {svc.counters}, "
+            f"faults {faults}, {len(fallbacks)} fallbacks, "
+            f"{len(kernel_faults)} kernel errors, cache {cache['entries']} "
+            f"entries, {cache['quarantined']} quarantined")
+        _require([st for st, _ in results_] == [200] * len(jobs),
+                 f"chaos statuses {sorted({st for st, _ in results_})}")
+        _require(degraded and all(b["fallback_providers"] == ["trace"]
+                                  for b in degraded),
+                 f"chaos: degraded responses "
+                 f"{[b['fallback_providers'] for b in degraded]}")
+        _require(svc.counters["failed"] == 0 and faults["faults"] > 0
+                 and cache["quarantined"] == 0
+                 and all(got.get(k) for k in path_kernels),
+                 f"chaos: counters {svc.counters}, faults {faults}, "
+                 f"cache {cache}, launches {got}")
+        _require(not kernel_faults, "chaos: the kernel provider failed "
+                 f"{len(kernel_faults)} time(s): {kernel_faults[:5]}")
+        _require(len(fallbacks) == faults["faults"] + faults["corrupt"]
+                 and set(fallbacks) <= {"trace"},
+                 f"chaos: {len(fallbacks)} fallbacks {sorted(set(fallbacks))}"
+                 f" against {faults['faults']} injected faults and "
+                 f"{faults['corrupt']} corruptions")
+        warm = [j for j in jobs if j["kind"] in ("profile", "sweep")]
+        stats = svc.session("v5e").stats_snapshot()
+        before = launched()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            again = list(pool.map(post, warm))
+        after = svc.session("v5e").stats_snapshot()
+        log(f"  service chaos, warm: {len(warm)} profile/sweep jobs again, "
+            f"{after['collected'] - stats['collected']} collected, "
+            f"launches {delta(before)}")
+        _require([st for st, _ in again] == [200] * len(warm)
+                 and after["collected"] == stats["collected"]
+                 and after["batch_calls"] == stats["batch_calls"]
+                 and launched() == before,
+                 f"chaos warm resubmission: {stats} -> {after}")
+    finally:
+        closed(svc, server)
+
+    # (c) the real entry points, as processes
+    env = {**os.environ, "PYTHONPATH": str(SRC),
+           "REPRO_TORCH_RESULTS": str(results / "daemon")}
+    port_file = results / "daemon.port"
+    device_flag = [] if dev == "cuda" else ["--torch-device", dev]
+    t0 = time.perf_counter()
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "serve", "--provider",
+         "kernel", "--fallbacks", "trace", "--port", "0", "--port-file",
+         str(port_file), "--workers", "2", *device_flag],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        while not port_file.exists() and daemon.poll() is None \
+                and time.perf_counter() - t0 < 180:
+            time.sleep(0.05)
+        _require(port_file.exists(), f"serve did not bind: rc "
+                 f"{daemon.poll()}")
+        seconds["service/serve start"] = time.perf_counter() - t0
+        job = {"kind": "validate",
+               "workload": {"workload": "histogram", "pixels": px_main,
+                            "dist": "solid", "waves_per_tile": 32}}
+        bodies = []
+        for argv in (["health"], ["submit", "--job", json.dumps(job)]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch", "client", "--port",
+                 port_file.read_text(), *argv], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=300)
+            seconds[f"service/client {argv[0]}"] = time.perf_counter() - t0
+            _require(proc.returncode == 0,
+                     f"client {argv[0]}: rc {proc.returncode} "
+                     f"{proc.stderr[-2000:]}")
+            bodies.append(json.loads(proc.stdout))
+        health, body = bodies
+        measured = body["result"]["comparisons"][1]
+        _require(health == {"ok": True} and body["degraded"] is False
+                 and measured["provider"] == "kernel"
+                 and measured["rel_err"]["e"] == 0.0,
+                 f"client submit: {body}")
+    finally:
+        t0 = time.perf_counter()
+        daemon.send_signal(signal.SIGINT)
+        try:
+            rc = daemon.wait(10)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+            rc = None
+    seconds["service/serve stop"] = time.perf_counter() - t0
+    listening = daemon.stdout.read().strip()
+    log(f"  serve and client as processes: {listening}; health and a "
+        f"validate job (e rel err 0.0, not degraded); SIGINT -> rc {rc}")
+    _require(rc == 0 and listening.startswith(
+        "repro-serve: listening on http://127.0.0.1:"),
+        f"serve exit: rc {rc}, {daemon.stderr.read()[-2000:]}")
+    log("  host seconds by step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()))
+    return seconds
+
+
 def _serve_config(num_layers=None, dtype=None):
     """qwen2-72b with every width as published; depth and dtype as given."""
     from repro_torch.configs import get_config
@@ -1655,6 +1973,7 @@ def main() -> int:
     log(f"  ok in {time.perf_counter() - t0:.1f} s; max |err| {err}")
 
     launches = {}
+    by_path = {k: {} for k in KERNELS}   # each path's own launches
     with tempfile.TemporaryDirectory() as tmp:
         tables = Path(tmp) / "tables"
         # the CLI's artifacts and counter cache stay out of the checkout
@@ -1665,6 +1984,8 @@ def main() -> int:
         main_path(dev, "kernel", 1 << 18, MAIN_PX, COMPARE_PX, tables)
         torch.cuda.synchronize()
         launches.update({k: hk.LAUNCHES[k] for k in HIST_KERNELS})
+        for k in HIST_KERNELS:
+            by_path[k]["histogram"] = hk.LAUNCHES[k]
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
             f"{dict(hk.LAUNCHES)}")
 
@@ -1674,8 +1995,25 @@ def main() -> int:
         scatter_path(dev, "kernel", Path(tmp) / "cache", tables)
         torch.cuda.synchronize()
         launches.update({k: sk.LAUNCHES[k] for k in SCATTER_KERNELS})
+        for k in SCATTER_KERNELS:
+            by_path[k]["scatter"] = sk.LAUNCHES[k]
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
             f"{dict(sk.LAUNCHES)}")
+
+        t0 = phase("main path: the profiling service")
+        hk.reset_launches()
+        sk.reset_launches()
+        service_path(dev, Path(tmp), MAIN_PX, SCATTER_IDS, SCATTER_SEGMENTS)
+        torch.cuda.synchronize()
+        service = {k: {**hk.LAUNCHES, **sk.LAUNCHES}[k]
+                   for k in SERVICE_KERNELS}
+        _require(all(service.values()),
+                 f"service path launched {service}")
+        for k, n in service.items():
+            by_path[k]["service"] = n
+            launches[k] += n
+        log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+            f"{dict(hk.LAUNCHES)} {dict(sk.LAUNCHES)}")
 
     t0 = phase(f"main path: serving {SERVE_ARCH} prefill and decode")
     hk.reset_launches()
@@ -1684,6 +2022,8 @@ def main() -> int:
     serving = serving_path(dev)
     torch.cuda.synchronize()
     launches.update({k: fk.LAUNCHES[k] for k in SERVE_KERNELS})
+    for k in SERVE_KERNELS:
+        by_path[k]["serving"] = fk.LAUNCHES[k]
     log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
         f"{dict(fk.LAUNCHES)}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
@@ -1731,6 +2071,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": err[name], **times[name][case],
             "shape": shape, "cases": times[name],
             **({"inlines": k1} if name.endswith("_instrumented") else {}),

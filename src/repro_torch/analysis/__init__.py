@@ -27,11 +27,25 @@ from repro_torch.analysis.providers import (  # noqa: F401
     PROVIDERS,
     CounterProvider,
     CounterSet,
+    FaultInjectionProvider,
+    InjectedFault,
     InstrumentedKernelProvider,
     MicrobenchProvider,
     TraceProvider,
     get_provider,
     register_provider,
+)
+from repro_torch.analysis.resilience import (  # noqa: F401
+    CircuitBreaker,
+    CorruptCounterError,
+    Deadline,
+    DeadlineExceeded,
+    ProviderCallTimeout,
+    ResilienceExhausted,
+    ResilientProvider,
+    RetryPolicy,
+    TransientProviderError,
+    resilience_scope,
 )
 from repro_torch.analysis.render import (  # noqa: F401
     rows_to_csv,

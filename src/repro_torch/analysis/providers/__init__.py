@@ -17,6 +17,10 @@ from repro_torch.analysis.providers.base import (  # noqa: F401
     provider_collect_batch,
     register_provider,
 )
+from repro_torch.analysis.providers.fault import (  # noqa: F401
+    FaultInjectionProvider,
+    InjectedFault,
+)
 from repro_torch.analysis.providers.kernel import (  # noqa: F401
     InstrumentedKernelProvider,
 )

@@ -628,7 +628,13 @@ class Session:
                 cset = frame.row(row)
                 with self._memo_lock:
                     self._collect_memo[(self.provider.name, fp)] = cset
-                if disk_key is not None:
+                # degraded counters (a resilient provider's fallback or
+                # stale result) stay out of the persistent cache: under
+                # the primary's key they would masquerade as its numbers
+                # for every future process.  The in-process memo keeps
+                # them (warm resubmission still collects nothing), and
+                # the meta stamp survives so reports stay honest.
+                if disk_key is not None and not cset.meta.get("degraded"):
                     write_back[disk_key] = cset
                 out[i] = dataclasses.replace(cset, label=specs[i].label)
             if write_back:

@@ -1,6 +1,6 @@
 """``python -m repro_torch`` — the paper's tool as a command line.
 
-Seven subcommands over the ``repro_torch.analysis`` Session API:
+Ten subcommands over the ``repro_torch.analysis`` Session API:
 
     devices    list registered devices and their table-cache state
     profile    one workload -> utilization report + verdict
@@ -15,6 +15,18 @@ Seven subcommands over the ``repro_torch.analysis`` Session API:
     advise     search workload transforms, rank model-predicted fixes
     validate   multi-provider counter comparison (paper §5)
     compare    the §5 hist-vs-hist2 case study with a shift verdict
+    cache      persistent counter-cache maintenance: stats (entries,
+               bytes, quarantined corrupt files, per-provider
+               breakdown), clear, and prune --max-bytes
+               (LRU-by-mtime eviction; always removes quarantined
+               and orphaned tmp files first)
+    serve      long-running localhost profiling daemon: JSON jobs over
+               HTTP onto a bounded worker pool sharing one memo +
+               persistent counter cache, with retries, per-call
+               timeouts, circuit breakers and degraded fallbacks
+               (see repro_torch.service)
+    client     stdlib HTTP client for a running daemon: health,
+               status, schema, and job submission (loads no torch)
 
 Every command prints its report to stdout (``--format text|json|csv``;
 ``devices`` and ``validate`` render ``text|json`` only — unsupported
@@ -28,7 +40,8 @@ straight to the columnar batch model evaluation.  ``REPRO_TORCH_RESULTS``
 moves ``results/torch/``.
 
 The instrumented kernels (``--provider kernel``, ``validate``'s
-``kernel`` provider, ``advise --validate-top N``) run on
+``kernel`` provider, ``advise --validate-top N``, ``serve`` with
+``kernel`` as its provider or a fallback) run on
 ``--torch-device`` (default ``cuda``); ``--torch-device cpu`` runs their
 plain versions.  Without a card a command that needs them is refused up
 front (exit code 2) — nothing falls back to the CPU by itself.
@@ -89,6 +102,30 @@ def _positive_float(text: str) -> float:
     if not value > 0 or value != value or value == float("inf"):
         raise argparse.ArgumentTypeError(
             f"must be a positive finite number, got {text!r}")
+    return value
+
+
+def _rate(text: str) -> float:
+    """argparse type: a probability in [0, 1]."""
+    try:
+        value = float(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid float value: {text!r}")
+    if not 0.0 <= value <= 1.0:
+        raise argparse.ArgumentTypeError(
+            f"must be in [0, 1], got {text!r}")
+    return value
+
+
+def _port(text: str) -> int:
+    """argparse type: a TCP port (0 = ephemeral, for serve only)."""
+    try:
+        value = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid int value: {text!r}")
+    if not 0 <= value <= 65535:
+        raise argparse.ArgumentTypeError(
+            f"must be a port in [0, 65535], got {text!r}")
     return value
 
 
@@ -423,6 +460,106 @@ def cmd_compare(args) -> int:
     return 0
 
 
+def cmd_cache(args) -> int:
+    """Persistent counter-cache maintenance (``results/torch/cache/``).
+
+    ``stats`` reports entry count, bytes on disk, and a per-provider
+    breakdown (recovered from each entry's stored ``source`` field);
+    ``clear`` removes everything; ``prune --max-bytes N`` evicts
+    least-recently-written entries (LRU by mtime — every cache write
+    refreshes it) until at most N bytes remain — the size bound a
+    long-running shared cache needs.
+    """
+    from repro_torch.analysis import SweepCache
+
+    def fmt_bytes(n: int) -> str:
+        return f"{n / 1e6:.2f} MB" if n >= 1e5 else f"{n} B"
+
+    cache = SweepCache()
+    if args.action == "stats":
+        stats = cache.stats()
+        if args.format == "json":
+            _emit(json.dumps(stats, indent=2), args)
+            return 0
+        lines = [f"cache root: {stats['root']}",
+                 f"{stats['entries']} entries, {fmt_bytes(stats['bytes'])}"]
+        if stats["quarantined"]:
+            lines.append(f"{stats['quarantined']} quarantined corrupt "
+                         f"file(s) — 'cache prune' deletes them")
+        for source, b in stats["by_provider"].items():
+            lines.append(f"  {source:>12}  {b['entries']:>6} entries  "
+                         f"{fmt_bytes(b['bytes']):>12}")
+        _emit("\n".join(lines), args)
+        return 0
+    if args.action == "clear":
+        removed = cache.clear()
+        _emit(f"removed {removed} cache entries", args)
+        return 0
+    # prune (quarantined/tmp litter always goes; --max-bytes adds LRU)
+    removed, freed = cache.prune(args.max_bytes)
+    stats = cache.stats()
+    _emit(f"pruned {removed} entries ({fmt_bytes(freed)}); "
+          f"{stats['entries']} left ({fmt_bytes(stats['bytes'])})", args)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Run the localhost profiling daemon until interrupted.
+
+    All resilience knobs (workers, queue depth, deadlines, retries,
+    breaker thresholds, fault-injection rates for chaos testing) come in
+    as flags, are range-checked up front by the argparse types, and land
+    in one ``ServiceConfig``; the daemon itself lives in
+    ``repro_torch.service``.  With ``kernel`` in its chain it builds and
+    loads the kernels on ``--torch-device`` before it binds the port.
+    """
+    from repro_torch.service import ServiceConfig
+    from repro_torch.service.server import serve
+
+    config = ServiceConfig(
+        host=args.host, port=args.port, workers=args.workers,
+        queue_depth=args.queue_depth, device=args.device,
+        provider=args.provider, fallbacks=tuple(args.fallbacks),
+        timeout_s=args.timeout, max_timeout_s=args.max_timeout,
+        max_points=args.max_points, call_timeout_s=args.call_timeout,
+        retries=args.retries, backoff_base_s=args.backoff_base,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown,
+        persistent_cache=not args.no_cache,
+        fault_rate=args.fault_rate, latency_rate=args.latency_rate,
+        latency_s=args.latency_s, corrupt_rate=args.corrupt_rate,
+        fault_seed=args.fault_seed, torch_device=args.torch_device)
+    serve(config, port_file=args.port_file)
+    return 0
+
+
+def cmd_client(args) -> int:
+    """Talk to a running daemon (health / status / schema / submit)."""
+    from repro_torch.service import ServiceClient, ServiceError
+
+    client = ServiceClient(args.host, args.port, timeout_s=args.timeout)
+    try:
+        if args.action == "submit":
+            if args.job_file:
+                payload = json.loads(Path(args.job_file).read_text())
+            else:
+                payload = json.loads(args.job)
+            body = client.submit(payload,
+                                 retries_on_busy=args.retries_on_busy)
+        else:
+            body = getattr(client, args.action)()
+    except ServiceError as exc:
+        print(f"error: {exc}" + (f" (HTTP {exc.status})"
+                                 if exc.status else ""), file=sys.stderr)
+        return 1
+    except json.JSONDecodeError as exc:
+        print(f"error: job payload is not valid JSON: {exc}",
+              file=sys.stderr)
+        return 2
+    _emit(json.dumps(body, indent=2), args)
+    return 0
+
+
 # -- parser ------------------------------------------------------------------
 
 
@@ -613,12 +750,131 @@ def build_parser() -> argparse.ArgumentParser:
                         "counter cache (re-collect every point)")
     p.set_defaults(func=cmd_compare)
 
+    p = sub.add_parser(
+        "cache",
+        help="persistent counter-cache maintenance (stats/clear/prune)")
+    p.add_argument("action", choices=("stats", "clear", "prune"),
+                   help="stats: entry count, bytes, per-provider "
+                        "breakdown; clear: remove everything; prune: "
+                        "LRU-by-mtime eviction down to --max-bytes")
+    p.add_argument("--max-bytes", type=wl.parse_int, default=None,
+                   metavar="N",
+                   help="prune target: evict least-recently-written "
+                        "entries until at most N bytes remain "
+                        "(accepts 2^20 notation; required for prune)")
+    p.add_argument("--format", choices=("text", "json"), default="text")
+    p.add_argument("--output", metavar="PATH", default=None)
+    p.set_defaults(func=cmd_cache)
+
+    p = sub.add_parser(
+        "serve",
+        help="run the localhost profiling daemon (see repro_torch.service)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address (default 127.0.0.1 — localhost "
+                        "only)")
+    p.add_argument("--port", type=_port, default=8642,
+                   help="TCP port; 0 binds an ephemeral port, printed "
+                        "on start (default %(default)s)")
+    p.add_argument("--port-file", default=None, metavar="PATH",
+                   help="write the bound port to PATH (for scripts "
+                        "using --port 0)")
+    p.add_argument("--workers", type=_positive_int, default=4,
+                   help="worker threads (default %(default)s)")
+    p.add_argument("--queue-depth", type=_positive_int, default=32,
+                   help="pending jobs before 429 load-shedding "
+                        "(default %(default)s)")
+    p.add_argument("--device", default="v5e",
+                   help="default modeled device for sessions (default "
+                        "v5e)")
+    p.add_argument("--provider", default="trace",
+                   help="primary counter provider (default trace)")
+    p.add_argument("--fallbacks", nargs="+", default=["trace"],
+                   metavar="PROVIDER",
+                   help="degraded fallback chain after the primary "
+                        "(default: trace)")
+    # checked by _validate_args, and only with a kernel in the chain: a
+    # trace daemon loads no torch
+    p.add_argument("--torch-device", default="cuda",
+                   help="where the instrumented kernels run (default "
+                        "cuda; cpu runs their plain versions)")
+    p.add_argument("--timeout", type=_positive_float, default=30.0,
+                   help="default per-job deadline seconds "
+                        "(default %(default)s)")
+    p.add_argument("--max-timeout", type=_positive_float, default=300.0,
+                   help="largest timeout_s a job may request "
+                        "(default %(default)s)")
+    p.add_argument("--max-points", type=_positive_int, default=4096,
+                   help="largest sweep grid a single job may expand to "
+                        "(default %(default)s)")
+    p.add_argument("--call-timeout", type=_positive_float, default=10.0,
+                   help="per-provider-call timeout seconds "
+                        "(default %(default)s)")
+    p.add_argument("--retries", type=_nonneg_int, default=2,
+                   help="transient-failure retries per provider "
+                        "(default %(default)s; 0 disables)")
+    p.add_argument("--backoff-base", type=_positive_float, default=0.05,
+                   help="first retry backoff seconds, doubling per "
+                        "attempt (default %(default)s)")
+    p.add_argument("--breaker-threshold", type=_positive_int, default=5,
+                   help="consecutive failures that open a provider's "
+                        "circuit breaker (default %(default)s)")
+    p.add_argument("--breaker-cooldown", type=_positive_float, default=5.0,
+                   help="seconds an open breaker waits before its "
+                        "half-open probe (default %(default)s)")
+    p.add_argument("--no-cache", action="store_true",
+                   help="disable the persistent counter cache (and with "
+                        "it the cached-stale fallback)")
+    chaos = p.add_argument_group(
+        "fault injection (chaos testing; all off by default)")
+    chaos.add_argument("--fault-rate", type=_rate, default=0.0,
+                       help="probability a provider call raises an "
+                            "injected transient fault")
+    chaos.add_argument("--latency-rate", type=_rate, default=0.0,
+                       help="probability a provider call sleeps "
+                            "--latency-s first")
+    chaos.add_argument("--latency-s", type=_positive_float, default=0.05,
+                       help="injected latency seconds "
+                            "(default %(default)s)")
+    chaos.add_argument("--corrupt-rate", type=_rate, default=0.0,
+                       help="probability a provider call returns "
+                            "structurally corrupt counters")
+    chaos.add_argument("--fault-seed", type=_nonneg_int, default=0,
+                       help="seed for the deterministic injection "
+                            "schedule (default %(default)s)")
+    p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser(
+        "client",
+        help="query or submit jobs to a running daemon")
+    p.add_argument("action", choices=("health", "status", "schema",
+                                      "submit"),
+                   help="health/status/schema: GET endpoints; submit: "
+                        "POST one job payload")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=_port, default=8642,
+                   help="daemon port (default %(default)s)")
+    p.add_argument("--timeout", type=_positive_float, default=60.0,
+                   help="HTTP timeout seconds (default %(default)s)")
+    p.add_argument("--job", default=None, metavar="JSON",
+                   help="inline job payload for submit")
+    p.add_argument("--job-file", default=None, metavar="PATH",
+                   help="file with the job payload for submit")
+    p.add_argument("--retries-on-busy", type=_nonneg_int, default=0,
+                   help="retry 429 responses this many times, honoring "
+                        "Retry-After (default 0)")
+    p.add_argument("--output", metavar="PATH", default=None,
+                   help="also write the response to PATH")
+    p.set_defaults(func=cmd_client)
+
     return ap
 
 
 def _needs_kernel(args) -> bool:
     """Whether the command will launch the instrumented kernels
-    (``heatmap`` reads the trace provider's stream whatever the provider)."""
+    (``heatmap`` reads the trace provider's stream whatever the provider;
+    ``serve`` does when ``kernel`` is its provider or a fallback)."""
+    if args.command == "serve":
+        return "kernel" in (args.provider, *args.fallbacks)
     if args.command == "validate":
         return "kernel" in args.providers
     if args.command == "advise" and args.validate_top > 0:
@@ -647,9 +903,39 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
         if getattr(args, "no_cache", False):
             ap.error("--merge reads the persistent counter cache; it "
                      "cannot be combined with --no-cache")
+    if args.command == "cache":
+        if args.action == "prune" and args.max_bytes is None:
+            ap.error("cache prune requires --max-bytes")
+        if args.max_bytes is not None and args.max_bytes < 0:
+            ap.error(f"--max-bytes must be >= 0, got {args.max_bytes}")
+    if args.command == "serve":
+        if args.max_timeout < args.timeout:
+            ap.error(f"--max-timeout {args.max_timeout} must be >= "
+                     f"--timeout {args.timeout}")
+        if args.call_timeout > args.max_timeout:
+            ap.error(f"--call-timeout {args.call_timeout} must be <= "
+                     f"--max-timeout {args.max_timeout} (a single call "
+                     f"may not outlive any job deadline)")
+    if args.command == "client":
+        if args.port == 0:
+            ap.error("--port 0 is only meaningful for serve (ephemeral "
+                     "bind); the client needs the daemon's actual port")
+        if args.action == "submit":
+            if bool(args.job) == bool(args.job_file):
+                ap.error("submit needs exactly one of --job JSON or "
+                         "--job-file PATH")
+        elif args.job or args.job_file:
+            ap.error(f"--job/--job-file only apply to submit, not "
+                     f"{args.action!r}")
     if not _needs_kernel(args):
         return
     import torch
+
+    if args.command == "serve":
+        try:
+            _torch_device(args.torch_device)
+        except argparse.ArgumentTypeError as exc:
+            ap.error(f"argument --torch-device: {exc}")
 
     if torch.device(args.torch_device).type == "cuda" \
             and not torch.cuda.is_available():

@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -116,3 +117,19 @@ def raise_on_error(err: int, kernel: str) -> None:
     runs, and a later synchronize would not report it)."""
     if err:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+
+
+def count_launch(launches: dict[str, int], name: str) -> None:
+    """Add one launch of ``name`` to a wrapper's ``LAUNCHES``, under a
+    lock: service workers launch from several threads, and a bare ``+=``
+    on a dict entry is a read-modify-write that Python does not promise
+    to keep whole."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+
+
+def reset_counts(launches: dict[str, int]) -> None:
+    """Set every count of a wrapper's ``LAUNCHES`` to 0."""
+    with _COUNT_LOCK:
+        for name in launches:
+            launches[name] = 0

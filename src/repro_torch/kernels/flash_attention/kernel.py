@@ -44,8 +44,7 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,5 +126,5 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             group, t, d, DTYPES[q.dtype], int(causal), d ** -0.5, stream),
             "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _build.count_launch(LAUNCHES, "flash_attention")
     return out

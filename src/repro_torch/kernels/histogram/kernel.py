@@ -53,8 +53,7 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,7 +209,7 @@ def histogram_launch(
             _build.raise_on_error(lib.repro_hist_weighted(
                 img.data_ptr(), weights.data_ptr(), out.data_ptr(), n, c,
                 num_bins, tile, int(reorder), stream), "hist_weighted")
-            LAUNCHES["hist_weighted"] += 1
+            _build.count_launch(LAUNCHES, "hist_weighted")
             return out
         out = torch.zeros((c, num_bins), dtype=torch.int32, device=img.device)
         if instrumented:
@@ -220,10 +219,10 @@ def histogram_launch(
             _build.raise_on_error(lib.repro_hist_instrumented(
                 img.data_ptr(), out.data_ptr(), deg.data_ptr(), n, n_pad, c,
                 num_bins, tile, int(reorder), stream), "hist_instrumented")
-            LAUNCHES["hist_instrumented"] += 1
+            _build.count_launch(LAUNCHES, "hist_instrumented")
             return out, deg.reshape(-1, tile * c // instr.LANES)
         _build.raise_on_error(lib.repro_hist(
             img.data_ptr(), out.data_ptr(), n, c, num_bins, tile,
             int(reorder), stream), "hist")
-        LAUNCHES["hist"] += 1
+        _build.count_launch(LAUNCHES, "hist")
         return out

@@ -73,8 +73,7 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,7 +215,7 @@ def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
             values.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d,
             num_segments, VALUE_DTYPES[values.dtype], route, stream),
             "scatter_add")
-    LAUNCHES["scatter_add"] += 1
+    _build.count_launch(LAUNCHES, "scatter_add")
     return out
 
 
@@ -250,7 +249,7 @@ def scatter_add_instrumented_launch(values: torch.Tensor, ids: torch.Tensor,
             values.data_ptr(), ids.data_ptr(), out.data_ptr(), deg.data_ptr(),
             n, n_pad, d, num_segments, int(shared), stream),
             "scatter_add_instrumented")
-    LAUNCHES["scatter_add_instrumented"] += 1
+    _build.count_launch(LAUNCHES, "scatter_add_instrumented")
     return out, deg
 
 
@@ -269,5 +268,5 @@ def bincount_launch(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
         _build.raise_on_error(entry(ids.data_ptr(), out.data_ptr(),
                                     ids.numel(), num_segments, stream),
                               "bincount")
-    LAUNCHES["bincount"] += 1
+    _build.count_launch(LAUNCHES, "bincount")
     return out

@@ -12,11 +12,14 @@ artifacts and the ``python -m repro_torch`` entry point.
 """
 
 import csv as csv_mod
+import dataclasses
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -35,8 +38,10 @@ from repro_torch.core.profiler import CacheModel
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CPU = ["--torch-device", "cpu"]
-PORTED = ("devices", "profile", "heatmap", "sweep", "advise", "validate",
-          "compare")
+ANALYSIS = ("devices", "profile", "heatmap", "sweep", "advise", "validate",
+            "compare")
+SERVICE = ("cache", "serve", "client")
+PORTED = ANALYSIS + SERVICE
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -523,7 +528,7 @@ def test_help_lists_exactly_the_ported_subcommands(capsys):
     assert tuple(sub.choices) == PORTED
 
 
-@pytest.mark.parametrize("cmd", PORTED)
+@pytest.mark.parametrize("cmd", ANALYSIS)
 def test_subcommand_help(capsys, cmd):
     with pytest.raises(SystemExit):
         main([cmd, "--help"])
@@ -716,3 +721,221 @@ def test_quickstart_example_runs_on_the_cpu(capsys):
     assert "channel reorder on solid: e 32 -> 8" in out
     assert "max relative error: 0.00%" in out
     assert "batch collection bit-identical: trace, kernel" in out
+
+
+# -- cache, serve, client -----------------------------------------------------
+
+
+@pytest.mark.parametrize("cmd", SERVICE)
+def test_service_subcommand_help(capsys, cmd):
+    with pytest.raises(SystemExit):
+        main([cmd, "--help"])
+    out = capsys.readouterr().out
+    assert ("--torch-device" in out) == (cmd == "serve")
+    assert ("--format" in out) == (cmd == "cache")
+
+
+def _fill_caches(capsys):
+    """The same cold sweep through both packages' persistent caches."""
+    argv = ["sweep", "--size", "2^12", "--dist", "solid",
+            "--waves-per-tile", "4", "8", "--no-artifact"]
+    both(argv, capsys)
+
+
+def test_cache_stats_json_has_the_reference_keys(capsys, tmp_path):
+    _fill_caches(capsys)
+    argv = ["cache", "stats", "--format", "json"]
+    assert ref_main(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert main(argv) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert set(got) == set(want)
+    assert got["root"] == str(tmp_path / "port" / "cache")
+    assert {k: got[k] for k in ("entries", "quarantined")} == \
+        {k: want[k] for k in ("entries", "quarantined")} == \
+        {"entries": 2, "quarantined": 0}
+    assert {k: v["entries"] for k, v in got["by_provider"].items()} == \
+        {k: v["entries"] for k, v in want["by_provider"].items()}
+
+
+def test_cache_text_clear_and_prune(capsys, tmp_path):
+    _fill_caches(capsys)
+    rc, out = run_cli(["cache", "stats"], capsys)
+    assert rc == 0
+    assert out.splitlines()[:2][0] == \
+        f"cache root: {tmp_path / 'port' / 'cache'}"
+    assert out.splitlines()[1].startswith("2 entries, ")
+    (tmp_path / "port" / "cache" / "deadbeef.tmp").write_bytes(b"half")
+    rc, out = run_cli(["cache", "prune", "--max-bytes", "2^30"], capsys)
+    assert rc == 0 and out.startswith("pruned 1 entries") \
+        and "; 2 left" in out
+    rc, out = run_cli(["cache", "clear"], capsys)
+    assert rc == 0 and out.strip() == "removed 2 cache entries"
+    assert ref_main(["cache", "clear"]) == 0
+    assert capsys.readouterr().out.strip() == "removed 2 cache entries"
+    with pytest.raises(SystemExit) as exc:
+        main(["cache", "prune"])
+    assert exc.value.code == 2
+
+
+SERVE_FLAGS = ["serve", "--port", "0", "--workers", "3", "--queue-depth",
+               "5", "--device", "v5p", "--fallbacks", "trace", "microbench",
+               "--timeout", "20", "--max-timeout", "40", "--max-points",
+               "99", "--call-timeout", "3", "--retries", "1",
+               "--backoff-base", "0.5", "--breaker-threshold", "4",
+               "--breaker-cooldown", "2", "--no-cache", "--fault-rate",
+               "0.25", "--latency-rate", "0.5", "--latency-s", "0.1",
+               "--corrupt-rate", "0.125", "--fault-seed", "9"]
+
+
+def test_serve_flags_build_the_references_config(monkeypatch):
+    """``serve``'s flags land in a ``ServiceConfig`` equal to the
+    reference's field for field, plus the port's ``torch_device``."""
+    from repro.service import server as ref_server
+    from repro_torch.service import server
+
+    seen = {}
+    monkeypatch.setattr(ref_server, "serve", lambda cfg, port_file=None:
+                        seen.setdefault("ref", (cfg, port_file)))
+    monkeypatch.setattr(server, "serve", lambda cfg, port_file=None:
+                        seen.setdefault("port", (cfg, port_file)))
+    argv = SERVE_FLAGS + ["--port-file", "p.txt"]
+    assert ref_main(argv) == 0
+    assert main(argv + ["--torch-device", "cpu"]) == 0
+    (got, got_file), (want, want_file) = seen["port"], seen["ref"]
+    assert got_file == want_file == "p.txt"
+    got = dataclasses.asdict(got)
+    assert got.pop("torch_device") == "cpu"
+    assert got == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("chain", [["--provider", "kernel"],
+                                   ["--fallbacks", "trace", "kernel"]],
+                         ids=["primary", "fallback"])
+def test_serve_kernel_without_a_card_exits_2_before_binding(
+        chain, monkeypatch, capsys):
+    """No fallback: ``serve`` with ``kernel`` in its chain, without a
+    card and without ``--torch-device cpu``, exits 2 before a service or
+    a socket exists."""
+    import torch
+
+    from repro_torch.service import server
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card; the default device works here")
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: pytest.fail(
+        "serve ran"))
+    monkeypatch.setattr(server, "make_http_server", lambda *a, **kw:
+                        pytest.fail("bound a port"))
+    with pytest.raises(SystemExit) as exc:
+        main(["serve", "--port", "0"] + chain)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--torch-device cpu" in err
+
+
+def test_serve_rejects_a_bad_torch_device_with_a_kernel(capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(["serve", "--provider", "kernel", "--torch-device", "gpu0"])
+    assert exc.value.code == 2
+    assert "gpu0" in capsys.readouterr().err
+
+
+def _modules_after(argv):
+    """(exit code, stdout, the torch/jax/repro modules loaded) of one
+    ``python -m repro_torch`` run in a process of its own."""
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['repro_torch'] + {list(argv)!r}\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch', run_name='__main__')\n"
+            "except SystemExit as exc:\n"
+            "    rc = exc.code\n"
+            "print(rc)\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('torch', 'jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=120)
+    *out, rc, loaded = proc.stdout.strip().splitlines()
+    return int(rc), "\n".join(out), loaded, proc.stderr
+
+
+def test_client_loads_no_torch():
+    """``client`` is stdlib: it answers (here: service unreachable, exit
+    1) without loading torch, as ``--version`` does."""
+    rc, _, loaded, err = _modules_after(
+        ["client", "--port", "1", "--timeout", "5", "health"])
+    assert rc == 1 and "service unreachable" in err
+    assert loaded == "[]"
+
+
+def test_serve_and_client_processes_on_the_cpu(tmp_path):
+    """The real entry points: a ``serve`` daemon with the kernel primary
+    on the CPU, ``client`` health and a ``validate`` job through it (e
+    rel err 0.0, not degraded), then SIGINT: the daemon exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    port_file = tmp_path / "port"
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "serve", "--provider",
+         "kernel", "--fallbacks", "trace", "--torch-device", "cpu",
+         "--port", "0", "--port-file", str(port_file), "--workers", "2"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while not port_file.exists() and daemon.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        port = port_file.read_text()
+        job = {"kind": "validate",
+               "workload": {"workload": "histogram", "pixels": 4096,
+                            "dist": "solid", "waves_per_tile": 32}}
+        outs = []
+        for argv in (["health"], ["submit", "--job", json.dumps(job)]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch", "client", "--port",
+                 port] + argv, cwd=REPO, env=env, capture_output=True,
+                text=True, timeout=120)
+            assert proc.returncode == 0, proc.stderr
+            outs.append(json.loads(proc.stdout))
+        assert outs[0] == {"ok": True}
+        body = outs[1]
+        assert body["ok"] and not body["degraded"]
+        assert body["fallback_providers"] == []
+        ref, measured = body["result"]["comparisons"]
+        assert measured["provider"] == "kernel"
+        assert measured["rel_err"]["e"] == 0.0
+    finally:
+        daemon.send_signal(signal.SIGINT)
+        try:
+            rc = daemon.wait(10)
+        finally:
+            if daemon.poll() is None:
+                daemon.kill()
+        line = daemon.stdout.read()
+    assert rc == 0
+    assert line.startswith(f"repro-serve: listening on http://127.0.0.1:"
+                           f"{port} (workers=2, queue=32, provider=kernel, "
+                           f"torch_device=cpu)")
+
+
+def test_grid_sweep_example_csv_equals_reference(tmp_path, monkeypatch,
+                                                 capsys):
+    """``torch_grid_sweep.py``'s csv equals the reference example's row
+    for row, and its base point validates exactly through the kernel
+    provider on the CPU."""
+    ref = load_example("grid_sweep")
+    monkeypatch.setattr(ref, "OUT", str(tmp_path / "ref.csv"))
+    ref.main()
+    report = load_example("torch_grid_sweep").main(CPU)
+    want = (tmp_path / "ref.csv").read_text()
+    got = (tmp_path / "port" / "grid_sweep.csv").read_text()
+    assert got.splitlines()[0] == want.splitlines()[0]
+    assert len(got.splitlines()) == len(want.splitlines()) == 2 * 9
+    assert_csv_close("".join(got.splitlines(True)[:9]),
+                     "".join(want.splitlines(True)[:9]))
+    assert_csv_close("".join(got.splitlines(True)[9:]),
+                     "".join(want.splitlines(True)[9:]))
+    assert report.max_rel_err == 0.0
+    out = capsys.readouterr().out
+    assert "max relative error 0.00%" in out

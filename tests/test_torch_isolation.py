@@ -41,7 +41,7 @@ def _imported_roots(path):
 def test_port_sources_import_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
-    assert len([f for f in files if f.parent.name == "examples"]) == 4
+    assert len([f for f in files if f.parent.name == "examples"]) == 5
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -55,7 +55,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.transformer, repro_torch.serve.step, "
             "repro_torch.launch.serve, repro_torch.cli.main, "
-            "repro_torch.advisor, repro_torch.obs.heatmap\n"
+            "repro_torch.advisor, repro_torch.obs.heatmap, "
+            "repro_torch.analysis.resilience, repro_torch.service, "
+            "repro_torch.analysis.providers.fault\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
