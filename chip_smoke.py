@@ -36,9 +36,12 @@ flash attention) and ``generate``.  Phases, each of which must pass:
    ``--provider kernel``, its host seconds and launches logged), then the
    scatter path, then the service (each job's host seconds and launches
    logged; no response may be degraded outside the chaos burst, and in
-   it none but by an injected fault), then serving;
+   it none but by an injected fault), then serving, then MoE serving
+   (K7 and K5 on each model's live layer-0 tensors held against their
+   plain versions there, outside the counts);
 4. time each kernel, its plain version and one PyTorch library call at
-   the main paths' shapes, beside the least time the card could take.
+   the main paths' shapes, beside the least time the card could take
+   (K5 and K7 also on the MoE layers' live inputs).
 
 The last line is the contract line ``{"ok": true, "device": {...}}``; the
 line before it lists every kernel with its launches and times.  Without
@@ -95,6 +98,15 @@ F32_CHECK_LAYERS, F32_CHECK_B, F32_CHECK_T = 2, 2, 80
 # further pipeline stages); serving_reckoning() checks that they fit
 SERVE_LAYERS = 36
 MEMORY_MARGIN = 2 << 30              # allocator slack beside the reckoning
+# the MoE serving path: qwen3-moe-235b-a22b at every published width with
+# 12 of 94 layers (the rest stand for further pipeline stages; 13 are not
+# reckoned safe beside the prefill's logits), and granite-moe-1b-a400m
+# whole, each with the prefill and decode of the serving path
+MOE_SERVE = (("qwen3-moe-235b-a22b", "qwen3-moe", 12),
+             ("granite-moe-1b-a400m", "granite-moe", None))
+MOE_SHORT = {arch: short for arch, short, _ in MOE_SERVE}
+MOE_KERNELS = ("flash_attention", "bincount", "scatter_add",
+               "scatter_add_instrumented")
 FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
 FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
 # bf16 beyond the reference test's T = 64, where a typical output is small
@@ -656,14 +668,17 @@ def check_flash_kernel(dev) -> dict[str, float]:
         check(f"(3, 8/2, {PREFILL_T}, {d}) bf16 causal=False",
               *flash_case(3, 8, 2, PREFILL_T, d, torch.bfloat16, dev,
                           seed=7), False, None, None)
-    # the serving path's prefill shape; the plain version's f32 scores take
-    # 4.3 GB, so this runs before any model is on the card
-    cfg = _serve_config()
-    check(f"prefill ({PREFILL_B}, {cfg.num_heads}/{cfg.num_kv_heads}, "
-          f"{PREFILL_T}, {cfg.head_dim}) bf16 causal",
-          *flash_case(PREFILL_B, cfg.num_heads, cfg.num_kv_heads, PREFILL_T,
-                      cfg.head_dim, torch.bfloat16, dev, seed=4), True)
-    torch.cuda.empty_cache()
+    # the serving paths' prefill shapes (qwen2-72b, then the MoE models);
+    # the plain version's f32 scores take up to 4.3 GB, so this runs
+    # before any model is on the card
+    for arch in (SERVE_ARCH,) + tuple(arch for arch, _, _ in MOE_SERVE):
+        cfg = _serve_config(arch=arch)
+        check(f"{arch} prefill ({PREFILL_B}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads}, {PREFILL_T}, {cfg.head_dim}) bf16 causal",
+              *flash_case(PREFILL_B, cfg.num_heads, cfg.num_kv_heads,
+                          PREFILL_T, cfg.head_dim, torch.bfloat16, dev,
+                          seed=4), True)
+        torch.cuda.empty_cache()
     return {"flash_attention": worst}
 
 
@@ -1314,40 +1329,57 @@ def service_path(dev, results: Path, px_main: int, n_ids: int,
     return seconds
 
 
-def _serve_config(num_layers=None, dtype=None):
-    """qwen2-72b with every width as published; depth and dtype as given."""
+def _serve_config(num_layers=None, dtype=None, arch=SERVE_ARCH, **changes):
+    """``arch`` (qwen2-72b by default) with every width as published;
+    depth, dtype and any other field as given."""
     from repro_torch.configs import get_config
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     return dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers,
-                               dtype=dtype or cfg.dtype)
+                               dtype=dtype or cfg.dtype, **changes)
 
 
-def serving_reckoning(dev, n: int) -> dict:
-    """The bytes a bf16 qwen2-72b of ``n`` layers holds at its peak in a
+def serving_reckoning(dev, cfg, n: int) -> dict:
+    """The bytes a bf16 ``cfg`` of ``n`` layers holds at its peak in a
     prefill of PREFILL_B x PREFILL_T tokens, against the card's free
     memory.  The peak is the head: the weights, the bf16 logits and their
     f32 copy, and the last hidden state; the empty cache prefill makes is
-    counted too, though it comes after the bf16 logits are freed.  A
+    counted too, though it comes after the bf16 logits are freed.  A dense
     layer's own activations (about 2 GB at 8192 tokens) are freed before
-    the head runs."""
+    the head runs.  An MoE layer's are counted, and the larger of its peak
+    and the head's counts: the expert-sorted rows, the (E, C, d) buffer,
+    the three (E, C, f) products, the expert output, the rows gathered
+    back (all bf16), the f32 combine values and the f32 combine."""
     import torch
-    cfg = _serve_config()
-    d, ff, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    # bf16 bytes of one layer (projections, QKV bias, MLP, two norms), of
-    # its share of the empty cache, of the embedding, head and final norm
-    layer = (d * (q + 2 * kv) + q * d + 3 * d * ff + (q + 2 * kv) + 2 * d) * 2
+    d, v = cfg.d_model, cfg.padded_vocab
+    hd = cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    # bf16 bytes of one layer (projections, QKV bias, FFN or router and
+    # experts, two norms), of its share of the empty cache, of the
+    # embedding, head and final norm
+    attn = d * (q + 2 * kv) + q * d + ((q + 2 * kv) if cfg.qkv_bias else 0)
+    if cfg.is_moe:
+        e, f = cfg.num_experts, cfg.d_expert
+        ffn = 3 * d * f * (e + cfg.num_shared_experts) + d * e
+    else:
+        ffn = 3 * d * cfg.d_ff
+    layer = (attn + ffn + 2 * d) * 2
     cache = 2 * PREFILL_B * kv * PREFILL_T * 2
-    outside = (2 * v * d + d) * 2
+    outside = ((1 if cfg.tie_embeddings else 2) * v * d + d) * 2
     tokens = PREFILL_B * PREFILL_T
     logits, hidden = tokens * v * (2 + 4), tokens * d * 2
+    moe_layer = 0
+    if cfg.is_moe:
+        rows = tokens * cfg.top_k
+        slots = e * max(1, int(rows / e * cfg.moe_capacity_factor))
+        moe_layer = (rows * d * 2 * 2 + slots * (2 * d + 3 * f) * 2
+                     + rows * d * 4 + tokens * d * 4)
     torch.cuda.empty_cache()  # what the allocator caches counts as free
     free, total = torch.cuda.mem_get_info(torch.device(dev))
-    need = n * (layer + cache) + outside + logits + hidden
+    need = n * (layer + cache) + outside + max(logits, moe_layer) + hidden
     return {"free": free, "total": total, "layer": layer,
             "cache_per_layer": cache, "embed_and_head": outside,
-            "logits": logits, "hidden": hidden, "need": need,
-            "margin": MEMORY_MARGIN}
+            "logits": logits, "moe_layer": moe_layer, "hidden": hidden,
+            "need": need, "margin": MEMORY_MARGIN}
 
 
 def serving_path(dev) -> dict:
@@ -1376,7 +1408,7 @@ def serving_path(dev) -> dict:
         t0 = now
 
     n = SERVE_LAYERS
-    reckoning = serving_reckoning(dev, n)
+    reckoning = serving_reckoning(dev, _serve_config(), n)
     _require(reckoning["need"] + MEMORY_MARGIN <= reckoning["free"],
              f"{n} qwen2-72b layers do not fit beside the prefill: "
              f"{reckoning}")
@@ -1542,12 +1574,34 @@ def _all_finite(x) -> bool:
                for part in flat.split(1 << 26))
 
 
-def device_profile(fn, label: str, top: int = 6) -> dict:
+# an MoE step's device time by part: K5, K7 and K8 by their kernels'
+# names, the rest by the torch operator that launched the kernels (each
+# kernel under the outermost of them only: argsort runs aten::sort, an
+# index_put_ runs aten::_index_put_impl_)
+MOE_PROFILE_PARTS = {
+    "K5 combine": ("kernel", ("scatter_owned_kernel", "scatter_tiles_kernel",
+                              "scatter_rows_kernel")),
+    "K7 dispatch count": ("kernel", ("bincount_kernel",
+                                     "bincount_zero_kernel")),
+    "K8 attention": ("kernel", ("flash_f32_kernel", "flash_bf16_kernel",
+                                "flash_bf16_sm90_kernel")),
+    "bmm (experts)": ("op", ("aten::bmm",)),
+    "mm (projections, router, head)": ("op", ("aten::mm",)),
+    "sort": ("op", ("aten::sort",)),
+    "gather": ("op", ("aten::index",)),
+    "index_put": ("op", ("aten::index_put_",)),
+}
+
+
+def device_profile(fn, label: str, top: int = 6, parts=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: host wall time, device
     time (the sum of the CUDA kernels' own times, which one stream runs one
     after another), the idle share 1 - device / wall, and the kernels that
     took most of it.  The profiler's own host cost lengthens the wall
-    time, so the idle share is an upper bound."""
+    time, so the idle share is an upper bound.  ``parts`` (name -> kind,
+    patterns) adds each part's device ms and share: ``"kernel"`` parts sum
+    the kernels whose names hold a pattern, ``"op"`` parts the device time
+    of the torch operators of those names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1558,7 +1612,8 @@ def device_profile(fn, label: str, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
@@ -1573,9 +1628,27 @@ def device_profile(fn, label: str, top: int = 6) -> dict:
         f"top kernels:")
     for name, count, ms in rows:
         log(f"    {ms:9.3f} ms {ms / device_ms:6.1%} x{count:<5d} {name}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": 1 - device_ms / wall_ms,
-            "top": [{"kernel": n, "count": c, "ms": m} for n, c, m in rows]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": 1 - device_ms / wall_ms,
+           "top": [{"kernel": n, "count": c, "ms": m} for n, c, m in rows]}
+    if parts:
+        ops = [e for e in events
+               if e.device_type != torch.autograd.DeviceType.CUDA]
+        shares = {}
+        for name, (kind, patterns) in parts.items():
+            if kind == "kernel":
+                us = sum(e.self_device_time_total for e in kernels
+                         if any(p in e.key for p in patterns))
+            else:
+                us = sum(e.device_time_total for e in ops
+                         if e.key in patterns)
+            shares[name] = {"ms": us / 1e3, "share": us / 1e3 / device_ms}
+        rest = 1 - sum(v["share"] for v in shares.values())
+        log("    by part: " + ", ".join(
+            f"{n} {v['ms']:.3f} ms ({v['share']:.1%})"
+            for n, v in shares.items()) + f", the rest {rest:.1%}")
+        out["parts"] = shares
+    return out
 
 
 def _leaves(tree):
@@ -1604,6 +1677,381 @@ def _decode_vs_prefill(model, params, tokens, prefill_logits):
             err = max(err, _abs_err(logits[:, 0], want))
             same += int((logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
     return err, same / (positions * tokens.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# 3. the MoE serving path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording_moe():
+    """While open, ``moe.apply_local`` keeps its first call's (params, x,
+    config, dispatch ids) — layer 0's of the first step run — and K7's
+    launcher every count it returns, with the number of ids it counted.
+    Both run and count their launches as they otherwise do."""
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.models import moe
+    rec = {"first": None, "counts": []}
+    apply_local, bincount = moe.apply_local, sk.bincount_launch
+
+    def recorded_apply(p, x, cfg):
+        out = apply_local(p, x, cfg)
+        if rec["first"] is None:
+            rec["first"] = (p, x, cfg, out[2])
+        return out
+
+    def recorded_bincount(ids, num_segments):
+        counts = bincount(ids, num_segments)
+        rec["counts"].append((ids.numel(), counts))
+        return counts
+
+    moe.apply_local, sk.bincount_launch = recorded_apply, recorded_bincount
+    try:
+        yield rec
+    finally:
+        moe.apply_local, sk.bincount_launch = apply_local, bincount
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The launches inside leave every count as it was: a kernel held
+    against its plain version is not the path's launch."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+    saved = [(m, dict(m.LAUNCHES)) for m in (fk, hk, sk)]
+    try:
+        yield
+    finally:
+        for m, counts in saved:
+            m.LAUNCHES.update(counts)
+
+
+def _moe_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.scatter_add import kernel as sk
+    every = {**fk.LAUNCHES, **sk.LAUNCHES}
+    return {k: every[k] for k in MOE_KERNELS}
+
+
+def drop_shares(counted, num_experts: int, capacity_factor: float) -> list:
+    """Each counted dispatch stream's share of rows past its capacity,
+    from K7's counts (``recording_moe``'s ``counts``)."""
+    shares = []
+    for n, counts in counted:
+        cap = max(1, int(n / num_experts * capacity_factor))
+        shares.append(float((counts.long() - cap).clamp(min=0).sum()) / n)
+    return shares
+
+
+def live_moe_layer(p, x, mcfg, err: dict) -> dict:
+    """One MoE layer's dispatch and combine recomputed on the card from
+    its live input ``x`` (T, d): K7's counts against ``bincount_plain``
+    bit for bit, and K5's combine within F32_TOL of ``scatter_add_plain``
+    and of the reference's composition (the unsort, then the f32 einsum
+    over the k slots).  Raises ``err``'s K5 entry; returns K7's and K5's
+    inputs, the live shapes of phase 4's MoE rows."""
+    import torch
+
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.models import moe
+
+    t, d = x.shape
+    e, k = mcfg.num_experts, mcfg.top_k
+    with torch.no_grad():
+        gates, ids, _ = moe.route(p, x, mcfg)
+        _, order, sorted_ids, xs, capacity = moe.dispatch(x, ids, mcfg)
+        counts = sk.bincount_launch(sorted_ids, e)
+        torch.cuda.synchronize()
+        _require(torch.equal(counts, sk.bincount_plain(sorted_ids, e)),
+                 f"K7 counts on the live dispatch, {t * k} -> {e}")
+        y_sorted = moe._expert_ffn_grouped(p, xs, sorted_ids, e, capacity,
+                                           mcfg)
+        del xs
+        vals, tok = moe.combine_inputs(y_sorted, gates, order, k)
+        got = sk.scatter_add_launch(vals, tok, t)
+        torch.cuda.synchronize()
+        case = f"{tuple(vals.shape)} f32 -> {t}"
+        plain = sk.scatter_add_plain(vals, tok, t)
+        torch.testing.assert_close(got, plain, **F32_TOL,
+                                   msg=f"K5 vs plain, live combine {case}")
+        err_plain = _abs_err(got, plain)
+        del plain
+        y = y_sorted[torch.argsort(order, stable=True)]
+        del y_sorted
+        want = torch.einsum("tkd,tk->td", y.reshape(t, k, d).float(), gates)
+        del y
+        torch.testing.assert_close(got, want, **F32_TOL,
+                                   msg=f"K5 vs the reference's composition, "
+                                       f"live combine {case}")
+        err_ref = _abs_err(got, want)
+    err["scatter_add"] = max(err["scatter_add"], err_plain, err_ref)
+    log(f"    layer 0 live: K7 {t * k} ids -> {e} bit-equal (largest count "
+        f"{int(counts.max())}, capacity {capacity}); K5 "
+        f"{sk.scatter_add_route(vals, t)} {case} max |err| {err_plain:.3g} "
+        f"vs plain, {err_ref:.3g} vs unsort + einsum")
+    return {"dispatch": (sorted_ids, e), "combine": (vals, tok, t),
+            "largest": int(counts.max()), "capacity": capacity}
+
+
+def moe_serving_model(dev, arch: str, n, sess, err: dict):
+    """One MoE model at every published width, ``n`` layers (None: all),
+    random bf16 weights drawn on the card (seed 0), weights and prefill
+    reckoned against the free memory first: ``make_prefill`` at 4 x 2048
+    and at the ragged 2000, ``generate`` 16 + 16, K8, K7 and K5 counted
+    per step; layer 0's live dispatch and combine held against their
+    plain versions; layer 0's dispatch stream validated through the
+    paper's tool (K6); a profile of a prefill and of a decode step; then
+    the hard check in f32 at two layers, TF32 off, with a capacity
+    factor at which nothing drops.
+
+    Returns (what was measured, the live rows for phase 4).
+    """
+    import torch
+
+    from repro_torch.analysis import WorkloadSpec
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.serve import step as serve_mod
+
+    seconds, out, live = {}, {}, {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
+    def run(what, fn, want):
+        """``fn()`` recorded, its launches held to ``want``."""
+        before = _moe_launches()
+        with recording_moe() as rec, torch.no_grad():
+            result = fn()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _moe_launches().items()
+               if v != before[k]}
+        _require(got == want, f"{arch} {what}: launches {got}, expected "
+                              f"{want}")
+        return result, rec
+
+    full = _serve_config(arch=arch)
+    n = n or full.num_layers
+    e, k = full.num_experts, full.top_k
+    cfg = _serve_config(num_layers=n, arch=arch)
+    reckoning = serving_reckoning(dev, cfg, n)
+    _require(reckoning["need"] + MEMORY_MARGIN <= reckoning["free"],
+             f"{n} {arch} layers do not fit beside the prefill: {reckoning}")
+    log(f"  {arch}: {n} of {full.num_layers} layers, widths as published: "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.head_dim}, {e} experts x {cfg.d_expert} top-{k}, vocab "
+        f"{cfg.padded_vocab}, capacity factor {cfg.moe_capacity_factor}; "
+        f"memory reckoning (bytes) {reckoning}")
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    tokens = make_batch(cfg, PREFILL_B, PREFILL_T, gen)["tokens"]
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out.update(layers=n, weight_bytes=weight_bytes)
+    log(f"  weights: {weight_bytes} bytes ({weight_bytes / 1e9:.2f} GB); "
+        f"peak while drawing them {torch.cuda.max_memory_allocated()} bytes")
+    step("init")
+    torch.cuda.reset_peak_memory_stats()
+
+    # prefill: K8, K7 and K5 once a layer
+    per_layer = {"flash_attention": n, "bincount": n, "scatter_add": n}
+    prefill = serve_mod.make_prefill(model,
+                                     serve_mod.ServeConfig(max_len=PREFILL_T))
+    (logits, cache), rec = run("prefill", lambda: prefill(params, tokens),
+                               per_layer)
+    step("prefill")
+    finite = _all_finite(logits)
+    _require(logits.shape == (PREFILL_B, PREFILL_T, cfg.padded_vocab)
+             and logits.dtype == torch.float32 and finite,
+             f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}, "
+             f"finite {finite}")
+    peak = torch.cuda.max_memory_allocated()
+    _require(peak - held_before <= reckoning["need"],
+             f"{arch} prefill peak {peak - held_before} bytes above the "
+             f"reckoning {reckoning['need']}")
+    drops = drop_shares(rec["counts"], e, cfg.moe_capacity_factor)
+    head = logits[:, :DECODE_PROMPT].clone()
+    tail = logits[:, RAGGED_T - 100:RAGGED_T].clone()
+    del logits, cache
+    out.update(peak_memory_bytes=peak, prefill_drop_share=drops)
+    log(f"  prefill {PREFILL_B} x {PREFILL_T}: logits "
+        f"{(PREFILL_B, PREFILL_T, cfg.padded_vocab)} f32, finite; launches "
+        f"{per_layer}; peak memory {peak} bytes (reckoned at most "
+        f"{held_before + reckoning['need']}); rows dropped past the capacity "
+        f"a layer: {min(drops):.4f}-{max(drops):.4f} of {PREFILL_B * PREFILL_T * k}")
+    p0, x0, mcfg, flat0 = rec["first"]
+    del rec
+    with uncounted():
+        rows = live_moe_layer(p0, x0, mcfg, err)
+    del p0, x0
+    tag = f"{MOE_SHORT[arch]} {PREFILL_B * PREFILL_T * k // 1024}Ki"
+    live[f"{tag} -> {e} (live dispatch)"] = ("bincount", *rows["dispatch"])
+    live[f"{tag} x {cfg.d_model} f32 -> {PREFILL_B * PREFILL_T} (live "
+         f"combine)"] = ("scatter_add", *rows["combine"])
+    step("layer 0")
+
+    # the live dispatch through the paper's tool: layer 0's stream, its
+    # counters read from K6, against the trace provider's
+    ids_np = flat0.cpu().numpy()
+    before = sk.LAUNCHES["scatter_add_instrumented"]
+    spec = WorkloadSpec.from_scatter_add(
+        ids_np, np.ones((ids_np.size, 1), np.float32), e,
+        label=f"{arch} layer 0 dispatch", waves_per_tile=32)
+    rep = sess.validate(spec, providers=("trace", "kernel"))
+    e_err = rep.rel_err("kernel", "e")
+    prof = sess.profile(spec)
+    verdict = sess.last.verdicts[0]
+    k6 = sk.LAUNCHES["scatter_add_instrumented"] - before
+    _require(e_err == 0.0 and rep.max_rel_err == 0.0 and k6 > 0,
+             f"{arch} live dispatch validate: e rel err {e_err}, max rel err "
+             f"{rep.max_rel_err}, K6 launches {k6}")
+    out["live_dispatch"] = {"ids": int(ids_np.size), "e": prof.e,
+                            "U": prof.scatter_utilization,
+                            "bottleneck": prof.bottleneck,
+                            "verdict": verdict.comment}
+    log(f"  live dispatch {ids_np.size} ids -> {e} through Session.validate "
+        f"(trace, kernel): e rel err {e_err!r}, max rel err 0.0, K6 launched "
+        f"{k6}; e {prof.e!r}, U {prof.scatter_utilization!r}, "
+        f"{prof.bottleneck}: {verdict.comment}")
+    step("validate")
+
+    # T not a whole 128-key tile; the capacity follows the tokens, so the
+    # logits before the cut are reported beside the full prefill's
+    (ragged, _), _ = run("ragged prefill",
+                         lambda: prefill(params, tokens[:, :RAGGED_T]),
+                         per_layer)
+    _require(ragged.shape[1] == RAGGED_T and _all_finite(ragged),
+             f"{arch} ragged prefill at T={RAGGED_T}")
+    diff = _abs_err(ragged[:, -100:], tail)
+    del ragged, tail
+    out["ragged_vs_full_max_abs"] = diff
+    log(f"  ragged prefill T={RAGGED_T}: finite, launches {per_layer}; last "
+        f"100 positions' logits against the T={PREFILL_T} prefill's: max "
+        f"|diff| {diff!r} (reported: another capacity drops other rows)")
+    step("ragged")
+
+    # decode: the normal entry point, prompt replayed then greedy tokens
+    prompt = tokens[:, :DECODE_PROMPT]
+    steps = DECODE_PROMPT + DECODE_GEN - 1
+    toks, rec = run("generate", lambda: serve_mod.generate(
+        model, params, prompt, DECODE_GEN,
+        serve_mod.ServeConfig(max_len=DECODE_PROMPT + DECODE_GEN)),
+        {"bincount": steps * n, "scatter_add": steps * n})
+    step("decode")
+    _require(toks.shape == (PREFILL_B, DECODE_PROMPT + DECODE_GEN)
+             and torch.equal(toks[:, :DECODE_PROMPT], prompt)
+             and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+             f"{arch} generate returned {tuple(toks.shape)}")
+    drops = drop_shares(rec["counts"], e, cfg.moe_capacity_factor)
+    del rec
+    out["decode_drop_share_mean"] = statistics.fmean(drops)
+    log(f"  generate: {steps} decode steps of {PREFILL_B} tokens in "
+        f"{seconds['decode']:.3f} s ({seconds['decode'] / steps * 1e3:.1f} ms "
+        f"a step); K7 and K5 {steps * n} launches each; rows dropped past "
+        f"the capacity {max(1, int(PREFILL_B * k / e * cfg.moe_capacity_factor))}"
+        f": {out['decode_drop_share_mean']:.4f} of {PREFILL_B * k} a layer "
+        f"and step, on average")
+    err_bf16, agree = _decode_vs_prefill(model, params, tokens, head)
+    out.update(bf16_decode_max_abs=err_bf16, bf16_top1_agreement=agree)
+    log(f"  bf16 at {n} layers, decode vs prefill logits over "
+        f"{DECODE_PROMPT} positions: max |diff| {err_bf16:.4g}, top-1 "
+        f"agreement {agree:.4f} (reported, not bounded: a decode step's "
+        f"capacity drops other rows, as in the reference)")
+    step("agreement")
+
+    # a decode step's layer 0 live, and where the device time goes
+    small = model.init_cache(params, PREFILL_B, DECODE_PROMPT)
+    with recording_moe() as rec, torch.no_grad():
+        model.decode_step(params, tokens[:, :1], small, pos=0)
+    p0, x0, mcfg, _ = rec["first"]
+    del rec
+    with uncounted():
+        rows = live_moe_layer(p0, x0, mcfg, err)
+    del p0, x0
+    ids = PREFILL_B * k
+    live[f"{MOE_SHORT[arch]} decode {ids} -> {e} (live dispatch)"] = (
+        "bincount", *rows["dispatch"])
+    live[f"{MOE_SHORT[arch]} decode {ids} x {cfg.d_model} f32 -> "
+         f"{PREFILL_B} (live combine)"] = ("scatter_add", *rows["combine"])
+    with torch.no_grad():
+        out["profile_prefill"] = device_profile(
+            lambda: prefill(params, tokens),
+            f"{arch} prefill {PREFILL_B} x {PREFILL_T}",
+            parts=MOE_PROFILE_PARTS)
+        out["profile_decode"] = device_profile(
+            lambda: model.decode_step(params, tokens[:, :1], small, pos=0),
+            f"{arch} decode step of {PREFILL_B} tokens at context 1",
+            parts=MOE_PROFILE_PARTS)
+    del small, head, toks, params, model
+    torch.cuda.empty_cache()
+    step("profile")
+
+    # the hard check: f32 at two layers, TF32 off, capacity factor E so
+    # that the capacity is every row and nothing drops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = _serve_config(num_layers=F32_CHECK_LAYERS, dtype="float32",
+                          arch=arch, moe_capacity_factor=float(e))
+    model = build_model(cfg32, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = model.init(gen)
+    tokens = make_batch(cfg32, F32_CHECK_B, F32_CHECK_T, gen)["tokens"]
+    two = {"flash_attention": F32_CHECK_LAYERS,
+           "bincount": F32_CHECK_LAYERS, "scatter_add": F32_CHECK_LAYERS}
+    (fwd, _), rec = run("f32 prefill", lambda: serve_mod.make_prefill(
+        model, serve_mod.ServeConfig(max_len=F32_CHECK_T))(params, tokens),
+        two)
+    counted = list(rec["counts"])
+    p0, x0, mcfg, _ = rec["first"]
+    del rec
+    with uncounted():
+        rows = live_moe_layer(p0, x0, mcfg, err)
+    del p0, x0, rows
+    with recording_moe() as rec:
+        err32, agree32 = _decode_vs_prefill(model, params, tokens, fwd)
+    counted += rec["counts"]
+    del rec
+    dropped = drop_shares(counted, e, float(e))
+    _require(max(dropped) == 0.0, f"{arch} f32 check dropped rows: {dropped}")
+    _require(err32 < DECODE_TOL, f"{arch} f32 decode vs prefill max |diff| "
+                                 f"{err32} >= {DECODE_TOL}")
+    out.update(f32_decode_max_abs=err32, f32_top1_agreement=agree32)
+    log(f"  f32 at {F32_CHECK_LAYERS} layers, full width, TF32 off, capacity "
+        f"factor {float(e)}: no row dropped in {len(counted)} K7 counts; "
+        f"decode vs prefill logits over {F32_CHECK_T} positions, max |diff| "
+        f"{err32:.4g} < {DECODE_TOL}, top-1 agreement {agree32:.4f}")
+    del params, model, fwd
+    torch.cuda.empty_cache()
+    step("f32 check")
+    out["seconds"] = seconds
+    log("  host seconds by step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()))
+    return out, live
+
+
+def moe_serving_path(dev, tables_dir, err: dict):
+    """Both MoE models through ``moe_serving_model``, one after the
+    other, with one ``Session`` (the ``"kernel"`` provider on the card)
+    for the live dispatch.  Returns (what was measured by model, the live
+    rows of both)."""
+    from repro_torch.analysis import Session
+
+    sess = Session("v5e", cache_dir=tables_dir, provider="kernel")
+    measured, live = {}, {}
+    for arch, _, n in MOE_SERVE:
+        measured[arch], rows = moe_serving_model(dev, arch, n, sess, err)
+        live.update(rows)
+        log(f"  {arch}: {json.dumps(measured[arch])}")
+    return measured, live
 
 
 # ---------------------------------------------------------------------------
@@ -1719,8 +2167,10 @@ def _log_row(name: str, case: str, row: dict) -> None:
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
-def time_scatter_kernels(dev) -> dict:
-    """Times of K5-K7 at the scatter path's shapes.
+def time_scatter_kernels(dev, live=None) -> dict:
+    """Times of K5-K7 at the scatter path's shapes, and of K5 and K7 on
+    the MoE serving path's live inputs (``live``: case -> ("bincount",
+    ids, S) or ("scatter_add", f32 values, ids, S)).
 
     Bytes: each value and id read once, each output written once.
     Operations: one f32 add per (row, d) update that lands.  The library
@@ -1752,7 +2202,7 @@ def time_scatter_kernels(dev) -> dict:
         _log_row(name, case, row)
 
     def k7(case, ids_np, segments):
-        ids = torch.as_tensor(ids_np, device=dev)
+        ids = torch.as_tensor(ids_np, device=dev)  # a tensor stays as it is
         ids64 = ids.to(torch.int64)
         record("bincount", case,
                lambda: sk.bincount_launch(ids, segments),
@@ -1799,6 +2249,19 @@ def time_scatter_kernels(dev) -> dict:
     k7("dispatch collapsed 64Ki -> 128", dispatch_ids("collapsed"), EXPERTS)
     k7(f"decode {DECODE_IDS} -> 128", dispatch_ids("balanced")[:DECODE_IDS],
        EXPERTS)
+    for case, (name, *args) in (live or {}).items():
+        if name == "bincount":
+            k7(case, *args)
+            continue
+        vals, ids, segments = args
+        ids64 = ids.to(torch.int64)
+        rows, d = vals.shape
+        record("scatter_add", case,
+               lambda: sk.scatter_add_launch(vals, ids, segments),
+               lambda: sk.scatter_add_plain(vals, ids, segments),
+               lambda: torch.zeros((segments, d), device=dev).index_add_(
+                   0, ids64, vals),
+               rows * d * 4 + rows * 4 + segments * d * 4, rows * d)
     vals, ids = combine_case(dev)
     vals32, ids64 = vals.float(), ids.to(torch.int64)
     rows, d = vals.shape
@@ -1812,9 +2275,10 @@ def time_scatter_kernels(dev) -> dict:
 
 
 def time_flash_kernel(dev) -> dict:
-    """K8 at the serving path's prefill shape (bf16, causal, GQA 64/8,
-    d = 128), and at granite-moe's attention widths (16/8 heads of 64)
-    over the same 4 x 2048 tokens: the Hopper route at both head sizes.
+    """K8 at the serving paths' prefill shapes (bf16, causal, 4 x 2048
+    tokens): qwen2-72b's (GQA 64/8, d = 128), qwen3-moe's (64/4, d = 128)
+    and granite-moe's (16/8, d = 64), the Hopper route at both head
+    sizes.
 
     Operations: the useful causal products, 2 flop per multiply-add for
     QK^T and for P V over the T (T + 1) / 2 visible (query, key) pairs,
@@ -1826,11 +2290,11 @@ def time_flash_kernel(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
 
     out = {}
-    for cfg in (_serve_config(), get_config("granite-moe-1b-a400m")):
+    for arch in (SERVE_ARCH,) + tuple(arch for arch, _, _ in MOE_SERVE):
+        cfg = _serve_config(arch=arch)
         b, h, kv, t, d = (PREFILL_B, cfg.num_heads, cfg.num_kv_heads,
                           PREFILL_T, cfg.head_dim)
         q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=5)
@@ -2026,6 +2490,23 @@ def main() -> int:
         by_path[k]["serving"] = fk.LAUNCHES[k]
     log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
         f"{dict(fk.LAUNCHES)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = phase("main path: serving MoE (qwen3-moe-235b-a22b, "
+                   "granite-moe-1b-a400m) prefill and decode")
+        hk.reset_launches()
+        sk.reset_launches()
+        fk.reset_launches()
+        moe_serving, live = moe_serving_path(dev, Path(tmp) / "tables", err)
+        torch.cuda.synchronize()
+        moe_launches = {k: {**fk.LAUNCHES, **sk.LAUNCHES}[k]
+                        for k in MOE_KERNELS}
+        _require(all(moe_launches.values()),
+                 f"MoE serving path launched {moe_launches}")
+        for k, n in moe_launches.items():
+            by_path[k]["moe"] = n
+            launches[k] += n
+        log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+            f"{moe_launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     _require(not missing, f"kernels not launched on the main path: {missing}")
 
@@ -2036,7 +2517,8 @@ def main() -> int:
     log(f"  empty kernel launch: "
         f"{time_ms(lambda: torch.cuda._sleep(0), reps=25):.4f} ms")
     times = time_kernels(dev)
-    times.update(time_scatter_kernels(dev))
+    times.update(time_scatter_kernels(dev, live))
+    del live
     times.update(time_flash_kernel(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s")
 

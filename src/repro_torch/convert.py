@@ -111,8 +111,11 @@ def lm_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
     ``params`` is the reference's ``CausalLM.init`` output passed through
     ``jax.tree.map(np.asarray, ...)``.  Its layers are stacked along a
     leading group axis (``params["groups"]["sub0"]``); the port keeps one
-    dict per layer, so that axis is unstacked.  Only the dense plan
-    (one ``"attn"`` sub-block per group) is carried, as only it is served.
+    dict per layer, so that axis is unstacked, the same for every leaf:
+    a dense layer's ``ffn`` (``w_gate``, ``w_up``, ``w_down``) and an MoE
+    layer's (``router: {w}``, ``w_gate``, ``w_up``, ``w_down`` and, with
+    shared experts, ``shared``) alike.  Only the plan of one ``"attn"``
+    sub-block per group is carried, as only it is served.
     """
     groups = params["groups"]
     if (set(groups) != {"sub0"} or params.get("tail")

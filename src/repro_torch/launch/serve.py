@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
       --reduced --batch 4 --prompt-len 16 --gen 16 [--device cpu]
 
-``--device`` defaults to ``cuda``: the model runs on the card unless the
-CPU is asked for.
+The dense and the MoE architectures (``qwen3-moe-235b-a22b``,
+``granite-moe-1b-a400m``: each MoE layer counts its dispatch with K7 and
+sums its combine with K5).  ``--device`` defaults to ``cuda``: the model
+runs on the card unless the CPU is asked for.
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ from repro_torch.models.transformer import CausalLM
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> CausalLM:
-    """The model of ``cfg`` on ``device`` (default the card); raises for
-    what is not ported yet (the audio family, experts, non-dense layers)."""
+    """The model of ``cfg`` on ``device`` (default the card): the dense
+    and the MoE families; raises for what is not ported yet (the audio
+    family, layers other than attention)."""
     if cfg.family == "audio":
         raise NotImplementedError(f"{cfg.name}: the Whisper family is not "
                                   f"ported yet (ROADMAP item 10)")

@@ -1,4 +1,5 @@
-"""The causal LM for dense models: the reference's ``CausalLM`` on one card.
+"""The causal LM for dense and MoE models: the reference's ``CausalLM`` on
+one card.
 
 The reference expresses every architecture as ``n_groups`` repetitions of
 a small group of sub-blocks and scans over stacked parameters.  Here the
@@ -9,13 +10,18 @@ unstacks them).  The plan is kept, so that an architecture this slice
 does not serve is refused by name:
 
   dense            group = ("attn",) x L                  ported
-  moe              group = ("attn",) x L, expert FFN       ROADMAP item 10
+  moe              group = ("attn",) x L, expert FFN       ported
   gemma2           group = ("attn_local", "attn_global")   ROADMAP item 10
   llama-vision     ("attn",)*5 + ("cross",)                ROADMAP item 10
   rwkv6 / zamba2   ("rwkv",) / ("mamba",)*k + shared attn  ROADMAP item 10
 
 Each layer's prefill attention runs K8 (``attention.flash_route``); the
-decode step attends over the KV cache with the plain ``_sdpa``.
+decode step attends over the KV cache with the plain ``_sdpa``.  An MoE
+layer's FFN is ``moe.apply_local`` in both: K7 counts its dispatch and K5
+sums its combine.  Its capacity is reckoned from the tokens of the call,
+as in the reference, so a decode step of a few tokens drops more rows
+than the prefill of the same tokens does, and their logits differ by
+design unless the capacity factor is large enough that nothing drops.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mlp, moe
 
 SERVED_KINDS = ("attn",)
 
@@ -66,14 +72,12 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 def check_served(cfg: ModelConfig) -> None:
     """Raise for what this slice does not serve: layer kinds other than
-    dense attention, expert FFNs, and the audio family."""
+    attention (with a dense or an expert FFN), and the audio family."""
     plan = layer_plan(cfg)
     kinds = sorted(set(plan.group_kinds + plan.tail_kinds)
                    - set(SERVED_KINDS))
     if cfg.family == "audio":
         kinds.append("audio")
-    if cfg.is_moe:
-        kinds.append("moe")
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(kinds)} not ported yet (ROADMAP item 10)")
@@ -93,6 +97,16 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> attention.AttnConfig:
         bf16_score_grad=cfg.attn_bf16_score_grad)
 
 
+def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        d_model=cfg.d_model, d_expert=cfg.d_expert,
+        num_experts=cfg.num_experts, top_k=cfg.top_k,
+        num_shared_experts=cfg.num_shared_experts,
+        activation=cfg.activation, dtype=cfg.dtype,
+        capacity_factor=cfg.moe_capacity_factor,
+        bf16_combine=cfg.moe_bf16_combine)
+
+
 def _norm_init(cfg: ModelConfig, device, d=None) -> dict:
     d = d or cfg.d_model
     dt = layers.torch_dtype(cfg.dtype)
@@ -106,27 +120,38 @@ def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Sub-blocks: dense attention + gated MLP
+# Sub-blocks: attention + gated MLP or experts
 # ---------------------------------------------------------------------------
 
 
 def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     dt = layers.torch_dtype(cfg.dtype)
-    return {"norm1": _norm_init(cfg, gen.device),
-            "attn": attention.init(gen, _attn_cfg(cfg, kind)),
-            "norm2": _norm_init(cfg, gen.device),
-            "ffn": mlp.init(gen, cfg.d_model, cfg.d_ff, dt, cfg.activation)}
+    p = {"norm1": _norm_init(cfg, gen.device),
+         "attn": attention.init(gen, _attn_cfg(cfg, kind)),
+         "norm2": _norm_init(cfg, gen.device)}
+    p["ffn"] = (moe.init(gen, _moe_cfg(cfg)) if cfg.is_moe
+                else mlp.init(gen, cfg.d_model, cfg.d_ff, dt, cfg.activation))
+    return p
+
+
+def _ffn_apply(cfg: ModelConfig, p: dict, h: torch.Tensor):
+    """Returns (out, aux, dispatch ids or None)."""
+    if not cfg.is_moe:
+        return mlp.apply(p, h, cfg.activation), 0.0, None
+    b, s, d = h.shape
+    out, aux, disp = moe.apply_local(p, h.reshape(b * s, d), _moe_cfg(cfg))
+    return out.reshape(b, s, d), aux, disp
 
 
 def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
                cache: Optional[dict], positions=None):
-    """One pre-norm block.  Returns (h, new_cache)."""
+    """One pre-norm block.  Returns (h, aux, new_cache)."""
     attn_out, new_cache = attention.attend(
         p["attn"], _norm(cfg, p["norm1"], h), _attn_cfg(cfg, kind),
         positions=positions, cache=cache)
     h = h + attn_out
-    h = h + mlp.apply(p["ffn"], _norm(cfg, p["norm2"], h), cfg.activation)
-    return h, new_cache
+    ffn_out, aux, _ = _ffn_apply(cfg, p["ffn"], _norm(cfg, p["norm2"], h))
+    return h + ffn_out, aux, new_cache
 
 
 def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -142,7 +167,7 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 class CausalLM:
-    """Dense causal LM on ``device`` (default the card)."""
+    """Dense or MoE causal LM on ``device`` (default the card)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         check_served(cfg)
@@ -175,14 +200,17 @@ class CausalLM:
     # -- forward ------------------------------------------------------------
 
     def hidden(self, params, tokens: torch.Tensor):
-        """Final-norm hidden states (B, T, d) and the MoE aux loss (0.0).
+        """Final-norm hidden states (B, T, d) and the sum of the layers'
+        MoE aux losses (0.0 for a dense model).
 
         The layers attend over positions 0..T-1, the route that runs K8.
         """
         h = layers.embed(params["embed"], tokens)
+        aux = 0.0
         for kind, p in zip(self.kinds, params["layers"]):
-            h, _ = _sub_apply(self.cfg, kind, p, h, cache=None)
-        return _norm(self.cfg, params["final_norm"], h), 0.0
+            h, a, _ = _sub_apply(self.cfg, kind, p, h, cache=None)
+            aux = aux + a
+        return _norm(self.cfg, params["final_norm"], h), aux
 
     def unembed_logits(self, params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -213,8 +241,8 @@ class CausalLM:
         positions = pos + torch.arange(tokens.shape[1], device=h.device)
         new_layers = []
         for kind, p, c in zip(self.kinds, params["layers"], cache["layers"]):
-            h, nc = _sub_apply(self.cfg, kind, p, h, cache=dict(c, pos=pos),
-                               positions=positions)
+            h, _, nc = _sub_apply(self.cfg, kind, p, h,
+                                  cache=dict(c, pos=pos), positions=positions)
             new_layers.append({"k": nc["k"], "v": nc["v"]})
         h = _norm(self.cfg, params["final_norm"], h)
         return self.unembed_logits(params, h), {"layers": new_layers}

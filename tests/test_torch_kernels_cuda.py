@@ -494,3 +494,51 @@ def test_prefill_attention_refuses_a_head_size_the_kernel_lacks(cuda):
     with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
         attention.attend(params, x, cfg)
     assert fk.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_moe_layer_at_full_width(cuda, monkeypatch):
+    """One qwen3-moe-235b-a22b MoE layer at its published widths (d_model
+    4096, 128 experts x 1536, top-8) in f32, TF32 off, on 2048 seeded
+    tokens: one K7 launch, its counts bit-equal to ``bincount_plain`` of
+    the same ids; one K5 launch, the layer's output within 1e-5 of the
+    plain composition (the same route, sort and products, then the
+    reference's unsort and f32 einsum in place of K5's segment sum)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-235b-a22b")
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_expert=cfg.d_expert,
+                         num_experts=cfg.num_experts, top_k=cfg.top_k,
+                         dtype="float32")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init(gen, mcfg)
+    t, e, k = 2048, mcfg.num_experts, mcfg.top_k
+    x = torch.randn((t, mcfg.d_model), generator=gen, device=cuda)
+    counted = []
+    k7 = sk.bincount_launch
+
+    def recorded(ids, segments):
+        counted.append((ids, k7(ids, segments)))
+        return counted[-1][1]
+
+    monkeypatch.setattr(sk, "bincount_launch", recorded)
+    before = dict(sk.LAUNCHES)
+    with torch.no_grad():
+        out, _, disp = moe.apply_local(p, x, mcfg)
+        torch.cuda.synchronize()
+        assert (sk.LAUNCHES["bincount"] - before["bincount"],
+                sk.LAUNCHES["scatter_add"] - before["scatter_add"]) == (1, 1)
+        ids, counts = counted[0]
+        assert ids.numel() == t * k
+        assert torch.equal(counts, sk.bincount_plain(ids, e))
+        gates, rids, _ = moe.route(p, x, mcfg)
+        flat, order, sorted_ids, xs, capacity = moe.dispatch(x, rids, mcfg)
+        assert torch.equal(disp, flat) and torch.equal(sorted_ids, ids)
+        y_sorted = moe._expert_ffn_grouped(p, xs, sorted_ids, e, capacity,
+                                           mcfg)
+        y = y_sorted[torch.argsort(order, stable=True)].reshape(t, k, -1)
+        want = torch.einsum("tkd,tk->td", y, gates)
+    assert out.dtype == torch.float32 and out.shape == (t, mcfg.d_model)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
