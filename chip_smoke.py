@@ -6,15 +6,18 @@ from the root of a checkout, on a machine with an NVIDIA GPU, PyTorch
 built for CUDA and the CUDA toolkit (``nvcc``).  The port's kernels
 (``src/repro_torch/kernels/csrc``) are built from the checkout first.
 
-Four paths.  Three run through the port's ``Session`` and its ``"kernel"``
+Four paths run through the port's ``Session`` and its ``"kernel"``
 provider: the paper's §5 histogram case study (K1-K4), driven as
 ``python -m repro_torch`` runs it (``validate``, ``compare``, ``advise``,
 ``heatmap``, ``sweep``), the scatter-add path (K5-K7): Tool 1's
 kernel mode, the MoE dispatch streams of ``benchmarks/run.py``, the
-``indices`` route and the persistent sweep cache, and the profiling
+``indices`` route and the persistent sweep cache, the profiling
 service with the kernel provider (K3, K6) as its primary: clean jobs
 over HTTP, a chaos burst under the seeded fault schedule, and
-``python -m repro_torch serve``/``client`` as processes.  The last serves a
+``python -m repro_torch serve``/``client`` as processes, and the static
+audit of HLO text (``audit --hlo-file`` on the two reduced and two
+full-width texts of ``tests/data``, which launches nothing, then each
+finding's candidate stream through K6).  Then it serves a
 dense LM: qwen2-72b at its published widths, with the depth cut to what
 one card holds, through ``make_prefill`` (each layer's attention in K8,
 flash attention) and ``generate``.  Phases, each of which must pass:
@@ -36,7 +39,10 @@ flash attention) and ``generate``.  Phases, each of which must pass:
    ``--provider kernel``, its host seconds and launches logged), then the
    scatter path, then the service (each job's host seconds and launches
    logged; no response may be degraded outside the chaos burst, and in
-   it none but by an injected fault), then serving, then MoE serving
+   it none but by an injected fault), then the static audit (each
+   command's host seconds, each text's sites, instructions and findings
+   logged; no launch during the audit, K6 once a distinct finding spec),
+   then serving, then MoE serving
    (K7 and K5 on each model's live layer-0 tensors held against their
    plain versions there, outside the counts);
 4. time each kernel, its plain version and one PyTorch library call at
@@ -149,6 +155,9 @@ SCATTER_KERNELS = ("scatter_add", "scatter_add_instrumented", "bincount")
 SERVE_KERNELS = ("flash_attention",)
 # the service path's kernels: K3 for histogram jobs, K6 for indices jobs
 SERVICE_KERNELS = ("hist_instrumented", "scatter_add_instrumented")
+# the audit launches nothing; K6 checks each finding's stream
+AUDIT_KERNELS = ("scatter_add_instrumented",)
+AUDIT_IDS = 1 << 17        # a finding's synthesized stream (audit/rules.py)
 
 
 def log(msg: str) -> None:
@@ -343,6 +352,17 @@ def combine_case(dev):
     return vals, torch.as_tensor(ids, device=dev)
 
 
+def audit_streams() -> list[tuple[str, np.ndarray, int]]:
+    """K6's inputs on the audit path, as (case, ids, segments): three of
+    the rules' synthesized streams (values are ones), the fewest and the
+    most segments a finding spec asks for and a uniform draw between."""
+    n = AUDIT_IDS
+    uniform = np.random.default_rng(7).integers(0, 1536, n)
+    return [("audit hot 128Ki -> 2", np.arange(n) % 2, 2),
+            ("audit uniform 128Ki -> 1536", uniform, 1536),
+            ("audit rows 128Ki -> 13107200", np.arange(n) // 32, 13107200)]
+
+
 def _with_strays(ids: np.ndarray, segments: int) -> np.ndarray:
     """A copy with one id in a hundred set out of range (-1 or S): the
     drop rule must hold on the card too."""
@@ -439,6 +459,9 @@ def check_scatter_kernels(dev) -> dict[str, float]:
         k5(case, vals.to(dtype), torch.as_tensor(ids_np, device=dev),
            segments)
         k6(case, ids_np, vals, segments)
+    for case, ids_np, segments in audit_streams():
+        k6(case, ids_np.astype(np.int32),
+           torch.ones((ids_np.size, 1), device=dev), segments)
     for kind in ("balanced", "skewed", "collapsed"):
         k7(f"dispatch {kind} {DISPATCH_TOKENS} -> {EXPERTS}",
            torch.as_tensor(dispatch_ids(kind), device=dev), EXPERTS)
@@ -1329,6 +1352,151 @@ def service_path(dev, results: Path, px_main: int, n_ids: int,
     return seconds
 
 
+def audit_path(dev, results: Path, cache_dir) -> int:
+    """The static audit of HLO text, as ``python -m repro_torch audit
+    --hlo-file`` runs it, on each HLO text of ``tests/data`` that
+    ``tests/_audit_specs.PINNED`` lists with its findings: in-process
+    through ``repro_torch.cli.main.main``, in json and SARIF, with
+    ``--advise``, and gated by ``--fail-on error``; then ``profile
+    --workload hlo`` (the ``hlo`` provider's verdict).  None of it may
+    launch a kernel, and the findings and ``--fail-on error`` code must
+    be the reference's.  Then each distinct finding spec (by fingerprint)
+    through ``Session.validate(spec, ("trace", "kernel"))`` with the
+    kernel on ``dev``: K6 once a spec, e relative error exactly 0.0.
+    A spec whose segment axis K6 takes only widened to whole blocks is
+    validated so (``tests/_audit_specs.py``), with the trace provider's
+    counters of both held bit-equal.
+
+    Returns the number of specs validated (K6's launches on this path).
+    """
+    import gzip
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _audit_specs import PINNED, distinct_specs, kernel_ready
+
+    from repro_torch.analysis import Session
+    from repro_torch.analysis.providers import InstrumentedKernelProvider
+    from repro_torch.cli.main import main as cli_main
+    from repro_torch.core import counters
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    def launched() -> dict:
+        return {**hk.LAUNCHES, **sk.LAUNCHES}
+
+    def cli(name, *argv) -> tuple[int, str]:
+        """One command's exit code and stdout; its host seconds logged."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([str(a) for a in argv]
+                          + ["--torch-device", dev, "--cache-dir",
+                             str(cache_dir)])
+        log(f"  cli {name}: {time.perf_counter() - t0:.3f} s, rc {rc}")
+        return rc, buf.getvalue()
+
+    kernel = InstrumentedKernelProvider(torch_device=dev)
+    hlo_dir = results / "hlo"
+    hlo_dir.mkdir(parents=True, exist_ok=True)
+    validated = 0
+    for stem, (counts, n_specs) in PINNED.items():
+        gate_rc = int(any(sev == "error" for _, sev in counts))
+        text = gzip.decompress(
+            (ROOT / "tests" / "data" / f"{stem}.hlo.gz").read_bytes()
+        ).decode()
+        path = hlo_dir / f"{stem}.hlo"
+        path.write_text(text)
+        before = launched()
+        audit = ("audit", "--hlo-file", path)
+        rc, out = cli(f"audit {stem} --format json", *audit, "--format",
+                      "json", "--fail-on", "never")
+        payload = json.loads(out)
+        found = {}
+        for row in payload["findings"]:
+            key = (row["rule"], row["severity"])
+            found[key] = found.get(key, 0) + 1
+        _require(rc == 0 and found == counts,
+                 f"audit {stem}: rc {rc}, findings {found}, want {counts}")
+        log(f"    {stem}: {payload['sites_scanned']} sites from "
+            f"{payload['instructions_scanned']} instructions, "
+            f"{len(payload['findings'])} findings {payload['counts']}")
+        rc, out = cli(f"audit {stem} --format sarif", *audit, "--format",
+                      "sarif", "--fail-on", "never")
+        doc = json.loads(out)
+        (run,) = doc["runs"]
+        ids = [r["id"] for r in run["tool"]["driver"]["rules"]]
+        _require(rc == 0 and doc["version"] == "2.1.0"
+                 and len(run["results"]) == len(payload["findings"])
+                 and all(ids[r["ruleIndex"]] == r["ruleId"]
+                         for r in run["results"])
+                 and ids[-5:] == [f"KERN00{i}" for i in range(1, 6)],
+                 f"audit {stem} sarif: rc {rc}, rules {ids}")
+        rc, out = cli(f"audit {stem} --advise", *audit, "--advise",
+                      "--format", "sarif", "--fail-on", "never")
+        (run,) = json.loads(out)["runs"]
+        gating = [r for r in run["results"]
+                  if r["level"] in ("warning", "error")]
+        _require(rc == 0 and len(run["results"]) == len(payload["findings"])
+                 and all("advise" in r["properties"] for r in gating),
+                 f"audit {stem} --advise: rc {rc}, {gating}")
+        best = max(gating, key=lambda r: r["properties"]["advise"][
+            "predicted_speedup"])["properties"]["advise"]
+        log(f"    --advise: {len(gating)} gating findings advised, best "
+            f"x{best['predicted_speedup']:.3f} via {best['transforms']}")
+        rc, _ = cli(f"audit {stem} --fail-on error", *audit, "--fail-on",
+                    "error", "--no-artifact")
+        _require(rc == gate_rc, f"audit {stem} --fail-on error: rc {rc}, "
+                                f"want {gate_rc}")
+        rc, out = cli(f"profile --workload hlo {stem}", "profile",
+                      "--workload", "hlo", "--hlo-file", path, "--label",
+                      stem, "--format", "json")
+        (point,) = json.loads(out)["points"]
+        meta = json.loads(out)["meta"][stem]
+        _require(rc == 0 and point["bottleneck"] == "hbm"
+                 and meta == {"unresolved_loops": 0},
+                 f"profile --workload hlo {stem}: rc {rc}, {point}, {meta}")
+        log(f"    hlo provider: hbm={point['U_hbm']!r} -> "
+            f"{point['bottleneck']}{' (saturated)' * point['saturated']}")
+        _require(launched() == before,
+                 f"the audit of {stem} launched {launched()} (was {before})")
+
+        # each finding's candidate stream through K6
+        sess = Session("v5e", cache_dir=cache_dir)
+        report = sess.audit(text, label=stem)
+        _require(not any(sess.stats_snapshot().values())
+                 and launched() == before,
+                 f"Session.audit {stem}: {sess.stats_snapshot()}, "
+                 f"launches {launched()}")
+        specs = distinct_specs(report)
+        _require(len(specs) == n_specs,
+                 f"{stem}: {len(specs)} distinct specs, want {n_specs}")
+        t0 = time.perf_counter()
+        es = []
+        for spec in specs.values():
+            ready = kernel_ready(spec)
+            if ready is not spec:
+                _require(counters.bitwise_equal(
+                    sess.collect(spec, "trace"),
+                    sess.collect(ready, "trace")),
+                    f"{spec.label}: widening the segment axis moved the "
+                    f"counters")
+            rep = sess.validate(ready, ("trace", kernel), check_batch=False)
+            trace, measured = rep.comparisons
+            _require(measured.rel_err["e"] == 0.0
+                     and measured.counters["N"] == trace.counters["N"]
+                     and measured.counters["O"] == trace.counters["O"],
+                     f"validate {spec.label}: {rep.to_dict()}")
+            es.append(measured.counters["e"])
+            validated += 1
+        if dev != "cpu":
+            import torch
+            torch.cuda.synchronize()
+        log(f"    {len(specs)} finding specs through trace and K6 in "
+            f"{time.perf_counter() - t0:.3f} s: e rel err 0.0, e "
+            f"{sorted(set(es))}")
+    return validated
+
+
 def _serve_config(num_layers=None, dtype=None, arch=SERVE_ARCH, **changes):
     """``arch`` (qwen2-72b by default) with every width as published;
     depth, dtype and any other field as given."""
@@ -2168,8 +2336,8 @@ def _log_row(name: str, case: str, row: dict) -> None:
 
 
 def time_scatter_kernels(dev, live=None) -> dict:
-    """Times of K5-K7 at the scatter path's shapes, and of K5 and K7 on
-    the MoE serving path's live inputs (``live``: case -> ("bincount",
+    """Times of K5-K7 at the scatter path's shapes (K6 also at the audit
+    path's), and of K5 and K7 on the MoE serving path's live inputs (``live``: case -> ("bincount",
     ids, S) or ("scatter_add", f32 values, ids, S)).
 
     Bytes: each value and id read once, each output written once.
@@ -2232,6 +2400,17 @@ def time_scatter_kernels(dev, live=None) -> dict:
                lambda: sk.scatter_add_instrumented_plain(vals, stream, segs),
                None, n * 4 + n * 4 + segs * 4 + n // 1024 * 4, n)
         k7(f"{kind} 4Mi -> 8192", scatter_ids(kind, segments=8192), 8192)
+    for case, ids_np, segments in audit_streams():
+        n = ids_np.size
+        stream = torch.as_tensor(ops.committed_id_stream(ids_np, segments),
+                                 device=dev)
+        ones = torch.ones((n, 1), device=dev)
+        record("scatter_add_instrumented", case,
+               lambda: sk.scatter_add_instrumented_launch(ones, stream,
+                                                          segments),
+               lambda: sk.scatter_add_instrumented_plain(ones, stream,
+                                                         segments),
+               None, n * 4 + n * 4 + segments * 4 + n // 1024 * 4, n)
     ids_np = scatter_ids("skewed")
     ids = torch.as_tensor(ids_np, device=dev)
     ids64 = ids.to(torch.int64)
@@ -2478,6 +2657,21 @@ def main() -> int:
             launches[k] += n
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
             f"{dict(hk.LAUNCHES)} {dict(sk.LAUNCHES)}")
+
+        t0 = phase("main path: the static audit of HLO text")
+        hk.reset_launches()
+        sk.reset_launches()
+        n_specs = audit_path(dev, Path(tmp), tables)
+        torch.cuda.synchronize()
+        audit = {k: n for k, n in {**hk.LAUNCHES, **sk.LAUNCHES}.items()
+                 if n}
+        _require(audit == {k: n_specs for k in AUDIT_KERNELS}
+                 and n_specs == 29,    # 4 + 4 + 10 + 11, the reference's
+                 f"audit path launched {audit} for {n_specs} specs")
+        for k in AUDIT_KERNELS:
+            by_path[k]["audit"] = audit[k]
+            launches[k] += audit[k]
+        log(f"  ok in {time.perf_counter() - t0:.1f} s; launches {audit}")
 
     t0 = phase(f"main path: serving {SERVE_ARCH} prefill and decode")
     hk.reset_launches()

@@ -243,6 +243,8 @@ class SetWavesPerTile(Transform):
         # field resolves to a source-family default at collection time,
         # and re-stating that default would enumerate a no-op candidate
         # whose fingerprint (None vs N) even defeats dedup
+        if spec.hlo_text is not None:
+            return False
         return _effective_waves_per_tile(spec) != self.waves_per_tile
 
     def apply(self, spec: WorkloadSpec) -> WorkloadSpec:
@@ -266,7 +268,8 @@ class SetPipelineDepth(Transform):
         # every acquisition path resolves an unset depth to 2
         # (``pipeline_depth or 2``), so compare the *effective* value —
         # "set depth to 2" on a default spec is a no-op, not a candidate
-        return (spec.pipeline_depth or 2) != self.pipeline_depth
+        return (spec.hlo_text is None
+                and (spec.pipeline_depth or 2) != self.pipeline_depth)
 
     def apply(self, spec: WorkloadSpec) -> WorkloadSpec:
         return spec.with_(pipeline_depth=self.pipeline_depth,

@@ -1,12 +1,12 @@
 """Pluggable counter-acquisition backends for the analysis Session.
 
-One acquisition API for modeled and measured counters::
+One acquisition API for modeled, measured, and HLO-derived counters::
 
     Session(device="v5e", provider="kernel").classify(spec)
     Session(device="v5e").validate(spec, providers=("trace", "kernel"))
 
 See ``base`` for the ``CounterProvider`` protocol and registry, and the
-sibling modules for the three providers the port ships so far.
+sibling modules for the four shipped providers.
 """
 
 from repro_torch.analysis.providers.base import (  # noqa: F401
@@ -21,6 +21,7 @@ from repro_torch.analysis.providers.fault import (  # noqa: F401
     FaultInjectionProvider,
     InjectedFault,
 )
+from repro_torch.analysis.providers.hlo import HloProvider  # noqa: F401
 from repro_torch.analysis.providers.kernel import (  # noqa: F401
     InstrumentedKernelProvider,
 )

@@ -66,7 +66,7 @@ class InstrumentedKernelProvider:
         raise ValueError(
             f"WorkloadSpec {spec.label!r} has no runnable source — the "
             f"'kernel' provider needs a kernel | indices | run spec, not "
-            f"a pre-recorded trace")
+            f"a pre-recorded trace or compiled artifact")
 
     def _collect_indices(self, spec) -> CounterSet:
         """Run a bare index stream through the instrumented scatter-add.

@@ -21,8 +21,10 @@ relative errors and the utilization delta.  ``advise`` searches workload
 transforms for a predicted fix (``repro_torch.advisor``) and ``heatmap``
 attributes contention to bins and waves (``repro_torch.obs.heatmap``).
 
-The static layers (``audit``, ``lint``) come with their own slices of
-the port.
+``audit`` is the static contention lint of a compiled step's HLO text
+(``repro_torch.audit``): it scores every atomic-shaped site with the
+model and launches nothing.  ``lint`` comes with its own slice of the
+port.
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ class SweepResult:
         return rows
 
     def _point_meta(self) -> dict[str, dict]:
-        """Non-empty provider meta per point label (the json payload)."""
+        """Non-empty provider meta per point label (HLO provider fills
+        ``unresolved_loops`` / ``collectives``; trace sources have none)."""
         out: dict[str, dict] = {}
         for p in self.profiles:
             meta = (p.params or {}).get("meta") or {}
@@ -175,6 +178,22 @@ class SweepResult:
                                   f"({s.label_before} -> {s.label_after})\n")
                 else:
                     buf.write("no bottleneck shifts in sweep\n")
+            for label, meta in self._point_meta().items():
+                parts = []
+                if meta.get("unresolved_loops"):
+                    parts.append(f"{meta['unresolved_loops']} unresolved "
+                                 "loop trip count(s) — costs are lower "
+                                 "bounds")
+                coll = meta.get("collectives")
+                if coll:
+                    n = sum(int(d.get("count", 0)) for d in coll.values())
+                    wire = sum(float(d.get("wire_bytes", 0.0))
+                               for d in coll.values())
+                    parts.append(f"{n} collective op(s), "
+                                 f"{wire / 1e6:.1f} MB modeled wire traffic")
+                if parts:
+                    buf.write(f"hlo meta [{label}]: " + "; ".join(parts)
+                              + "\n")
             return buf.getvalue()
         raise ValueError(f"unknown report format {fmt!r} "
                          "(expected 'text', 'json' or 'csv')")
@@ -497,6 +516,24 @@ class Session:
             kernel_provider=kernel_provider,
         ).search(spec, top_k=top_k, validate_top=validate_top,
                  parallel=parallel)
+
+    def audit(self, source, *, label: str = "module", rules=None,
+              suppress: Sequence[str] = (), num_cores: int = 8):
+        """Static contention lint of a compiled step's HLO text.
+
+        ``source`` is HLO module text or a ``WorkloadSpec`` built with
+        ``from_compiled(hlo_text=...)``; any other source raises
+        ``ValueError`` (capturing a torch program waits for ROADMAP queue
+        1, "Multi-device and the zoo audit").  Scans for atomic-shaped
+        sites (scatters, KV-cache writes, one-hot / sort-segment
+        histograms), scores each matched rule with one columnar model
+        pass, and returns an ``AuditReport`` — this session's
+        trace/kernel providers are never invoked.
+        """
+        from repro_torch.audit import audit_source  # lazy: layer above
+        return audit_source(source, session=self, label=label,
+                            rules=rules, suppress=suppress,
+                            num_cores=num_cores)
 
     def heatmap(self, spec: WorkloadSpec, *,
                 hot_degree: float = DEFAULT_HOT_DEGREE) -> Heatmap:

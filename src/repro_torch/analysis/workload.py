@@ -4,10 +4,11 @@ The old call path required the caller to (a) run an instrumented kernel,
 (b) mutate ``trace.waves_per_tile`` after the fact, and (c) thread 11
 kwargs into ``profiler.profile_scatter_workload``.  A ``WorkloadSpec``
 captures all of that declaratively: what runs (an index stream, an
-existing wave trace, or a described kernel launch),
-under which launch geometry, and with which roofline-side inputs (bytes
-read, FLOPs, overhead).  Specs are frozen — sweeps derive variants with
-``with_()`` instead of mutating shared state.
+existing wave trace, a described kernel launch, or the HLO text of a
+compiled step), under which launch geometry, and with which
+roofline-side inputs (bytes read, FLOPs, overhead).  Specs are frozen —
+sweeps derive variants with ``with_()`` instead of mutating shared
+state.
 
 A spec is deliberately *provider-agnostic*: it describes the workload,
 not how its counters are acquired.  ``KernelSource`` keeps the kernel
@@ -18,7 +19,9 @@ instrumented Hopper kernel (``InstrumentedKernelProvider``) from one and
 the same spec — the model-vs-measured split the paper's validation (§5)
 needs.
 
-Compiled-step sources come with the port's static-audit slice.
+A compiled step is described by its HLO text (``from_compiled``); a
+compiled XLA object as the source waits for the port's multi-device and
+zoo-audit slice.
 """
 
 from __future__ import annotations
@@ -59,12 +62,15 @@ class KernelSource:
 class WorkloadSpec:
     """One profileable launch: measurement source + geometry + roofline.
 
-    Exactly one of ``trace`` / ``indices`` / ``run`` / ``kernel`` is the
-    measurement source (checked at construction).  ``run`` is a zero-arg callable returning a
-    ``WaveTrace`` — the escape hatch for custom instrumented sources,
-    kept lazy so building a sweep's spec list costs nothing until a
-    provider collects it.  ``kernel`` is the declarative form the shipped
-    providers understand (see ``from_histogram`` / ``from_scatter_add``).
+    Exactly one of ``trace`` / ``indices`` / ``run`` / ``kernel`` /
+    ``hlo_text`` is the measurement source (checked at construction).
+    ``run`` is a zero-arg callable returning a ``WaveTrace`` — the escape
+    hatch for custom instrumented sources, kept lazy so building a
+    sweep's spec list costs nothing until a provider collects it.
+    ``kernel`` is the declarative form the shipped providers understand
+    (see ``from_histogram`` / ``from_scatter_add``).
+    ``hlo_text`` describes a compiled step for the HLO provider (no wave
+    trace; roofline counters only).
     """
 
     label: str
@@ -73,6 +79,7 @@ class WorkloadSpec:
     indices: Optional[np.ndarray] = None
     run: Optional[Any] = None          # () -> WaveTrace, lazy custom source
     kernel: Optional[KernelSource] = None
+    hlo_text: Optional[str] = None     # HLO module text (HLO provider)
     # index-stream interpretation (for the ``indices`` source):
     num_bins: int = 256
     job_class: int = timing.FAO
@@ -80,7 +87,7 @@ class WorkloadSpec:
     waves_per_tile: Optional[int] = None   # None: keep the source's own
     pipeline_depth: Optional[int] = None
     num_cores: int = 8
-    num_devices: int = 1               # chips (collective accounting)
+    num_devices: int = 1               # chips (HLO collective accounting)
     # roofline-side inputs:
     bytes_read: float = 0.0
     flops: float = 0.0
@@ -89,11 +96,12 @@ class WorkloadSpec:
     def __post_init__(self) -> None:
         sources = sum(s is not None
                       for s in (self.trace, self.indices, self.run,
-                                self.kernel))
+                                self.kernel, self.hlo_text))
         if sources != 1:
             raise ValueError(
                 f"WorkloadSpec {self.label!r} needs exactly one measurement "
-                f"source (trace | indices | run | kernel), got {sources}")
+                f"source (trace | indices | run | kernel | compiled/hlo), "
+                f"got {sources}")
 
     # -- derivation -------------------------------------------------------
 
@@ -163,6 +171,8 @@ class WorkloadSpec:
             for k in sorted(self.kernel.params):
                 v = self.kernel.params[k]
                 put(k, _host(v) if hasattr(v, "shape") else v)
+        elif self.hlo_text is not None:
+            put("hlo", self.hlo_text)
         put(self.num_bins, self.job_class, self.waves_per_tile,
             self.pipeline_depth, self.num_cores, self.num_devices,
             self.bytes_read, self.flops, self.overhead_cycles)
@@ -177,6 +187,11 @@ class WorkloadSpec:
         trace: geometry overrides produce a copied-geometry view via
         ``WaveTrace.with_geometry``.
         """
+        if self.hlo_text is not None:
+            raise ValueError(
+                f"WorkloadSpec {self.label!r} has no wave-trace source "
+                f"(compiled/HLO specs carry roofline counters only — "
+                f"collect them with the 'hlo' provider)")
         if self.trace is not None:
             tr = self.trace
         elif self.run is not None:
@@ -270,3 +285,21 @@ class WorkloadSpec:
                        "num_segments": num_segments,
                        "job_class": job_class}),
                    **spec_kw)
+
+    @classmethod
+    def from_compiled(cls, compiled=None, *, label: str,
+                      hlo_text: Optional[str] = None, num_devices: int = 1,
+                      **kw) -> "WorkloadSpec":
+        """Compiled-step source for the HLO provider (roofline counters),
+        from a module's HLO text.
+
+        A compiled XLA object (the reference's ``compiled``) has no torch
+        counterpart yet: passing one raises ``NotImplementedError``.
+        """
+        if compiled is not None:
+            raise NotImplementedError(
+                "a compiled-object source is not ported yet (ROADMAP queue "
+                "1, \"Multi-device and the zoo audit\"): pass the step's "
+                "HLO text as hlo_text")
+        return cls(label=label, hlo_text=hlo_text, num_devices=num_devices,
+                   **kw)

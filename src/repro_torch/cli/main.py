@@ -1,6 +1,6 @@
 """``python -m repro_torch`` — the paper's tool as a command line.
 
-Ten subcommands over the ``repro_torch.analysis`` Session API:
+Eleven subcommands over the ``repro_torch.analysis`` Session API:
 
     devices    list registered devices and their table-cache state
     profile    one workload -> utilization report + verdict
@@ -15,6 +15,8 @@ Ten subcommands over the ``repro_torch.analysis`` Session API:
     advise     search workload transforms, rank model-predicted fixes
     validate   multi-provider counter comparison (paper §5)
     compare    the §5 hist-vs-hist2 case study with a shift verdict
+    audit      static HLO contention lint of a dumped module
+               (--hlo-file), can gate CI via --fail-on and emit SARIF
     cache      persistent counter-cache maintenance: stats (entries,
                bytes, quarantined corrupt files, per-provider
                breakdown), clear, and prune --max-bytes
@@ -28,9 +30,18 @@ Ten subcommands over the ``repro_torch.analysis`` Session API:
     client     stdlib HTTP client for a running daemon: health,
                status, schema, and job submission (loads no torch)
 
+``audit`` gates like the reference's (``--fail-on``, ``--suppress``,
+``--advise``, ``--num-cores``, ``--no-artifact``): the report lands
+under ``results/torch/cli/audit/`` and a non-suppressed finding at or
+above the gate makes exit code 1; ``--advise`` runs the advisor on every
+gating finding and attaches the top-ranked transform.  ``--config`` and
+``--all`` parse as in the reference and exit 2: lowering a zoo config
+waits for ROADMAP queue 1, "Multi-device and the zoo audit".
+
 Every command prints its report to stdout (``--format text|json|csv``;
-``devices`` and ``validate`` render ``text|json`` only — unsupported
-values are rejected by argparse ``choices`` before any work happens)
+``devices`` and ``validate`` render ``text|json`` only, ``audit`` adds
+``sarif`` — unsupported values are rejected by argparse ``choices``
+before any work happens)
 and can persist it with ``--output PATH``; ``heatmap``, ``sweep``,
 ``advise`` and ``compare`` additionally drop an artifact under
 ``results/torch/cli/`` unless told not to, and ``sweep``, ``advise`` and
@@ -460,6 +471,56 @@ def cmd_compare(args) -> int:
     return 0
 
 
+def cmd_audit(args) -> int:
+    """Static contention lint over HLO text — zero kernel executions.
+
+    ``--hlo-file PATH`` audits an already-dumped module.  ``--config``
+    and ``--all`` (lower zoo configs first) wait for ROADMAP queue 1,
+    "Multi-device and the zoo audit", and exit 2.  ``--fail-on
+    SEVERITY`` turns findings at or above that severity into exit code 1
+    (the CI gate).
+    """
+    from repro_torch import audit as audit_mod
+
+    sess = Session(args.device, cache_dir=args.cache_dir)
+    if not args.hlo_file:
+        if args.all or args.config:
+            raise ValueError(audit_mod.ZOO_AUDIT)
+        raise ValueError(
+            "audit needs a target: --config NAME, --all, or "
+            "--hlo-file PATH")
+    text = Path(args.hlo_file).read_text()
+    label = Path(args.hlo_file).stem
+    report = audit_mod.audit_hlo(
+        text, session=sess, label=label,
+        suppress=args.suppress or (), hlo_uri=args.hlo_file,
+        num_cores=args.num_cores)
+    return _finish_findings(report, args, sess, tool="audit")
+
+
+def _finish_findings(report, args, sess, *, tool: str) -> int:
+    """The ``audit`` report tail (``lint`` shares it in the reference).
+
+    Optionally attaches advisor picks (``--advise``), renders and
+    persists the report under ``results/torch/cli/<tool>/``, then
+    converts ``--fail-on`` gating into the process exit code.
+    """
+    from repro_torch import audit as audit_mod
+
+    if getattr(args, "advise", False):
+        audit_mod.attach_advice(report, sess)
+    ext = {"text": "txt", "json": "json", "csv": "csv",
+           "sarif": "sarif"}[args.format]
+    _emit(report.render(args.format), args,
+          default_artifact=f"{tool}/{tool}-{report.label}.{ext}")
+    rc = audit_mod.exit_code(report, args.fail_on)
+    if rc:
+        gated = report.gated(args.fail_on)
+        print(f"{tool}: {len(gated)} finding(s) at or above "
+              f"--fail-on {args.fail_on}", file=sys.stderr)
+    return rc
+
+
 def cmd_cache(args) -> int:
     """Persistent counter-cache maintenance (``results/torch/cache/``).
 
@@ -569,8 +630,8 @@ def _add_common(p: argparse.ArgumentParser, *, formats=("text", "json",
                    help="modeled device registry name (see 'devices'; "
                         "default v5e)")
     p.add_argument("--provider", default="trace",
-                   help="counter provider: trace|kernel|microbench "
-                        "(default trace)")
+                   help="counter provider: trace|kernel|hlo|microbench "
+                        "(default trace; hlo workloads auto-route to hlo)")
     p.add_argument("--torch-device", type=_torch_device, default="cuda",
                    help="where the instrumented kernels run (default "
                         "cuda; cpu runs their plain versions)")
@@ -581,6 +642,28 @@ def _add_common(p: argparse.ArgumentParser, *, formats=("text", "json",
     p.add_argument("--cache-dir", default=None,
                    help="service-time table cache dir "
                         "(default results/torch/tables/)")
+
+
+def _add_gate(p: argparse.ArgumentParser, *, tool: str) -> None:
+    """The gating + artifact surface of ``audit`` (and, in the
+    reference, ``lint``)."""
+    p.add_argument("--fail-on", default="error",
+                   choices=("never", "note", "warning", "error"),
+                   help="exit 1 when any non-suppressed finding is at or "
+                        "above this severity (default error)")
+    p.add_argument("--suppress", nargs="+", default=None, metavar="RULE",
+                   help="suppress rule ids (adds to in-source "
+                        "# repro: noqa comments)")
+    p.add_argument("--advise", action="store_true",
+                   help="run the advisor on every gating finding and "
+                        "attach the top-ranked transform (predicted "
+                        "speedup + post-transform bottleneck)")
+    p.add_argument("--num-cores", type=int, default=8,
+                   help="cores the synthesized streams are scored on "
+                        "(default 8)")
+    p.add_argument("--no-artifact", action="store_true",
+                   help=f"do not write the report artifacts under "
+                        f"results/torch/cli/{tool}/")
 
 
 def _add_workload(p: argparse.ArgumentParser, *, multi: bool) -> None:
@@ -605,6 +688,10 @@ def _add_workload(p: argparse.ArgumentParser, *, multi: bool) -> None:
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--label", default=None,
                    help="base label (default derived from the arguments)")
+    g.add_argument("--hlo-file", default=None,
+                   help="post-optimization HLO module text (hlo workload)")
+    g.add_argument("--num-devices", type=int, default=1,
+                   help="chips for HLO collective accounting (default 1)")
     geo = p.add_argument_group("launch geometry / roofline")
     geo.add_argument("--waves-per-tile", type=int, default=None, **n)
     geo.add_argument("--pipeline-depth", type=int, default=None, **n)
@@ -751,6 +838,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=cmd_compare)
 
     p = sub.add_parser(
+        "audit",
+        help="static HLO contention lint of a dumped module (SARIF, "
+             "CI gate)")
+    _add_common(p, formats=("text", "json", "csv", "sarif"))
+    p.add_argument("--config", nargs="+", default=None, metavar="NAME",
+                   help="zoo config(s) to lower and audit (not ported: "
+                        "exits 2)")
+    p.add_argument("--all", action="store_true",
+                   help="audit every zoo config (not ported: exits 2)")
+    p.add_argument("--hlo-file", default=None, metavar="PATH",
+                   help="audit an already-dumped HLO module text")
+    p.add_argument("--steps", nargs="+", default=None,
+                   choices=("train", "prefill", "decode"),
+                   help="steps to lower per config (default: all "
+                        "applicable)")
+    p.add_argument("--reduced", action="store_true",
+                   help="lower reduced configs on smoke shapes (fast; "
+                        "same scatter idioms)")
+    p.add_argument("--variant", default="base",
+                   help="optimization variant for shape tuning "
+                        "(default base)")
+    _add_gate(p, tool="audit")
+    p.set_defaults(func=cmd_audit)
+
+    p = sub.add_parser(
         "cache",
         help="persistent counter-cache maintenance (stats/clear/prune)")
     p.add_argument("action", choices=("stats", "clear", "prune"),
@@ -871,7 +983,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _needs_kernel(args) -> bool:
     """Whether the command will launch the instrumented kernels
-    (``heatmap`` reads the trace provider's stream whatever the provider;
+    (``heatmap`` reads the trace provider's stream whatever the provider,
+    and ``audit`` scores synthesized streams with the model;
     ``serve`` does when ``kernel`` is its provider or a fallback)."""
     if args.command == "serve":
         return "kernel" in (args.provider, *args.fallbacks)
@@ -879,7 +992,7 @@ def _needs_kernel(args) -> bool:
         return "kernel" in args.providers
     if args.command == "advise" and args.validate_top > 0:
         return True
-    return args.command != "heatmap" \
+    return args.command not in ("heatmap", "audit") \
         and getattr(args, "provider", None) == "kernel"
 
 
@@ -949,6 +1062,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     _validate_args(ap, args)
+    # hlo specs carry no wave trace: route them to the hlo provider unless
+    # the user explicitly picked another backend
+    if getattr(args, "workload", None) == "hlo" \
+            and getattr(args, "provider", None) == "trace":
+        args.provider = "hlo"
     try:
         return args.func(args)
     except (ValueError, KeyError, FileNotFoundError) as exc:

@@ -2,11 +2,10 @@
 
 Translates parsed CLI arguments into the ``WorkloadSpec``s the Session
 API consumes — synthetic index streams, image histograms (``--variant
-hist|hist2``) and scatter-adds — plus the grid axes the sweep engine
-expands.  Everything here is argument plumbing; the specs themselves are
-ordinary ``repro_torch.analysis.WorkloadSpec``s, so a CLI run is
-bit-identical to the equivalent Python session.  The compiled-step
-(``hlo``) family comes with the port's static-audit slice.
+hist|hist2``), scatter-adds, and HLO text files — plus the grid axes
+the sweep engine expands.  Everything here is argument plumbing; the
+specs themselves are ordinary ``repro_torch.analysis.WorkloadSpec``s, so
+a CLI run is bit-identical to the equivalent Python session.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import numpy as np
 from repro_torch.analysis.workload import WorkloadSpec
 from repro_torch.data.images import make_image
 
-WORKLOADS = ("indices", "histogram", "scatter")
+WORKLOADS = ("indices", "histogram", "scatter", "hlo")
 
 
 def parse_int(text: str) -> int:
@@ -106,6 +105,15 @@ def build_specs(args) -> tuple[list[WorkloadSpec], dict]:
                 ids, values, args.num_segments,
                 label=label(size, f"{args.dist}-scatter-{size}"),
                 **_spec_kwargs(args)))
+    elif args.workload == "hlo":
+        if not args.hlo_file:
+            raise ValueError("--workload hlo needs --hlo-file PATH")
+        with open(args.hlo_file) as f:
+            text = f.read()
+        label = args.label or f"hlo-{args.hlo_file}"
+        specs.append(WorkloadSpec.from_compiled(
+            hlo_text=text, label=label, num_devices=args.num_devices,
+            **_spec_kwargs(args)))
     else:
         raise ValueError(f"unknown workload {args.workload!r}")
 

@@ -120,8 +120,9 @@ def lm_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
     groups = params["groups"]
     if (set(groups) != {"sub0"} or params.get("tail")
             or "shared_attn" in params):
-        raise NotImplementedError("only the dense layer plan is ported "
-                                  "(ROADMAP item 10)")
+        raise NotImplementedError(
+            "only the dense layer plan is ported (ROADMAP queue 1, "
+            "\"gemma2\", \"VLM and Whisper\", \"rwkv6 and mamba2\")")
     out = {k: _tree(params[k], lambda a: _tensor(a, device))
            for k in ("embed", "final_norm", "lm_head") if k in params}
     out["layers"] = [

@@ -204,7 +204,7 @@ def attend(
         if kv_block is not None:
             raise NotImplementedError(
                 "blockwise attention (kv_block, q_block) is not ported yet: "
-                "ROADMAP item 10, blockwise attention")
+                "ROADMAP queue 1, \"Blockwise attention\"")
         qg = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
         causal = cfg.causal and kv_x is None
         bias = _mask_bias(positions, kv_positions, causal, cfg.window, kv_len)

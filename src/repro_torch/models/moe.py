@@ -25,8 +25,9 @@ The reference's ``apply_local`` (``repro/models/moe.py``), the layer its
 
 Every launcher runs its plain version for CPU tensors, so the layer runs
 on the device its inputs lie on.  ``apply_ep`` and ``apply_sharded``
-need a mesh: they wait for the multi-device MoE paths (ROADMAP queue 1
-item 3.7).  On one device the reference ignores ``use_ep`` too.
+need a mesh: they wait for the multi-device MoE paths (ROADMAP queue 1,
+"Multi-device and the zoo audit").  On one device the reference ignores
+``use_ep`` too.
 """
 
 from __future__ import annotations

@@ -16,7 +16,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> CausalLM:
     family, layers other than attention)."""
     if cfg.family == "audio":
         raise NotImplementedError(f"{cfg.name}: the Whisper family is not "
-                                  f"ported yet (ROADMAP item 10)")
+                                  f"ported yet (ROADMAP queue 1, \"VLM and "
+                                  f"Whisper\")")
     return CausalLM(cfg, device)
 
 
@@ -25,7 +26,8 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
                device="cuda") -> dict:
     """Synthetic token batch drawn from ``gen`` (default: seed 0 on
     ``device``) on the generator's device.  The reference's audio and
-    image stubs come with their families (ROADMAP item 10)."""
+    image stubs come with their families (ROADMAP queue 1, "VLM and
+    Whisper")."""
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,

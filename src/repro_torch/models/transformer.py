@@ -11,9 +11,11 @@ does not serve is refused by name:
 
   dense            group = ("attn",) x L                  ported
   moe              group = ("attn",) x L, expert FFN       ported
-  gemma2           group = ("attn_local", "attn_global")   ROADMAP item 10
-  llama-vision     ("attn",)*5 + ("cross",)                ROADMAP item 10
-  rwkv6 / zamba2   ("rwkv",) / ("mamba",)*k + shared attn  ROADMAP item 10
+  gemma2           group = ("attn_local", "attn_global")   "gemma2"
+  llama-vision     ("attn",)*5 + ("cross",)                "VLM and Whisper"
+  rwkv6 / zamba2   ("rwkv",) / ("mamba",)*k + shared attn  "rwkv6 and mamba2"
+
+(A refused plan names the ROADMAP queue 1 item that ports it, by title.)
 
 Each layer's prefill attention runs K8 (``attention.flash_route``); the
 decode step attends over the KV cache with the plain ``_sdpa``.  An MoE
@@ -35,6 +37,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mlp, moe
 
 SERVED_KINDS = ("attn",)
+# ROADMAP queue 1's item, by title, that ports each refused layer kind
+PORTED_BY = {"attn_local": "gemma2", "attn_global": "gemma2",
+             "cross": "VLM and Whisper", "audio": "VLM and Whisper",
+             "rwkv": "rwkv6 and mamba2", "mamba": "rwkv6 and mamba2",
+             "shared_attn": "rwkv6 and mamba2"}
 
 
 # ---------------------------------------------------------------------------
@@ -79,8 +86,11 @@ def check_served(cfg: ModelConfig) -> None:
     if cfg.family == "audio":
         kinds.append("audio")
     if kinds:
+        items = ", ".join(f'"{t}"' for t in
+                          sorted({PORTED_BY[k] for k in kinds}))
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(kinds)} not ported yet (ROADMAP item 10)")
+            f"{cfg.name}: {', '.join(kinds)} not ported yet (ROADMAP queue "
+            f"1, {items})")
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str) -> attention.AttnConfig:

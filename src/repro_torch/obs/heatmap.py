@@ -188,7 +188,7 @@ def heatmap_for_spec(spec, *, hot_degree: float = DEFAULT_HOT_DEGREE) -> Heatmap
 
     Uses ``TraceProvider.committed_stream`` so the stream, geometry, and
     counter aggregation match ``Session.profile`` on the same spec bit
-    for bit.  Pre-recorded ``trace`` and opaque ``run`` sources carry no
+    for bit.  Pre-recorded ``trace``/``run``/``hlo`` sources carry no
     index stream to attribute and raise ``ValueError``.
     """
     # lazy: the analysis layer sits above this one

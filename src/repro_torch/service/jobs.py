@@ -15,9 +15,9 @@ any session or device work starts, mirroring the CLI's argparse
 rejection matrix.  Spec construction delegates to
 ``repro_torch.cli.workloads.build_specs``, so a service job is
 bit-identical to the same CLI invocation.  The schema is the
-reference's key for key; the ``hlo`` family (``hlo_file``,
-``num_devices``) comes with the port's static-audit slice, and until
-then ``build_specs`` refuses it as an invalid workload.
+reference's key for key, the ``hlo`` family (``hlo_file``,
+``num_devices``) included; its specs carry no wave trace, so a daemon
+answers them through the ``hlo`` provider.
 
 ``device`` is the *modeled* device (``v5e``/``v5p``); where the kernels
 run is the service's ``torch_device``, not a job's.

@@ -39,7 +39,7 @@ from repro_torch.core.profiler import CacheModel
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CPU = ["--torch-device", "cpu"]
 ANALYSIS = ("devices", "profile", "heatmap", "sweep", "advise", "validate",
-            "compare")
+            "compare", "audit")
 SERVICE = ("cache", "serve", "client")
 PORTED = ANALYSIS + SERVICE
 
@@ -209,10 +209,20 @@ def test_unknown_device_is_a_clean_error(capsys):
 
 
 def test_unknown_provider_is_a_clean_error(capsys):
-    rc = main(["profile", "--size", "2^12", "--provider", "hlo"])
+    """``--provider hlo`` on an ``indices`` spec reaches the hlo
+    provider, which refuses a spec with no HLO text as the reference's
+    does; a provider no registry knows is refused with the known ones."""
+    argv = ["profile", "--size", "2^12", "--provider", "hlo"]
+    assert ref_main(list(argv)) == 2
+    want = capsys.readouterr().err
+    rc = main(argv)
+    err = capsys.readouterr().err
+    assert rc == 2 and err == want
+    assert "has no compiled/HLO source" in err
+    rc = main(["profile", "--size", "2^12", "--provider", "nope"])
     err = capsys.readouterr().err
     assert rc == 2
-    assert "hlo" in err and "trace" in err
+    assert "nope" in err and "trace" in err and "hlo" in err
 
 
 # -- sweep --------------------------------------------------------------------

@@ -58,7 +58,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.launch.serve, repro_torch.cli.main, "
             "repro_torch.advisor, repro_torch.obs.heatmap, "
             "repro_torch.analysis.resilience, repro_torch.service, "
-            "repro_torch.analysis.providers.fault\n"
+            "repro_torch.analysis.providers.fault, repro_torch.core.hlo, "
+            "repro_torch.analysis.providers.hlo, repro_torch.audit, "
+            "repro_torch.lint.rules\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

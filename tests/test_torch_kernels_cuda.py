@@ -380,6 +380,38 @@ def test_scatter_kernel_provider_validates_exactly(cuda, skew, tmp_path):
 
 
 @pytest.mark.cuda
+def test_audit_finding_specs_validate_through_k6(cuda, tmp_path):
+    """Each distinct finding spec of the full-width qwen3-moe decode
+    audit through the trace provider and K6 on the card: e relative error
+    exactly 0.0, one K6 launch a spec, none during the audit itself."""
+    import gzip
+    import pathlib
+
+    from _audit_specs import distinct_specs, kernel_ready
+    from repro_torch.audit import audit_hlo
+
+    text = gzip.decompress((pathlib.Path(__file__).parent / "data"
+                            / "qwen3_moe_235b_a22b__decode.hlo.gz")
+                           .read_bytes()).decode()
+    sess = Session("v5e", cache_dir=tmp_path)
+    before = dict(sk.LAUNCHES)
+    rep = audit_hlo(text, session=sess, label="qwen3-moe/decode")
+    assert dict(sk.LAUNCHES) == before
+    specs = distinct_specs(rep)
+    assert len(specs) == 10
+    for spec in specs.values():
+        report = sess.validate(kernel_ready(spec), ("trace", "kernel"),
+                               check_batch=False)
+        trace, measured = report.comparisons
+        assert report.max_rel_err == 0.0, report.to_dict()
+        assert measured.counters["N"] == trace.counters["N"]
+        assert measured.counters["O"] == trace.counters["O"]
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["scatter_add_instrumented"] - \
+        before["scatter_add_instrumented"] == len(specs)
+
+
+@pytest.mark.cuda
 def test_scatter_kernels_refuse_what_they_cannot_take(cuda):
     ids = torch.zeros(64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="values"):

@@ -232,7 +232,8 @@ def test_multi_token_write_past_the_ring_raises():
     with pytest.raises(ValueError, match="overruns"):
         attention.attend(p, x, cfg, positions=torch.arange(6, 9),
                          cache=dict(cache, pos=6))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP queue 1, "Blockwise attention"'):
         attention.attend(p, x, cfg, kv_block=64)
 
 
@@ -330,9 +331,14 @@ def test_temperature_sampling_draws_from_the_generator():
 
 
 def test_unported_architectures_are_refused_by_name():
-    for arch in ("gemma2-27b", "rwkv6-7b", "zamba2-1.2b",
-                 "llama-3.2-vision-11b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # each refusal names the ROADMAP queue 1 item that ports it, by title
+    for arch, item in (("gemma2-27b", "gemma2"),
+                       ("rwkv6-7b", "rwkv6 and mamba2"),
+                       ("zamba2-1.2b", "rwkv6 and mamba2"),
+                       ("llama-3.2-vision-11b", "VLM and Whisper"),
+                       ("whisper-small", "VLM and Whisper")):
+        with pytest.raises(NotImplementedError,
+                           match=f'ROADMAP queue 1, "{item}"'):
             build_model(get_config(arch).reduced(), CPU)
     for arch in ("qwen2-72b", "qwen1.5-110b", "command-r-plus-104b",
                  "qwen3-moe-235b-a22b", "granite-moe-1b-a400m"):

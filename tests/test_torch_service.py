@@ -22,8 +22,10 @@ its ``torch_device`` (here ``cpu``, the kernels' plain versions), and
 ``start()`` builds nothing there — nor falls back without a card.
 """
 
+import gzip
 import json
 import os
+import pathlib
 import shutil
 import signal
 import subprocess
@@ -61,6 +63,7 @@ from repro_torch.service.jobs import mixed_burst
 from repro_torch.service.server import make_http_server
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
+DATA = pathlib.Path(__file__).parent / "data"
 
 
 @pytest.fixture(autouse=True)
@@ -112,7 +115,7 @@ BAD_JOBS = [
     ({"kind": "profile", "workload": {"workload": "fft"}},
      "unknown workload family"),
     ({"kind": "profile", "workload": {"workload": "hlo"}},
-     "invalid workload"),
+     "invalid workload: --workload hlo needs --hlo-file PATH"),
     ({"kind": "profile", "workload": {"size": [1024, 2048]}},
      "exactly one workload point"),
     ({"kind": "advise", "workload": {"waves_per_tile": [2, 4]}},
@@ -128,8 +131,9 @@ BAD_JOBS = [
 ]
 
 
+# an id stops at the message's first colon
 @pytest.mark.parametrize("payload,match", BAD_JOBS,
-                         ids=[m[:28] for _, m in BAD_JOBS])
+                         ids=[m.split(":")[0][:28] for _, m in BAD_JOBS])
 def test_parse_job_rejects(payload, match):
     with pytest.raises(JobError, match=match.replace("(", "\\(")):
         parse_job(payload)
@@ -671,6 +675,49 @@ def test_sequential_chaos_equals_reference():
         assert states == ref.provider.breaker_states()
         assert port.session("v5e").stats_snapshot() == \
             ref.session("v5e").stats_snapshot()
+    finally:
+        port.stop()
+        ref.stop()
+
+
+def test_hlo_job_with_a_file_equals_reference(tmp_path):
+    """An ``hlo`` job with its file, to a daemon whose primary is the
+    ``hlo`` provider: the same 200 body as the reference's; without the
+    file, the same 400; to a trace-primary daemon, the same 503."""
+    path = tmp_path / "granite.hlo"
+    path.write_bytes(gzip.decompress(
+        (DATA / "granite_moe_1b_a400m__decode.hlo.gz").read_bytes()))
+    kw = dict(workers=1, queue_depth=4, timeout_s=60.0, provider="hlo",
+              fallbacks=())
+    port = ProfilingService(ServiceConfig(**kw)).start()
+    ref = RefService(RefConfig(**kw)).start()
+    try:
+        for job in ({"kind": "profile",
+                     "workload": {"workload": "hlo", "hlo_file": str(path)}},
+                    {"kind": "sweep",
+                     "workload": {"workload": "hlo", "hlo_file": str(path),
+                                  "num_devices": 4}},
+                    {"kind": "profile", "workload": {"workload": "hlo"}}):
+            (st, got), (st_ref, want) = port.handle(job), ref.handle(job)
+            assert st == st_ref, (job, got, want)
+            assert_json_close(_stable(got), _stable(want))
+        assert st == 400 and got["error"] == (
+            "invalid workload: --workload hlo needs --hlo-file PATH")
+        assert port.counters == ref.counters
+        assert port.counters["invalid"] == 1
+    finally:
+        port.stop()
+        ref.stop()
+    # a trace-primary daemon cannot answer it: the same 503 from both
+    kw.update(provider="trace", fallbacks=("trace",), retries=0)
+    port = ProfilingService(ServiceConfig(**kw)).start()
+    ref = RefService(RefConfig(**kw)).start()
+    try:
+        job = {"kind": "profile",
+               "workload": {"workload": "hlo", "hlo_file": str(path)}}
+        (st, got), (st_ref, want) = port.handle(job), ref.handle(job)
+        assert st == st_ref == 503 and _stable(got) == _stable(want)
+        assert "collect them with the 'hlo' provider" in got["error"]
     finally:
         port.stop()
         ref.stop()
