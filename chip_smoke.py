@@ -20,7 +20,11 @@ full-width texts of ``tests/data``, which launches nothing, then each
 finding's candidate stream through K6).  Then it serves a
 dense LM: qwen2-72b at its published widths, with the depth cut to what
 one card holds, through ``make_prefill`` (each layer's attention in K8,
-flash attention) and ``generate``.  Phases, each of which must pass:
+flash attention) and ``generate``; then two MoE LMs, then gemma2-27b
+(local/global softcapped layers, all on the plain ``_sdpa``),
+llama-3.2-vision-11b (gated image cross-attention; its self-attention in
+K8) and whisper-small (its bidirectional encoder and causal decoder
+prefill in K8).  Phases, each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
@@ -31,7 +35,9 @@ flash attention) and ``generate``.  Phases, each of which must pass:
    main paths' shapes and at padded and odd shapes (K3-K6 also on the
    designed commit groups of ``repro_torch.data.streams``, K5 on each of
    its routes; K8 also at the reference test's shapes, blocks and bounds,
-   and on its Hopper route at ragged T, before any model is on the card);
+   on its Hopper route at ragged T, and at every serving path's shapes,
+   Whisper's non-causal encoder at T = 1500 among them, before any model
+   is on the card);
 3. drive each main path with every launch count set to 0 just before it
    and read just after: the histogram path as
    ``examples/torch_quickstart.py`` and the port's command line run it
@@ -44,7 +50,9 @@ flash attention) and ``generate``.  Phases, each of which must pass:
    logged; no launch during the audit, K6 once a distinct finding spec),
    then serving, then MoE serving
    (K7 and K5 on each model's live layer-0 tensors held against their
-   plain versions there, outside the counts);
+   plain versions there, outside the counts), then the families' serving
+   (K8's launches held to each step's count; gemma2's window and ring at
+   full width against their oracles);
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take
    (K5 and K7 also on the MoE layers' live inputs).
@@ -113,6 +121,35 @@ MOE_SERVE = (("qwen3-moe-235b-a22b", "qwen3-moe", 12),
 MOE_SHORT = {arch: short for arch, short, _ in MOE_SERVE}
 MOE_KERNELS = ("flash_attention", "bincount", "scatter_add",
                "scatter_add_instrumented")
+# the families' serving path: gemma2-27b at every published width with as
+# many whole local/global pairs as the reckoning admits, llama-3.2-vision-11b
+# and whisper-small whole, each with the serving path's prefill and decode;
+# Whisper's decoder prompt is its own 448-token text context
+# (arXiv:2212.04356) against its config's 1500 frames
+FAMILY_SERVE = ("gemma2-27b", "llama-3.2-vision-11b", "whisper-small")
+WHISPER_T = 448
+# llama-vision's cross layers start with closed tanh gates, which would
+# make them add nothing: every run here opens them (tanh 0.46 and -0.66)
+GATES_OPEN = {"gate_attn": 0.5, "gate_ffn": -0.8}
+# the f32 check's depths: one local/global pair, one group of 5 + 1 (a
+# cross layer in it), and 2 + 2 Whisper layers
+F32_CHECK_DEPTH = {"gemma2-27b": dict(num_layers=2),
+                   "llama-3.2-vision-11b": dict(num_layers=5),
+                   "whisper-small": dict(num_layers=2, encoder_layers=2)}
+# gemma2's 4096-slot window at full width on one local layer: attention
+# over T = 4608 tokens against a banded f64 oracle, and 4160 decode steps
+# through a ring of 4096 slots against a buffer of 4160 (the reference's
+# tests/test_models_decode.py::test_ring_buffer_window_cache)
+WINDOW_T, WINDOW_TOL = 4608, 2e-4
+RING_STEPS, RING_TOL = 4160, 1e-5
+# K8's launches on the families' path: llama-vision's self-attention (GQA
+# group 4, d = 128, causal), Whisper's encoder (1500 frames, not causal:
+# only the key-length check masks its last tile of 92 keys) and decoder
+# prefill (448 tokens, causal); (label, arch, T, causal)
+FAMILY_K8_SHAPES = (
+    ("llama-vision self-attention", "llama-3.2-vision-11b", PREFILL_T, True),
+    ("whisper encoder", "whisper-small", 1500, False),
+    ("whisper decoder", "whisper-small", WHISPER_T, True))
 FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
 FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
 # bf16 beyond the reference test's T = 64, where a typical output is small
@@ -701,6 +738,18 @@ def check_flash_kernel(dev) -> dict[str, float]:
               *flash_case(PREFILL_B, cfg.num_heads, cfg.num_kv_heads,
                           PREFILL_T, cfg.head_dim, torch.bfloat16, dev,
                           seed=4), True)
+        torch.cuda.empty_cache()
+    # the families' shapes, in bf16 as served and in f32 at the f32
+    # check's size (its batch; Whisper's encoder keeps its 1500 frames)
+    for label, arch, t, causal in FAMILY_K8_SHAPES:
+        cfg = _serve_config(arch=arch)
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        t32 = t if not causal else F32_CHECK_T
+        for dtype, b, tt in ((torch.bfloat16, PREFILL_B, t),
+                             (torch.float32, F32_CHECK_B, t32)):
+            check(f"{label} ({b}, {h}/{kv}, {tt}, {d}) {str(dtype)[6:]} "
+                  f"causal={causal}", *flash_case(b, h, kv, tt, d, dtype, dev,
+                                                  seed=8), causal, None, None)
         torch.cuda.empty_cache()
     return {"flash_attention": worst}
 
@@ -1506,17 +1555,28 @@ def _serve_config(num_layers=None, dtype=None, arch=SERVE_ARCH, **changes):
                                dtype=dtype or cfg.dtype, **changes)
 
 
-def serving_reckoning(dev, cfg, n: int) -> dict:
+def serving_reckoning(dev, cfg, n: int, t: int = PREFILL_T) -> dict:
     """The bytes a bf16 ``cfg`` of ``n`` layers holds at its peak in a
-    prefill of PREFILL_B x PREFILL_T tokens, against the card's free
-    memory.  The peak is the head: the weights, the bf16 logits and their
-    f32 copy, and the last hidden state; the empty cache prefill makes is
-    counted too, though it comes after the bf16 logits are freed.  A dense
-    layer's own activations (about 2 GB at 8192 tokens) are freed before
-    the head runs.  An MoE layer's are counted, and the larger of its peak
-    and the head's counts: the expert-sorted rows, the (E, C, d) buffer,
-    the three (E, C, f) products, the expert output, the rows gathered
-    back (all bf16), the f32 combine values and the f32 combine."""
+    prefill of PREFILL_B x ``t`` tokens, against the card's free memory.
+    The peak is the head: the weights, the bf16 logits and their f32 copy
+    (a final softcap caps that copy in place when no gradient is kept, so
+    it adds no temporary; Whisper's logits stay bf16), and the last hidden
+    state; the cache prefill makes is counted too, though it comes
+    after the bf16 logits are freed.  A dense layer's own activations
+    (about 2 GB at 8192 tokens) are freed before the head runs.  An MoE
+    layer's are counted, and so are the f32 score tensors of a layer on
+    ``_sdpa`` (softcapped, or attending to an image), three of them (the
+    scores, their quotient by the cap and its tanh live at once; the
+    masked and softmaxed successors two at a time), and the larger of
+    these peaks and the head's counts.  The MoE layer's: the
+    expert-sorted rows, the (E, C, d) buffer, the three (E, C, f)
+    products, the expert output, the rows gathered back (all bf16), the
+    f32 combine values and the f32 combine.  llama-vision's cross layers
+    (``n // cross_attn_every``, each a dense layer with two f32 gates)
+    hold their image K/V in the cache; Whisper's ``encoder_layers`` and
+    decoder layers (self and cross attention, LayerNorms with a bias, QKV
+    bias) hold their self-attention buffers and the cross K/V of the
+    encoder states."""
     import torch
     d, v = cfg.d_model, cfg.padded_vocab
     hd = cfg.resolved_head_dim
@@ -1525,29 +1585,51 @@ def serving_reckoning(dev, cfg, n: int) -> dict:
     # experts, two norms), of its share of the empty cache, of the
     # embedding, head and final norm
     attn = d * (q + 2 * kv) + q * d + ((q + 2 * kv) if cfg.qkv_bias else 0)
+    norm = 2 * d if cfg.norm == "layernorm" else d
+    dense_ffn = 3 * d * cfg.d_ff
     if cfg.is_moe:
         e, f = cfg.num_experts, cfg.d_expert
         ffn = 3 * d * f * (e + cfg.num_shared_experts) + d * e
     else:
-        ffn = 3 * d * cfg.d_ff
-    layer = (attn + ffn + 2 * d) * 2
-    cache = 2 * PREFILL_B * kv * PREFILL_T * 2
-    outside = ((1 if cfg.tie_embeddings else 2) * v * d + d) * 2
-    tokens = PREFILL_B * PREFILL_T
-    logits, hidden = tokens * v * (2 + 4), tokens * d * 2
-    moe_layer = 0
+        ffn = dense_ffn
+    layer = (attn + ffn + 2 * norm) * 2
+    cache = 2 * PREFILL_B * kv * t * 2
+    outside = ((1 if cfg.tie_embeddings else 2) * v * d + norm) * 2
+    tokens = PREFILL_B * t
+    logits = tokens * v * (2 + 4)
+    hidden = tokens * d * 2
+    moe_layer = attn_scores = fixed = 0
     if cfg.is_moe:
         rows = tokens * cfg.top_k
         slots = e * max(1, int(rows / e * cfg.moe_capacity_factor))
         moe_layer = (rows * d * 2 * 2 + slots * (2 * d + 3 * f) * 2
                      + rows * d * 4 + tokens * d * 4)
+    if cfg.attn_softcap:
+        attn_scores = 3 * tokens * cfg.num_heads * t * 4
+    if cfg.cross_attn_every:
+        images = PREFILL_B * cfg.image_tokens
+        fixed = n // cfg.cross_attn_every * (
+            (attn + dense_ffn + 2 * norm) * 2 + 2 * 4 + 2 * images * kv * 2)
+        attn_scores = 3 * tokens * cfg.num_heads * cfg.image_tokens * 4
+    if cfg.family == "audio":
+        frames = PREFILL_B * cfg.encoder_frames
+        logits = tokens * v * 2
+        # each decoder layer also holds a cross attention, its norm and
+        # the cross K/V of the encoder states
+        layer += (attn + norm) * 2
+        cache += 2 * frames * kv * 2
+        fixed = cfg.encoder_layers * (attn + dense_ffn + 2 * norm) * 2 \
+            + norm * 2 + frames * d * 2 * 2
+        attn_scores = 3 * tokens * cfg.num_heads * cfg.encoder_frames * 4
     torch.cuda.empty_cache()  # what the allocator caches counts as free
     free, total = torch.cuda.mem_get_info(torch.device(dev))
-    need = n * (layer + cache) + outside + max(logits, moe_layer) + hidden
+    need = (n * (layer + cache) + fixed + outside
+            + max(logits, moe_layer, attn_scores) + hidden)
     return {"free": free, "total": total, "layer": layer,
             "cache_per_layer": cache, "embed_and_head": outside,
-            "logits": logits, "moe_layer": moe_layer, "hidden": hidden,
-            "need": need, "margin": MEMORY_MARGIN}
+            "cross_or_encoder": fixed, "logits": logits,
+            "moe_layer": moe_layer, "attn_scores": attn_scores,
+            "hidden": hidden, "need": need, "margin": MEMORY_MARGIN}
 
 
 def serving_path(dev) -> dict:
@@ -1830,12 +1912,14 @@ def _leaves(tree):
         yield tree
 
 
-def _decode_vs_prefill(model, params, tokens, prefill_logits):
+def _decode_vs_prefill(model, params, tokens, prefill_logits, extras=None):
     """Teacher-forced ``decode_step`` logits at positions 0..P-1 against
-    the prefill's: max |diff| and the share of equal argmaxes."""
+    the prefill's: max |diff| and the share of equal argmaxes.  ``extras``:
+    the family's stub, for its cache (``serve.step``)."""
     import torch
     positions = prefill_logits.shape[1]
-    cache = model.init_cache(params, tokens.shape[0], positions)
+    cache = model.init_cache(params, tokens.shape[0], positions,
+                             **(extras or {}))
     err, same = 0.0, 0
     with torch.no_grad():
         for t in range(positions):
@@ -2043,7 +2127,10 @@ def moe_serving_model(dev, arch: str, n, sess, err: dict):
              f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}, "
              f"finite {finite}")
     peak = torch.cuda.max_memory_allocated()
-    _require(peak - held_before <= reckoning["need"],
+    # held only where the reckoning picked the depth: the other two run
+    # whole, and their peak is reported beside it
+    picked = full.attn_pattern == "local_global"
+    _require(not picked or peak - held_before <= reckoning["need"],
              f"{arch} prefill peak {peak - held_before} bytes above the "
              f"reckoning {reckoning['need']}")
     drops = drop_shares(rec["counts"], e, cfg.moe_capacity_factor)
@@ -2220,6 +2307,325 @@ def moe_serving_path(dev, tables_dir, err: dict):
         live.update(rows)
         log(f"  {arch}: {json.dumps(measured[arch])}")
     return measured, live
+
+
+# ---------------------------------------------------------------------------
+# 3. the families' serving path: gemma2, llama-3.2-vision, whisper-small
+# ---------------------------------------------------------------------------
+
+
+# a step's device time by part: K8 by its kernels' names, the rest by the
+# torch operator that launched the kernels; the einsums and the softmax
+# are the plain _sdpa's (every gemma2 layer, the cross layers, decode)
+FAMILY_PROFILE_PARTS = {
+    "K8 attention": MOE_PROFILE_PARTS["K8 attention"],
+    "mm (projections, FFN, head)": ("op", ("aten::mm",)),
+    "einsum (_sdpa QK^T, P V)": ("op", ("aten::einsum",)),
+    "softmax (_sdpa)": ("op", ("aten::softmax",)),
+    "tanh (softcaps)": ("op", ("aten::tanh", "aten::tanh_")),
+}
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+    return {**fk.LAUNCHES, **hk.LAUNCHES, **sk.LAUNCHES}
+
+
+def _open_gates(model, params) -> int:
+    """Sets every cross layer's gates to GATES_OPEN; returns their
+    count."""
+    cross = [p for kind, p in zip(getattr(model, "kinds", ()),
+                                  params.get("layers", ())) if kind == "cross"]
+    for p in cross:
+        for name, value in GATES_OPEN.items():
+            p[name].fill_(value)
+    return len(cross)
+
+
+def _k8_per_prefill(cfg) -> int:
+    """K8 launches of one ``prefill_step``: every self-attention layer
+    without a softcap; Whisper's encoder twice (``forward`` and
+    ``init_cache``) and its decoder once."""
+    if cfg.family == "audio":
+        return 2 * cfg.encoder_layers + cfg.num_layers
+    return 0 if cfg.attn_softcap else cfg.num_layers
+
+
+def gemma2_window_checks(dev) -> dict:
+    """One gemma2-27b local layer at every published width, in f32 with
+    TF32 off (``tests/_gemma2_window.py``: seeded weights, inputs x 2):
+    ``attend`` over WINDOW_T tokens against attention in f64 whose band
+    (key j seen by query i where i - 4096 < j <= i) is built from index
+    arithmetic, not ``_mask_bias``; then RING_STEPS single-token decode
+    steps through the 4096-slot ring and through a RING_STEPS-slot buffer,
+    equal within RING_TOL on every step."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _gemma2_window import (banded_attention_f64, local_layer,
+                                ring_against_full)
+
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    acfg, p, gen, x = local_layer(dev, WINDOW_T)
+    out = {}
+    with torch.no_grad():
+        got, _ = attention.attend(p, x, acfg)
+        want, full = banded_attention_f64(p, x, acfg)
+    err = _abs_err(got, want)
+    late = slice(acfg.window, None)     # rows whose band drops keys
+    moved = _abs_err(want[:, late], full[:, late])
+    del want, full
+    _require(err <= WINDOW_TOL and moved > 100 * WINDOW_TOL,
+             f"gemma2 local layer T={WINDOW_T}: max |err| {err} against the "
+             f"banded f64 oracle (bound {WINDOW_TOL}); the window moves the "
+             f"later rows by {moved}")
+    out.update(window_max_abs=err, window_effect_max_abs=moved)
+    log(f"  gemma2 local layer (d_model {x.shape[-1]}, {acfg.num_heads}/"
+        f"{acfg.num_kv_heads} x {acfg.head_dim}, window {acfg.window}, "
+        f"softcap {acfg.logit_softcap}) f32, T={WINDOW_T}: max |err| "
+        f"{err:.3g} against the banded f64 oracle (bound {WINDOW_TOL}); the "
+        f"window moves rows past {acfg.window} by up to {moved:.3g}")
+
+    x = torch.randn((1, RING_STEPS, x.shape[-1]), generator=gen, device=dev)
+    slots, worst, wrapped = ring_against_full(p, x, acfg)
+    _require(worst <= RING_TOL, f"gemma2 ring of {slots[0]} slots against "
+                                f"{slots[1]}: max |diff| {worst}")
+    out.update(ring_slots=slots, ring_max_abs=worst,
+               ring_wrapped_max_abs=wrapped)
+    log(f"  gemma2 ring: {RING_STEPS} decode steps through {slots[0]} slots "
+        f"and through {slots[1]}: max |diff| {worst:.3g} (past the wrap "
+        f"{wrapped:.3g}), bound {RING_TOL}")
+    return out
+
+
+def family_serving_model(dev, arch: str) -> dict:
+    """One of FAMILY_SERVE at every published width, random bf16 weights
+    drawn on the card (seed 0), its depth and prefill reckoned against the
+    free memory first: ``make_prefill`` at 4 x 2048 tokens (Whisper: 448
+    tokens against 1500 frames), a ragged 2000 (not Whisper, whose 1500
+    frames are ragged already), ``generate`` 16 + 16, K8's launches held
+    to each step's count; decode against prefill in bf16, reported; a
+    profile of a prefill and of a decode step; the hard check in f32 at
+    F32_CHECK_DEPTH, TF32 off; for gemma2, its window at full width
+    (``gemma2_window_checks``).  llama-vision's gates are opened
+    (GATES_OPEN) after ``init`` in every run.  Returns what was measured.
+    """
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.serve import step as serve_mod
+
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
+    def run(what, fn, k8):
+        """``fn()`` under no_grad, its launches held to ``k8`` of K8 and
+        none of any other kernel."""
+        before = _launches()
+        with torch.no_grad():
+            result = fn()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _launches().items()
+               if v != before[k]}
+        want = {"flash_attention": k8} if k8 else {}
+        _require(got == want, f"{arch} {what}: launches {got}, expected "
+                              f"{want}")
+        return result
+
+    def draw(cfg, seed):
+        model = build_model(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init(gen)
+        return model, params, gen, _open_gates(model, params)
+
+    full = _serve_config(arch=arch)
+    t = WHISPER_T if full.family == "audio" else PREFILL_T
+    n = full.num_layers
+    reckoning = serving_reckoning(dev, full, n, t)
+    if full.attn_pattern == "local_global":   # whole pairs that fit
+        while n > 2 and reckoning["need"] + MEMORY_MARGIN > reckoning["free"]:
+            n -= 2
+            reckoning = serving_reckoning(dev, _serve_config(
+                num_layers=n, arch=arch), n, t)
+    _require(reckoning["need"] + MEMORY_MARGIN <= reckoning["free"],
+             f"{n} {arch} layers do not fit beside the prefill: {reckoning}")
+    cfg = _serve_config(num_layers=n, arch=arch)
+    extra = (f", {cfg.encoder_layers} encoder layers over "
+             f"{cfg.encoder_frames} frames" if cfg.family == "audio" else "")
+    extra += (f", a gated cross layer after every {cfg.cross_attn_every} "
+              f"over {cfg.image_tokens} image tokens"
+              if cfg.cross_attn_every else "")
+    extra += (f", window {cfg.window}, softcaps {cfg.attn_softcap}/"
+              f"{cfg.final_softcap}" if cfg.attn_softcap else "")
+    log(f"  {arch}: {n} of {full.num_layers} layers"
+        f"{'' if n == full.num_layers else ' (cut: the rest stand for further pipeline stages)'}"
+        f", widths as published: d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff} {cfg.activation}, vocab {cfg.padded_vocab}{extra}; "
+        f"memory reckoning (bytes) {reckoning}")
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, gen, opened = draw(cfg, 0)
+    batch = make_batch(cfg, PREFILL_B, t, gen)
+    tokens = batch["tokens"]
+    extras = {k: v for k, v in batch.items()
+              if k in ("frames", "image_embeds")}
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    out.update(layers=n, of=full.num_layers, weight_bytes=weight_bytes)
+    log(f"  weights: {weight_bytes} bytes ({weight_bytes / 1e9:.2f} GB); "
+        f"peak while drawing them {torch.cuda.max_memory_allocated()} bytes"
+        + (f"; {opened} cross layers' gates opened to {GATES_OPEN} (init "
+           f"closes them)" if opened else "")
+        + "; stubs " + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                                 for k, v in extras.items()))
+    step("init")
+    torch.cuda.reset_peak_memory_stats()
+
+    k8 = _k8_per_prefill(cfg)
+    prefill = serve_mod.make_prefill(model, serve_mod.ServeConfig(max_len=t))
+    logits, cache = run("prefill", lambda: prefill(params, tokens, extras), k8)
+    step("prefill")
+    # CausalLM's logits are f32; Whisper's stay in its dtype
+    dtype = (layers.torch_dtype(cfg.dtype) if cfg.family == "audio"
+             else torch.float32)
+    finite = _all_finite(logits)
+    _require(logits.shape == (PREFILL_B, t, cfg.padded_vocab)
+             and logits.dtype == dtype and finite,
+             f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}, "
+             f"finite {finite}")
+    peak = torch.cuda.max_memory_allocated()
+    # held only where the reckoning picked the depth: the other two run
+    # whole, and their peak is reported beside it
+    picked = full.attn_pattern == "local_global"
+    _require(not picked or peak - held_before <= reckoning["need"],
+             f"{arch} prefill peak {peak - held_before} bytes above the "
+             f"reckoning {reckoning['need']}")
+    head = logits[:, :DECODE_PROMPT].clone()
+    tail = logits[:, RAGGED_T - 100:RAGGED_T].clone() if t > RAGGED_T else None
+    del logits, cache
+    out.update(peak_memory_bytes=peak, k8_per_prefill=k8)
+    log(f"  prefill {PREFILL_B} x {t}: logits {(PREFILL_B, t, cfg.padded_vocab)}"
+        f" {str(dtype)[6:]}, finite; K8 launched {k8} times"
+        + (f" ({cfg.encoder_layers} encoder layers, not causal, in forward "
+           f"and again in init_cache; {cfg.num_layers} decoder layers, "
+           f"causal)" if cfg.family == "audio" else "")
+        + f"; peak memory {peak} bytes (reckoned "
+        f"{held_before + reckoning['need']}"
+        + (", held to it)" if picked else ", reported: the depth is whole)"))
+
+    # profiled next, while the allocator's cached blocks are the ones this
+    # prefill's shapes just freed: once the ragged prefill has split them,
+    # gemma2's 8.4 GB logits found no block on an 80 GB H100 (out of memory
+    # with 8.6 GiB reserved but unallocated)
+    with torch.no_grad():
+        out["profile_prefill"] = device_profile(
+            lambda: prefill(params, tokens, extras),
+            f"{arch} prefill {PREFILL_B} x {t}", parts=FAMILY_PROFILE_PARTS)
+    step("profile prefill")
+
+    if tail is not None:
+        ragged, _ = run("ragged prefill", lambda: prefill(
+            params, tokens[:, :RAGGED_T], extras), k8)
+        _require(ragged.shape[1] == RAGGED_T and _all_finite(ragged),
+                 f"{arch} ragged prefill at T={RAGGED_T}")
+        diff = _abs_err(ragged[:, -100:], tail)
+        del ragged, tail
+        out["ragged_vs_full_max_abs"] = diff
+        log(f"  ragged prefill T={RAGGED_T}: finite, K8 launched {k8} times; "
+            f"last 100 positions' logits against the T={PREFILL_T} "
+            f"prefill's: max |diff| {diff!r} (reported)")
+        step("ragged")
+
+    prompt = tokens[:, :DECODE_PROMPT]
+    steps = DECODE_PROMPT + DECODE_GEN - 1
+    k8_gen = cfg.encoder_layers if cfg.family == "audio" else 0
+    toks = run("generate", lambda: serve_mod.generate(
+        model, params, prompt, DECODE_GEN,
+        serve_mod.ServeConfig(max_len=DECODE_PROMPT + DECODE_GEN), extras),
+        k8_gen)
+    step("decode")
+    _require(toks.shape == (PREFILL_B, DECODE_PROMPT + DECODE_GEN)
+             and torch.equal(toks[:, :DECODE_PROMPT], prompt)
+             and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+             f"{arch} generate returned {tuple(toks.shape)}")
+    log(f"  generate: {steps} decode steps of {PREFILL_B} tokens in "
+        f"{seconds['decode']:.3f} s ({seconds['decode'] / steps * 1e3:.1f} ms "
+        f"a step); K8 launched {k8_gen} times"
+        + (" (the encoder, in init_cache)" if k8_gen else ""))
+    err_bf16, agree = _decode_vs_prefill(model, params, tokens, head, extras)
+    out.update(k8_per_generate=k8_gen, bf16_decode_max_abs=err_bf16,
+               bf16_top1_agreement=agree)
+    log(f"  bf16 at {n} layers, decode vs prefill logits over "
+        f"{DECODE_PROMPT} positions: max |diff| {err_bf16:.4g}, top-1 "
+        f"agreement {agree:.4f} (reported, not bounded: bf16 rounds "
+        f"differently on the two routes)")
+    step("agreement")
+
+    small = model.init_cache(params, PREFILL_B, DECODE_PROMPT, **extras)
+    with torch.no_grad():
+        out["profile_decode"] = device_profile(
+            lambda: model.decode_step(params, tokens[:, :1], small, pos=0),
+            f"{arch} decode step of {PREFILL_B} tokens at context 1",
+            parts=FAMILY_PROFILE_PARTS)
+    del small, head, toks, params, model, extras, batch, tokens
+    torch.cuda.empty_cache()
+    step("profile decode")
+
+    # the hard check: f32 at full width, TF32 off, the gates open
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = _serve_config(arch=arch, dtype="float32", **F32_CHECK_DEPTH[arch])
+    model, params, gen, opened = draw(cfg32, 1)
+    batch = make_batch(cfg32, F32_CHECK_B, F32_CHECK_T, gen)
+    tokens = batch["tokens"]
+    extras = {k: v for k, v in batch.items()
+              if k in ("frames", "image_embeds")}
+    fwd, _ = run("f32 prefill", lambda: serve_mod.make_prefill(
+        model, serve_mod.ServeConfig(max_len=F32_CHECK_T))(
+            params, tokens, extras), _k8_per_prefill(cfg32))
+    err32, agree32 = _decode_vs_prefill(model, params, tokens, fwd, extras)
+    _require(err32 < DECODE_TOL, f"{arch} f32 decode vs prefill max |diff| "
+                                 f"{err32} >= {DECODE_TOL}")
+    out.update(f32_decode_max_abs=err32, f32_top1_agreement=agree32)
+    depth = ", ".join(f"{k} {v}" for k, v in F32_CHECK_DEPTH[arch].items())
+    log(f"  f32 at {depth}, full width, TF32 off"
+        + (f", {opened} cross layer's gates open" if opened else "")
+        + f": decode vs prefill logits over {F32_CHECK_T} positions, max "
+        f"|diff| {err32:.4g} < {DECODE_TOL}, top-1 agreement {agree32:.4f}")
+    del params, model, fwd, extras, batch
+    torch.cuda.empty_cache()
+    step("f32 check")
+
+    if cfg.attn_pattern == "local_global":
+        out.update(gemma2_window_checks(dev))
+        torch.cuda.empty_cache()
+        step("window")
+    out["seconds"] = seconds
+    log("  host seconds by step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()))
+    return out
+
+
+def family_serving_path(dev) -> dict:
+    """Each of FAMILY_SERVE through ``family_serving_model``, one after
+    the other.  Returns what was measured by model."""
+    measured = {}
+    for arch in FAMILY_SERVE:
+        measured[arch] = family_serving_model(dev, arch)
+        log(f"  {arch}: {json.dumps(measured[arch])}")
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -2457,13 +2863,15 @@ def time_flash_kernel(dev) -> dict:
     """K8 at the serving paths' prefill shapes (bf16, causal, 4 x 2048
     tokens): qwen2-72b's (GQA 64/8, d = 128), qwen3-moe's (64/4, d = 128)
     and granite-moe's (16/8, d = 64), the Hopper route at both head
-    sizes.
+    sizes; then at the families' shapes (FAMILY_K8_SHAPES, batch 4):
+    llama-vision's (32/8, d = 128), Whisper's encoder (12/12 x 1500, d =
+    64, not causal) and decoder (12/12 x 448, causal).
 
-    Operations: the useful causal products, 2 flop per multiply-add for
-    QK^T and for P V over the T (T + 1) / 2 visible (query, key) pairs,
-    against the dense bf16 tensor-core rate.  Bytes: q, k, v read once,
-    the output written once.  The library yardstick is
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
+    Operations: the useful products, 2 flop per multiply-add for QK^T and
+    for P V over the visible (query, key) pairs (T (T + 1) / 2 causal,
+    T^2 not), against the dense bf16 tensor-core rate.  Bytes: q, k, v
+    read once, the output written once.  The library yardstick is
+    ``scaled_dot_product_attention(is_causal=..., enable_gqa=True)``,
     timed here only; the port never calls it.
     """
     import torch
@@ -2471,24 +2879,31 @@ def time_flash_kernel(dev) -> dict:
 
     from repro_torch.kernels.flash_attention import kernel as fk
 
+    cases = [(f"prefill {PREFILL_B}x{{h}}/{{kv}}x{PREFILL_T}x{{d}} bf16 causal",
+              arch, PREFILL_T, True)
+             for arch in (SERVE_ARCH,) + tuple(a for a, _, _ in MOE_SERVE)]
+    cases += [(f"{label} {PREFILL_B}x{{h}}/{{kv}}x{t}x{{d}} bf16 "
+               f"{'causal' if causal else 'not causal'}", arch, t, causal)
+              for label, arch, t, causal in FAMILY_K8_SHAPES]
     out = {}
-    for arch in (SERVE_ARCH,) + tuple(arch for arch, _, _ in MOE_SERVE):
+    for name, arch, t, causal in cases:
         cfg = _serve_config(arch=arch)
-        b, h, kv, t, d = (PREFILL_B, cfg.num_heads, cfg.num_kv_heads,
-                          PREFILL_T, cfg.head_dim)
+        b, h, kv, d = (PREFILL_B, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.resolved_head_dim)
         q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=5)
         group = h // kv
-        flops = 4.0 * b * h * d * (t * (t + 1) / 2)
+        pairs = t * (t + 1) / 2 if causal else t * t
+        flops = 4.0 * b * h * d * pairs
         nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
         bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
-        case = f"prefill {b}x{h}/{kv}x{t}x{d} bf16 causal"
+        case = name.format(h=h, kv=kv, d=d)
         row = {
             "ms": time_ms(lambda: fk.flash_attention_launch(
-                q, k, v, causal=True, group=group), reps=25),
+                q, k, v, causal=causal, group=group), reps=25),
             "plain_ms": time_ms(lambda: fk.attention_plain(
-                q, k, v, causal=True, group=group), reps=5, warmup=1),
+                q, k, v, causal=causal, group=group), reps=5, warmup=1),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), reps=25),
+                q, k, v, is_causal=causal, enable_gqa=True), reps=25),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
@@ -2701,6 +3116,21 @@ def main() -> int:
             launches[k] += n
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
             f"{moe_launches}")
+    t0 = phase("main path: serving gemma2, llama-3.2-vision and "
+               "whisper-small prefill and decode")
+    hk.reset_launches()
+    sk.reset_launches()
+    fk.reset_launches()
+    family_serving_path(dev)
+    torch.cuda.synchronize()
+    family_launches = {k: n for k, n in _launches().items() if n}
+    _require(family_launches.keys() == set(SERVE_KERNELS),
+             f"families' serving path launched {family_launches}")
+    for k, n in family_launches.items():
+        by_path[k]["families"] = n
+        launches[k] += n
+    log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+        f"{family_launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     _require(not missing, f"kernels not launched on the main path: {missing}")
 

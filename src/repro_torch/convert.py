@@ -11,8 +11,8 @@ build:
     Session("v5e", table=table_from_numpy(np.load(path)))
 
 The LM substrate does have weights: ``lm_params_from_numpy`` takes a
-reference ``CausalLM``'s parameters, as numpy arrays, into the port's
-per-layer layout.
+reference ``CausalLM``'s parameters, and ``whisper_params_from_numpy`` a
+``WhisperModel``'s, as numpy arrays, into the port's per-layer layout.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.counters import CounterSet, WaveTrace
 from repro_torch.core.qmodel import ServiceTimeTable
 from repro_torch.core.timing import ScatterUnitParams
+from repro_torch.models.transformer import layer_plan
 
 
 def table_from_numpy(arrays: Mapping) -> ServiceTimeTable:
@@ -105,27 +106,54 @@ def _tree(x, fn):
     return fn(x)
 
 
+def _unstack(stacked, n: int, device) -> list:
+    """A tree whose leaves carry a leading axis of ``n`` -> ``n`` trees."""
+    return [_tree(stacked, lambda a, i=i: _tensor(a[i], device))
+            for i in range(n)]
+
+
 def lm_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
     """The port's ``CausalLM`` parameters from the reference's.
 
     ``params`` is the reference's ``CausalLM.init`` output passed through
     ``jax.tree.map(np.asarray, ...)``.  Its layers are stacked along a
-    leading group axis (``params["groups"]["sub0"]``); the port keeps one
-    dict per layer, so that axis is unstacked, the same for every leaf:
-    a dense layer's ``ffn`` (``w_gate``, ``w_up``, ``w_down``) and an MoE
-    layer's (``router: {w}``, ``w_gate``, ``w_up``, ``w_down`` and, with
-    shared experts, ``shared``) alike.  Only the plan of one ``"attn"``
-    sub-block per group is carried, as only it is served.
+    leading group axis, one stack for each sub-block of the group
+    (``params["groups"][f"sub{i}"]``); the port keeps one dict per layer,
+    layer ``g * k + i`` being group ``g``'s sub-block ``i`` of ``k``, so
+    each stack is unstacked, the same for every leaf: a dense layer's
+    ``ffn`` (``w_gate``, ``w_up``, ``w_down``), an MoE layer's
+    (``router: {w}``, ``w_gate``, ``w_up``, ``w_down`` and, with shared
+    experts, ``shared``), gemma2's local and global pair, and
+    llama-vision's cross layers with their scalar gates alike.  Plans
+    with a tail or a shared block (zamba2) are refused.
     """
-    groups = params["groups"]
-    if (set(groups) != {"sub0"} or params.get("tail")
-            or "shared_attn" in params):
+    if params.get("tail") or "shared_attn" in params:
         raise NotImplementedError(
-            "only the dense layer plan is ported (ROADMAP queue 1, "
-            "\"gemma2\", \"VLM and Whisper\", \"rwkv6 and mamba2\")")
-    out = {k: _tree(params[k], lambda a: _tensor(a, device))
-           for k in ("embed", "final_norm", "lm_head") if k in params}
-    out["layers"] = [
-        _tree(groups["sub0"], lambda a, i=i: _tensor(a[i], device))
-        for i in range(cfg.num_layers)]
+            "layer plans with a tail or a shared block are not ported yet "
+            "(ROADMAP queue 1, \"rwkv6 and mamba2\")")
+    plan = layer_plan(cfg)
+    k = len(plan.group_kinds)
+    groups = params["groups"]
+    if set(groups) != {f"sub{i}" for i in range(k)}:
+        raise ValueError(f"groups {sorted(groups)} do not match the plan "
+                         f"{plan.group_kinds}")
+    out = {key: _tree(params[key], lambda a: _tensor(a, device))
+           for key in ("embed", "final_norm", "lm_head") if key in params}
+    subs = [_unstack(groups[f"sub{i}"], plan.n_groups, device)
+            for i in range(k)]
+    out["layers"] = [subs[i][g] for g in range(plan.n_groups)
+                     for i in range(k)]
+    return out
+
+
+def whisper_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
+    """The port's ``WhisperModel`` parameters from the reference's
+    (``WhisperModel.init`` through ``jax.tree.map(np.asarray, ...)``):
+    ``enc_blocks`` and ``dec_blocks``, stacked along a leading layer axis
+    there, become per-layer lists."""
+    out = {key: _tree(params[key], lambda a: _tensor(a, device))
+           for key in ("embed", "enc_norm", "dec_norm")}
+    out["enc_blocks"] = _unstack(params["enc_blocks"], cfg.encoder_layers,
+                                 device)
+    out["dec_blocks"] = _unstack(params["dec_blocks"], cfg.num_layers, device)
     return out

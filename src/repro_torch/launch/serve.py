@@ -5,8 +5,10 @@
 
 The dense and the MoE architectures (``qwen3-moe-235b-a22b``,
 ``granite-moe-1b-a400m``: each MoE layer counts its dispatch with K7 and
-sums its combine with K5).  ``--device`` defaults to ``cuda``: the model
-runs on the card unless the CPU is asked for.
+sums its combine with K5), ``gemma2-27b``, ``llama-3.2-vision-11b`` (its
+image stub passed through) and ``whisper-small`` (its frame stub passed
+through).  ``--device`` defaults to ``cuda``: the model runs on the card
+unless the CPU is asked for.
 """
 
 from __future__ import annotations
@@ -37,13 +39,15 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build_model(cfg, args.device)
     params = model.init(torch.Generator(device=args.device).manual_seed(0))
-    prompt = make_batch(cfg, args.batch, args.prompt_len,
-                        device=args.device)["tokens"]
+    stub = make_batch(cfg, args.batch, args.prompt_len, device=args.device)
+    prompt = stub["tokens"]
+    extras = {k: v for k, v in stub.items()
+              if k in ("frames", "image_embeds")}
     scfg = serve_mod.ServeConfig(temperature=args.temperature,
                                  max_len=args.prompt_len + args.gen)
     t0 = time.perf_counter()
     out = serve_mod.generate(
-        model, params, prompt, args.gen, scfg,
+        model, params, prompt, args.gen, scfg, extras=extras,
         gen=torch.Generator(device=args.device).manual_seed(1))
     dt = time.perf_counter() - t0
     total_new = args.batch * args.gen

@@ -9,11 +9,12 @@ is not ported yet.
 Shape conventions: activations (B, T, d); Q heads H, KV heads KV with
 H % KV == 0; per-head dim ``head_dim``.
 
-Routes.  Causal self-attention over a whole sequence without a cache (the
-prefill) runs the flash-attention kernel K8 (``flash_route``); everything
-else — decode against the cache, windows, softcaps, cross-attention —
-runs the plain ``_sdpa``, as in the reference.  The route is decided from
-the config and the arguments before anything is launched.
+Routes.  Self-attention over a whole sequence without a cache, causal
+(a prefill) or bidirectional (Whisper's encoder), runs the flash-attention
+kernel K8 (``flash_route``); everything else — decode against the cache,
+windows, softcaps, cross-attention — runs the plain ``_sdpa``, as in the
+reference.  The route is decided from the config and the arguments before
+anything is launched.
 """
 
 from __future__ import annotations
@@ -114,11 +115,11 @@ def _sdpa(q, k, v, bias, softcap_val, scale, bf16_grad=False):
 
 def flash_route(cfg: AttnConfig, *, positions=None, kv_x=None,
                 kv_positions=None, cache=None, kv_block=None) -> bool:
-    """True where ``attend`` runs K8: causal self-attention over positions
-    0..T-1 with no cache, window, softcap, bf16 score round trip or
-    blockwise path.  A head size the kernel does not take raises there;
+    """True where ``attend`` runs K8: self-attention, causal or not, over
+    positions 0..T-1 with no cache, window, softcap, bf16 score round trip
+    or blockwise path.  A head size the kernel does not take raises there;
     it does not send the prefill to ``_sdpa``."""
-    return (cfg.causal and kv_x is None and cache is None and kv_block is None
+    return (kv_x is None and cache is None and kv_block is None
             and positions is None and kv_positions is None
             and cfg.window is None and cfg.logit_softcap is None
             and not cfg.bf16_score_grad)
@@ -198,7 +199,7 @@ def attend(
     if use_flash:
         # K8 at the real T: the kernel masks a ragged last tile itself
         out = flash_kernel.flash_attention_launch(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=cfg.causal,
             group=g)
     else:
         if kv_block is not None:
@@ -212,6 +213,25 @@ def attend(
                     bf16_grad=cfg.bf16_score_grad)
     out = out.to(x.dtype).reshape(b, cfg.num_heads, t, cfg.head_dim)
     return layers.dense(params["wo"], _merge_heads(out)), new_cache
+
+
+def cross_cached(params: dict, x: torch.Tensor, cfg: AttnConfig,
+                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, T, d) against K/V projected once
+    (B, KV, Tk, hd): the reference's ``_cross_from_cache``
+    (``transformer.py``) and ``_cross_cached`` (``whisper.py``), one
+    function here.  No mask, softcap or RoPE; f32 scores, as ``_sdpa``."""
+    b, t, _ = x.shape
+    g = cfg.num_heads // cfg.num_kv_heads
+    q = _split_heads(layers.dense(params["wq"], x), cfg.num_heads,
+                     cfg.head_dim)
+    qg = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
+    scores = torch.einsum("bkgqh,bkth->bkgqt", qg.to(torch.float32),
+                          k.to(torch.float32)) * cfg.head_dim ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqt,bkth->bkgqh", probs.to(v.dtype), v)
+    out = out.reshape(b, cfg.num_heads, t, cfg.head_dim)
+    return layers.dense(params["wo"], _merge_heads(out))
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,

@@ -7,29 +7,38 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models.transformer import CausalLM
+from repro_torch.models.whisper import WhisperModel
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> CausalLM:
-    """The model of ``cfg`` on ``device`` (default the card): the dense
-    and the MoE families; raises for what is not ported yet (the audio
-    family, layers other than attention)."""
+def build_model(cfg: ModelConfig, device="cuda"):
+    """The model of ``cfg`` on ``device`` (default the card):
+    ``WhisperModel`` for the audio family, else ``CausalLM`` (dense, MoE,
+    gemma2, VLM); raises for layers not ported yet (rwkv6, mamba2)."""
     if cfg.family == "audio":
-        raise NotImplementedError(f"{cfg.name}: the Whisper family is not "
-                                  f"ported yet (ROADMAP queue 1, \"VLM and "
-                                  f"Whisper\")")
+        return WhisperModel(cfg, device)
     return CausalLM(cfg, device)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
                gen: Optional[torch.Generator] = None,
                device="cuda") -> dict:
-    """Synthetic token batch drawn from ``gen`` (default: seed 0 on
-    ``device``) on the generator's device.  The reference's audio and
-    image stubs come with their families (ROADMAP queue 1, "VLM and
-    Whisper")."""
+    """Synthetic batch drawn from ``gen`` (default: seed 0 on ``device``)
+    on the generator's device, with the modality stubs the arch needs:
+    ``frames`` (B, encoder_frames, d_model) for the audio family and
+    ``image_embeds`` (B, image_tokens, d_model) for the VLM family, normal
+    x 0.02 in the config's dtype."""
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=gen.device, dtype=torch.int32)
-    return {"tokens": tokens, "labels": tokens}
+    out = {"tokens": tokens, "labels": tokens}
+    stubs = {"audio": ("frames", cfg.encoder_frames),
+             "vlm": ("image_embeds", cfg.image_tokens)}
+    if cfg.family in stubs:
+        name, n = stubs[cfg.family]
+        out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                device=gen.device,
+                                dtype=layers.torch_dtype(cfg.dtype)) * 0.02
+    return out

@@ -1,26 +1,31 @@
-"""The causal LM for dense and MoE models: the reference's ``CausalLM`` on
-one card.
+"""The causal LM for the dense, MoE, gemma2 and VLM families: the
+reference's ``CausalLM`` on one card.
 
 The reference expresses every architecture as ``n_groups`` repetitions of
 a small group of sub-blocks and scans over stacked parameters.  Here the
 layers are a Python loop over per-layer parameter dicts
 (``params["layers"][i]``, the same keys as one group slice of the
-reference's ``params["groups"]["sub0"]``; ``convert.lm_params_from_numpy``
-unstacks them).  The plan is kept, so that an architecture this slice
-does not serve is refused by name:
+reference's ``params["groups"][f"sub{i}"]``; layer ``g * k + i`` is
+group ``g``'s sub-block ``i`` of ``k``, and
+``convert.lm_params_from_numpy`` unstacks them).  The plan is kept, so
+that an architecture this slice does not serve is refused by name:
 
   dense            group = ("attn",) x L                  ported
   moe              group = ("attn",) x L, expert FFN       ported
-  gemma2           group = ("attn_local", "attn_global")   "gemma2"
-  llama-vision     ("attn",)*5 + ("cross",)                "VLM and Whisper"
+  gemma2           group = ("attn_local", "attn_global")   ported
+  llama-vision     ("attn",)*5 + ("cross",)                ported
   rwkv6 / zamba2   ("rwkv",) / ("mamba",)*k + shared attn  "rwkv6 and mamba2"
 
-(A refused plan names the ROADMAP queue 1 item that ports it, by title.)
+(A refused plan names the ROADMAP queue 1 item that ports it, by title;
+the Whisper family is ``models/whisper.py``.)
 
-Each layer's prefill attention runs K8 (``attention.flash_route``); the
-decode step attends over the KV cache with the plain ``_sdpa``.  An MoE
-layer's FFN is ``moe.apply_local`` in both: K7 counts its dispatch and K5
-sums its combine.  Its capacity is reckoned from the tokens of the call,
+A plain ``attn`` layer's prefill attention runs K8
+(``attention.flash_route``); gemma2's layers, all softcapped (and the
+local ones windowed), and the gated ``cross`` layers, which attend to the
+image K/V, run the plain ``_sdpa``, as does every decode step.  A cross
+layer's image K/V are projected once, into its cache.  An MoE layer's FFN
+is ``moe.apply_local`` in both: K7 counts its dispatch and K5 sums its
+combine.  Its capacity is reckoned from the tokens of the call,
 as in the reference, so a decode step of a few tokens drops more rows
 than the prefill of the same tokens does, and their logits differ by
 design unless the capacity factor is large enough that nothing drops.
@@ -36,11 +41,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mlp, moe
 
-SERVED_KINDS = ("attn",)
+SERVED_KINDS = ("attn", "attn_local", "attn_global", "cross")
 # ROADMAP queue 1's item, by title, that ports each refused layer kind
-PORTED_BY = {"attn_local": "gemma2", "attn_global": "gemma2",
-             "cross": "VLM and Whisper", "audio": "VLM and Whisper",
-             "rwkv": "rwkv6 and mamba2", "mamba": "rwkv6 and mamba2",
+PORTED_BY = {"rwkv": "rwkv6 and mamba2", "mamba": "rwkv6 and mamba2",
              "shared_attn": "rwkv6 and mamba2"}
 
 
@@ -78,13 +81,14 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not serve: layer kinds other than
-    attention (with a dense or an expert FFN), and the audio family."""
+    """Raise for what this model does not serve: the audio family (it is
+    ``whisper.WhisperModel``) and layer kinds other than attention (with a
+    dense or an expert FFN) and gated cross-attention."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: use whisper.WhisperModel for audio")
     plan = layer_plan(cfg)
     kinds = sorted(set(plan.group_kinds + plan.tail_kinds)
                    - set(SERVED_KINDS))
-    if cfg.family == "audio":
-        kinds.append("audio")
     if kinds:
         items = ", ".join(f'"{t}"' for t in
                           sorted({PORTED_BY[k] for k in kinds}))
@@ -130,7 +134,7 @@ def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Sub-blocks: attention + gated MLP or experts
+# Sub-blocks: attention + gated MLP or experts; gated cross-attention
 # ---------------------------------------------------------------------------
 
 
@@ -139,14 +143,21 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     p = {"norm1": _norm_init(cfg, gen.device),
          "attn": attention.init(gen, _attn_cfg(cfg, kind)),
          "norm2": _norm_init(cfg, gen.device)}
-    p["ffn"] = (moe.init(gen, _moe_cfg(cfg)) if cfg.is_moe
-                else mlp.init(gen, cfg.d_model, cfg.d_ff, dt, cfg.activation))
+    if cfg.is_moe and kind != "cross":
+        p["ffn"] = moe.init(gen, _moe_cfg(cfg))
+    else:
+        p["ffn"] = mlp.init(gen, cfg.d_model, cfg.d_ff, dt, cfg.activation)
+    if kind == "cross":  # tanh gates, closed at init as in the reference
+        p["gate_attn"] = torch.zeros((), dtype=torch.float32,
+                                     device=gen.device)
+        p["gate_ffn"] = torch.zeros((), dtype=torch.float32,
+                                    device=gen.device)
     return p
 
 
-def _ffn_apply(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def _ffn_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
     """Returns (out, aux, dispatch ids or None)."""
-    if not cfg.is_moe:
+    if kind == "cross" or not cfg.is_moe:
         return mlp.apply(p, h, cfg.activation), 0.0, None
     b, s, d = h.shape
     out, aux, disp = moe.apply_local(p, h.reshape(b * s, d), _moe_cfg(cfg))
@@ -154,19 +165,44 @@ def _ffn_apply(cfg: ModelConfig, p: dict, h: torch.Tensor):
 
 
 def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
-               cache: Optional[dict], positions=None):
-    """One pre-norm block.  Returns (h, aux, new_cache)."""
-    attn_out, new_cache = attention.attend(
-        p["attn"], _norm(cfg, p["norm1"], h), _attn_cfg(cfg, kind),
-        positions=positions, cache=cache)
+               cache: Optional[dict], positions=None, image_embeds=None):
+    """One pre-norm block.  Returns (h, aux, new_cache).
+
+    A cross layer attends to ``image_embeds`` (its cache: their K/V,
+    projected once) and adds both branches through tanh gates; its cache
+    comes back as it went in."""
+    acfg = _attn_cfg(cfg, kind)
+    xn = _norm(cfg, p["norm1"], h)
+    if kind == "cross":
+        if cache is not None:
+            attn_out = attention.cross_cached(p["attn"], xn, acfg,
+                                              cache["k"], cache["v"])
+        else:
+            attn_out, _ = attention.attend(p["attn"], xn, acfg,
+                                           positions=positions,
+                                           kv_x=image_embeds)
+        h = h + torch.tanh(p["gate_attn"]).to(h.dtype) * attn_out
+        ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
+                                     _norm(cfg, p["norm2"], h))
+        return (h + torch.tanh(p["gate_ffn"]).to(h.dtype) * ffn_out, aux,
+                cache)
+    attn_out, new_cache = attention.attend(p["attn"], xn, acfg,
+                                           positions=positions, cache=cache)
     h = h + attn_out
-    ffn_out, aux, _ = _ffn_apply(cfg, p["ffn"], _norm(cfg, p["norm2"], h))
+    ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
+                                 _norm(cfg, p["norm2"], h))
     return h + ffn_out, aux, new_cache
 
 
 def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-               device) -> dict:
-    c = attention.init_cache(_attn_cfg(cfg, kind), batch, max_len,
+               device, p=None, image_embeds=None) -> dict:
+    acfg = _attn_cfg(cfg, kind)
+    if kind == "cross":  # the image K/V, projected once
+        def heads(w):
+            return layers.dense(w, image_embeds).reshape(
+                batch, -1, acfg.num_kv_heads, acfg.head_dim).transpose(1, 2)
+        return {"k": heads(p["attn"]["wk"]), "v": heads(p["attn"]["wv"])}
+    c = attention.init_cache(acfg, batch, max_len,
                              layers.torch_dtype(cfg.dtype), device)
     return {"k": c["k"], "v": c["v"]}  # pos passed per step
 
@@ -177,7 +213,8 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 class CausalLM:
-    """Dense or MoE causal LM on ``device`` (default the card)."""
+    """Dense, MoE, gemma2 or VLM causal LM on ``device`` (default the
+    card)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         check_served(cfg)
@@ -209,16 +246,19 @@ class CausalLM:
 
     # -- forward ------------------------------------------------------------
 
-    def hidden(self, params, tokens: torch.Tensor):
+    def hidden(self, params, tokens: torch.Tensor, *, image_embeds=None):
         """Final-norm hidden states (B, T, d) and the sum of the layers'
         MoE aux losses (0.0 for a dense model).
 
-        The layers attend over positions 0..T-1, the route that runs K8.
+        The layers attend over positions 0..T-1, the route that runs K8
+        where the layer has no window and no softcap; cross layers attend
+        to ``image_embeds`` (B, image tokens, d).
         """
         h = layers.embed(params["embed"], tokens)
         aux = 0.0
         for kind, p in zip(self.kinds, params["layers"]):
-            h, a, _ = _sub_apply(self.cfg, kind, p, h, cache=None)
+            h, a, _ = _sub_apply(self.cfg, kind, p, h, cache=None,
+                                 image_embeds=image_embeds)
             aux = aux + a
         return _norm(self.cfg, params["final_norm"], h), aux
 
@@ -226,33 +266,46 @@ class CausalLM:
         cfg = self.cfg
         logits = (layers.unembed(params["embed"], h) if cfg.tie_embeddings
                   else layers.dense(params["lm_head"], h))
-        return layers.softcap(logits.to(torch.float32), cfg.final_softcap)
+        logits = logits.to(torch.float32)  # frees the bf16 logits
+        cap = cfg.final_softcap
+        if cap is None or logits.requires_grad:
+            return layers.softcap(logits, cap)
+        # serving: the same ops in place on the f32 copy, which nothing else
+        # holds (gemma2-27b's f32 logits of a 4 x 2048 prefill take 8.4 GB)
+        return logits.div_(cap).tanh_().mul_(cap)
 
-    def forward(self, params, tokens: torch.Tensor):
-        h, aux = self.hidden(params, tokens)
+    def forward(self, params, tokens: torch.Tensor, *, image_embeds=None):
+        h, aux = self.hidden(params, tokens, image_embeds=image_embeds)
         return self.unembed_logits(params, h), aux
 
     # -- serving ------------------------------------------------------------
 
-    def init_cache(self, params, batch: int, max_len: int) -> dict:
-        del params  # dense layers need none; the reference's cross layers do
-        return {"layers": [_sub_cache(self.cfg, kind, batch, max_len,
-                                      self.device) for kind in self.kinds]}
+    def init_cache(self, params, batch: int, max_len: int,
+                   image_embeds=None) -> dict:
+        """Empty KV buffers for the attention layers; a cross layer's cache
+        is its projection of ``image_embeds``."""
+        return {"layers": [
+            _sub_cache(self.cfg, kind, batch, max_len, self.device, p,
+                       image_embeds)
+            for kind, p in zip(self.kinds, params["layers"])]}
 
     def decode_step(self, params, tokens: torch.Tensor, cache: dict, *,
                     pos: int):
         """tokens (B, 1); pos: the absolute position of the token.
 
-        Returns (logits (B, 1, V) f32, the cache).  The cache's buffers are
-        written in place.
+        Returns (logits (B, 1, V) f32, the cache).  The attention layers'
+        buffers are written in place; a cross layer's image K/V are kept
+        as they are.
         """
         pos = int(pos)
         h = layers.embed(params["embed"], tokens)
         positions = pos + torch.arange(tokens.shape[1], device=h.device)
         new_layers = []
         for kind, p, c in zip(self.kinds, params["layers"], cache["layers"]):
-            h, _, nc = _sub_apply(self.cfg, kind, p, h,
-                                  cache=dict(c, pos=pos), positions=positions)
+            if kind != "cross":  # a KV cache written at the position
+                c = dict(c, pos=pos)
+            h, _, nc = _sub_apply(self.cfg, kind, p, h, cache=c,
+                                  positions=positions)
             new_layers.append({"k": nc["k"], "v": nc["v"]})
         h = _norm(self.cfg, params["final_norm"], h)
         return self.unembed_logits(params, h), {"layers": new_layers}

@@ -1,11 +1,17 @@
 """Serving steps: batched prefill and single-token decode.
 
 The reference's semantics, on the model's device: ``prefill_step`` runs
-the forward over the prompt (each layer's attention through K8) and
-returns its logits with a freshly initialised, empty cache, as the
+the forward over the prompt (each K8-routed layer's attention through K8)
+and returns its logits with a freshly initialised cache, as the
 reference's does; ``generate`` teacher-forces the prompt through
 ``decode_step`` token by token and then samples.  Temperature sampling
 draws from a ``torch.Generator``; greedy takes the argmax.
+
+``extras`` carries a family's modality stub, by the keyword its model
+takes (``registry.make_batch``): Whisper's ``frames``, llama-vision's
+``image_embeds``; both the forward and the cache get it.  So a Whisper
+prefill encodes the frames twice, in ``forward`` and in ``init_cache``,
+as the reference's does.
 """
 
 from __future__ import annotations
@@ -36,9 +42,12 @@ def make_decode_step(model):
 def make_prefill(model, scfg: ServeConfig):
     """Prefill = forward over the prompt + cache construction."""
 
-    def prefill_step(params, tokens: torch.Tensor):
-        logits, _ = model.forward(params, tokens)
-        cache = model.init_cache(params, tokens.shape[0], scfg.max_len)
+    def prefill_step(params, tokens: torch.Tensor,
+                     extras: Optional[dict] = None):
+        extras = extras or {}
+        logits, _ = model.forward(params, tokens, **extras)
+        cache = model.init_cache(params, tokens.shape[0], scfg.max_len,
+                                 **extras)
         return logits, cache
 
     return prefill_step
@@ -55,13 +64,13 @@ def _sample(logits: torch.Tensor, scfg: ServeConfig,
 
 @torch.no_grad()
 def generate(model, params, prompt: torch.Tensor, steps: int,
-             scfg: ServeConfig,
+             scfg: ServeConfig, extras: Optional[dict] = None,
              gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Greedy/temperature autoregressive generation: (B, T0) prompt ->
     (B, T0 + steps) tokens.  ``gen`` draws the temperature samples; it
     must live on the model's device."""
     b, t0 = prompt.shape
-    cache = model.init_cache(params, b, scfg.max_len)
+    cache = model.init_cache(params, b, scfg.max_len, **(extras or {}))
     # teacher-force the prompt token by token (robust across families)
     tok = prompt[:, :1]
     out = [tok]

@@ -54,6 +54,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.analysis.sweep_cache, repro_torch.obs.telemetry, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.transformer, repro_torch.models.moe, "
+            "repro_torch.models.whisper, repro_torch.models.registry, "
             "repro_torch.serve.step, "
             "repro_torch.launch.serve, repro_torch.cli.main, "
             "repro_torch.advisor, repro_torch.obs.heatmap, "

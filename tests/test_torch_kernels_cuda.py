@@ -489,6 +489,60 @@ def test_flash_kernel_matches_plain(cuda, b, h, kv, t, d, dtype, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,t,d,causal", [
+    (4, 12, 12, 1500, 64, False),    # whisper-small's encoder
+    (4, 12, 12, 448, 64, True),      # its decoder's prefill
+    (4, 32, 8, 2048, 128, True)])    # llama-3.2-vision-11b, GQA group 4
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_families_shapes(cuda, b, h, kv, t, d, causal,
+                                             dtype):
+    """K8 where the families' serving path launches it, over every row and
+    over the last tile's alone: at T = 1500 (11 x 128 + 92) without a
+    causal mask only the key-length check masks that tile."""
+    q, k, v = _qkv(b, h, kv, t, d, dtype, cuda, seed=9)
+    got = fk.flash_attention_launch(q, k, v, causal=causal, group=h // kv)
+    torch.cuda.synchronize()
+    want = fk.attention_plain(q, k, v, causal=causal, group=h // kv)
+    _assert_flash_close(got, want, q, k, v, causal, h // kv)
+    last = slice(t - (t % 128 or 128), None)
+    err = (got.float() - want.float())[:, :, last].abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= FLASH_TOL[dtype]
+    else:
+        assert err.mean() <= 2.0 ** -8 * want.float()[:, :, last].abs().mean()
+
+
+@pytest.mark.cuda
+def test_gemma2_local_layer_window_at_full_width(cuda, monkeypatch):
+    """One gemma2-27b local layer at its published widths (4608, 32/16 x
+    128, window 4096, softcap 50.0) in f32, TF32 off, over 4608 tokens,
+    512 rows past the window, within 2e-4 of the banded f64 attention."""
+    from _gemma2_window import banded_attention_f64, local_layer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    acfg, p, _, x = local_layer(cuda, 4608)
+    assert (acfg.window, acfg.logit_softcap) == (4096, 50.0)
+    with torch.no_grad():
+        got, _ = attention.attend(p, x, acfg)
+        want, _ = banded_attention_f64(p, x, acfg)
+    assert float((got.double() - want).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_gemma2_ring_equals_a_full_buffer_at_full_width(cuda, monkeypatch):
+    """The same layer decoded 4160 steps through its 4096-slot ring and
+    through a 4160-slot buffer, equal within 1e-5 on every step."""
+    from _gemma2_window import local_layer, ring_against_full
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    acfg, p, gen, x = local_layer(cuda, 1)
+    x = torch.randn((1, 4160, x.shape[-1]), generator=gen, device=cuda)
+    slots, worst, _ = ring_against_full(p, x, acfg)
+    assert slots == (4096, 4160)
+    assert worst <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bq,bkv", [(16, 64), (64, 16), (32, 32)])
 def test_flash_ops_blocks_on_the_card(cuda, bq, bkv):
     q, k, v = _qkv(1, 2, 2, 64, 32, torch.float32, cuda, seed=1)

@@ -28,8 +28,9 @@ from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, transformer
 from repro_torch.models.registry import build_model, make_batch
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.serve import step as serve_mod
 
 CPU = "cpu"
@@ -175,8 +176,21 @@ def test_flash_route_is_chosen_from_config_and_arguments():
     assert attention.flash_route(cfg)
     rep = dataclasses.replace
     for other in (rep(cfg, window=8), rep(cfg, logit_softcap=50.0),
-                  rep(cfg, bf16_score_grad=True), rep(cfg, causal=False)):
+                  rep(cfg, bf16_score_grad=True)):
         assert not attention.flash_route(other)
+    # bidirectional self-attention (Whisper's encoder) takes K8 too
+    assert attention.flash_route(rep(cfg, causal=False))
+    # the served LM layers keep their routes: a causal K8 prefill for the
+    # dense, MoE and llama-vision self-attention layers; gemma2's
+    # softcapped (and windowed) pair and the cross layers stay on _sdpa
+    for arch, kind, k8 in (("qwen2-72b", "attn", True),
+                           ("qwen3-moe-235b-a22b", "attn", True),
+                           ("granite-moe-1b-a400m", "attn", True),
+                           ("llama-3.2-vision-11b", "attn", True),
+                           ("gemma2-27b", "attn_local", False),
+                           ("gemma2-27b", "attn_global", False)):
+        acfg = transformer._attn_cfg(get_config(arch), kind)
+        assert acfg.causal and attention.flash_route(acfg) == k8, arch
     # a head size the kernel does not take is its refusal on the card,
     # never a quiet detour through _sdpa
     assert attention.flash_route(rep(cfg, head_dim=8))
@@ -332,17 +346,17 @@ def test_temperature_sampling_draws_from_the_generator():
 
 def test_unported_architectures_are_refused_by_name():
     # each refusal names the ROADMAP queue 1 item that ports it, by title
-    for arch, item in (("gemma2-27b", "gemma2"),
-                       ("rwkv6-7b", "rwkv6 and mamba2"),
-                       ("zamba2-1.2b", "rwkv6 and mamba2"),
-                       ("llama-3.2-vision-11b", "VLM and Whisper"),
-                       ("whisper-small", "VLM and Whisper")):
+    for arch, item in (("rwkv6-7b", "rwkv6 and mamba2"),
+                       ("zamba2-1.2b", "rwkv6 and mamba2")):
         with pytest.raises(NotImplementedError,
                            match=f'ROADMAP queue 1, "{item}"'):
             build_model(get_config(arch).reduced(), CPU)
     for arch in ("qwen2-72b", "qwen1.5-110b", "command-r-plus-104b",
-                 "qwen3-moe-235b-a22b", "granite-moe-1b-a400m"):
+                 "qwen3-moe-235b-a22b", "granite-moe-1b-a400m",
+                 "gemma2-27b", "llama-3.2-vision-11b", "whisper-small"):
         build_model(get_config(arch), CPU)
+    assert isinstance(build_model(get_config("whisper-small"), CPU),
+                      WhisperModel)
 
 
 def test_bf16_params_cross_through_their_bits():
