@@ -24,7 +24,9 @@ flash attention) and ``generate``; then two MoE LMs, then gemma2-27b
 (local/global softcapped layers, all on the plain ``_sdpa``),
 llama-3.2-vision-11b (gated image cross-attention; its self-attention in
 K8) and whisper-small (its bidirectional encoder and causal decoder
-prefill in K8).  Phases, each of which must pass:
+prefill in K8), then rwkv6-7b (attention-free: no kernel launches) and
+zamba2-1.2b (Mamba-2 layers; its shared attention block in K8 while the
+prompt fits its window).  Phases, each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
@@ -52,7 +54,8 @@ prefill in K8).  Phases, each of which must pass:
    (K7 and K5 on each model's live layer-0 tensors held against their
    plain versions there, outside the counts), then the families' serving
    (K8's launches held to each step's count; gemma2's window and ring at
-   full width against their oracles);
+   full width against their oracles), then rwkv6's and zamba2's (no
+   launch for rwkv6; K8 held to zamba2's shared-attention invocations);
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take
    (K5 and K7 also on the MoE layers' live inputs).
@@ -128,14 +131,32 @@ MOE_KERNELS = ("flash_attention", "bincount", "scatter_add",
 # (arXiv:2212.04356) against its config's 1500 frames
 FAMILY_SERVE = ("gemma2-27b", "llama-3.2-vision-11b", "whisper-small")
 WHISPER_T = 448
+# the families with O(1) state a token, whole, on the same path:
+# rwkv6-7b (attention-free, arXiv:2404.05892) and zamba2-1.2b (38 Mamba-2
+# layers and a shared attention block after every 6, arXiv:2411.15242)
+SSM_SERVE = ("rwkv6-7b", "zamba2-1.2b")
 # llama-vision's cross layers start with closed tanh gates, which would
 # make them add nothing: every run here opens them (tanh 0.46 and -0.66)
 GATES_OPEN = {"gate_attn": 0.5, "gate_ffn": -0.8}
+# the RWKV and Mamba leaves that init sets to constants (RWKV's bonus u,
+# its lerps; Mamba's A = -exp(a_log), dt bias, skip and conv bias), under
+# which a dropped bonus diagonal or a per-head slip would pass: every run
+# here sets each to a ramp (first, last) over its elements after init,
+# with A in [-0.78, -0.14] so that a 64-token chunk's summed log-decay
+# stays far inside the f32 range of the chunked SSD's exp(-cum)
+SSM_LEAVES = {"mix": {"bonus": (-0.5, 0.5), "mix_base": (-0.3, 0.3),
+                      "mix_x": (0.1, 0.4), "cm_mix_k": (0.2, 0.8),
+                      "cm_mix_r": (0.8, 0.2)},
+              "ssm": {"a_log": (-2.0, -0.25), "dt_bias": (0.5, -0.5),
+                      "d_skip": (0.5, 1.5), "conv_b": (-0.1, 0.1)}}
 # the f32 check's depths: one local/global pair, one group of 5 + 1 (a
-# cross layer in it), and 2 + 2 Whisper layers
+# cross layer in it), 2 + 2 Whisper layers, 2 RWKV layers, and zamba2's
+# first group of 6 Mamba layers, its shared block and 1 tail layer
 F32_CHECK_DEPTH = {"gemma2-27b": dict(num_layers=2),
                    "llama-3.2-vision-11b": dict(num_layers=5),
-                   "whisper-small": dict(num_layers=2, encoder_layers=2)}
+                   "whisper-small": dict(num_layers=2, encoder_layers=2),
+                   "rwkv6-7b": dict(num_layers=2),
+                   "zamba2-1.2b": dict(num_layers=7)}
 # gemma2's 4096-slot window at full width on one local layer: attention
 # over T = 4608 tokens against a banded f64 oracle, and 4160 decode steps
 # through a ring of 4096 slots against a buffer of 4160 (the reference's
@@ -145,11 +166,14 @@ RING_STEPS, RING_TOL = 4160, 1e-5
 # K8's launches on the families' path: llama-vision's self-attention (GQA
 # group 4, d = 128, causal), Whisper's encoder (1500 frames, not causal:
 # only the key-length check masks its last tile of 92 keys) and decoder
-# prefill (448 tokens, causal); (label, arch, T, causal)
+# prefill (448 tokens, causal), and zamba2's shared attention (32/32,
+# d = 64, causal: its window of 4096 masks nothing at T = 2048);
+# (label, arch, T, causal)
 FAMILY_K8_SHAPES = (
     ("llama-vision self-attention", "llama-3.2-vision-11b", PREFILL_T, True),
     ("whisper encoder", "whisper-small", 1500, False),
-    ("whisper decoder", "whisper-small", WHISPER_T, True))
+    ("whisper decoder", "whisper-small", WHISPER_T, True),
+    ("zamba2 shared attention", "zamba2-1.2b", PREFILL_T, True))
 FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
 FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
 # bf16 beyond the reference test's T = 64, where a typical output is small
@@ -1576,7 +1600,16 @@ def serving_reckoning(dev, cfg, n: int, t: int = PREFILL_T) -> dict:
     hold their image K/V in the cache; Whisper's ``encoder_layers`` and
     decoder layers (self and cross attention, LayerNorms with a bias, QKV
     bias) hold their self-attention buffers and the cross K/V of the
-    encoder states."""
+    encoder states.  An RWKV-6 layer (no attention) holds its six d x d
+    projections, its channel mix (2 d d_ff), its LoRAs and two f32
+    vectors, and carries an f32 state of d x 64 a sequence; a Mamba-2
+    layer holds its in_proj, conv and out_proj and carries its (H, 64, N)
+    f32 state and conv ring; zamba2's shared block is held once, with a
+    window cache for each of its ``n // attn_every`` invocations.  Their
+    chunked WKV and SSD hold f32 intermediates of B x T x d (RWKV) or
+    B x T x d_inner (Mamba; the (B, c, H, 64, 64) scores are as large):
+    about 12 and 10 of them at once, counted as one layer's
+    ``ssm_scratch``."""
     import torch
     d, v = cfg.d_model, cfg.padded_vocab
     hd = cfg.resolved_head_dim
@@ -1598,7 +1631,23 @@ def serving_reckoning(dev, cfg, n: int, t: int = PREFILL_T) -> dict:
     tokens = PREFILL_B * t
     logits = tokens * v * (2 + 4)
     hidden = tokens * d * 2
-    moe_layer = attn_scores = fixed = 0
+    moe_layer = attn_scores = fixed = ssm_scratch = 0
+    if cfg.rwkv:
+        f = cfg.d_ff
+        layer = ((6 * d * d + 2 * d * f + 2 * 5 * 32 * d + 2 * 64 * d
+                  + 10 * d + 2 * d) * 2 + 2 * d * 4)
+        cache = PREFILL_B * (d * 64 * 4 + 2 * d * 2)
+        ssm_scratch = 12 * tokens * d * 4
+    elif cfg.ssm_state:
+        di, st = 2 * d, cfg.ssm_state
+        heads, conv = di // cfg.ssm_head_dim, di + 2 * st
+        layer = ((d * (2 * di + 2 * st + heads) + 5 * conv + di + di * d
+                  + norm) * 2 + 3 * heads * 4)
+        cache = PREFILL_B * (heads * cfg.ssm_head_dim * st * 4 + 3 * conv * 2)
+        ssm_scratch = 10 * tokens * di * 4
+        if cfg.attn_every:
+            fixed = ((attn + dense_ffn + 2 * norm) * 2 + n // cfg.attn_every
+                     * 2 * PREFILL_B * kv * min(t, cfg.window) * 2)
     if cfg.is_moe:
         rows = tokens * cfg.top_k
         slots = e * max(1, int(rows / e * cfg.moe_capacity_factor))
@@ -1624,12 +1673,13 @@ def serving_reckoning(dev, cfg, n: int, t: int = PREFILL_T) -> dict:
     torch.cuda.empty_cache()  # what the allocator caches counts as free
     free, total = torch.cuda.mem_get_info(torch.device(dev))
     need = (n * (layer + cache) + fixed + outside
-            + max(logits, moe_layer, attn_scores) + hidden)
+            + max(logits, moe_layer, attn_scores, ssm_scratch) + hidden)
     return {"free": free, "total": total, "layer": layer,
             "cache_per_layer": cache, "embed_and_head": outside,
-            "cross_or_encoder": fixed, "logits": logits,
+            "cross_or_encoder_or_shared": fixed, "logits": logits,
             "moe_layer": moe_layer, "attn_scores": attn_scores,
-            "hidden": hidden, "need": need, "margin": MEMORY_MARGIN}
+            "ssm_scratch": ssm_scratch, "hidden": hidden, "need": need,
+            "margin": MEMORY_MARGIN}
 
 
 def serving_path(dev) -> dict:
@@ -1863,8 +1913,13 @@ def device_profile(fn, label: str, top: int = 6, parts=None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    # a named range (``record_function``) also spans its kernels on the
+    # device: it is not a kernel, and would count them twice
+    ranges = {e.key for e in events if getattr(e, "is_user_annotation",
+                                               False)}
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
     rows = [(e.key[:70], e.count, e.self_device_time_total / 1e3)
@@ -2324,6 +2379,17 @@ FAMILY_PROFILE_PARTS = {
     "softmax (_sdpa)": ("op", ("aten::softmax",)),
     "tanh (softcaps)": ("op", ("aten::tanh", "aten::tanh_")),
 }
+# rwkv6's and zamba2's, disjoint: the WKV and SSD einsums (and zamba2's
+# decode _sdpa), the chunks' cumsum, and the inter-chunk loop (its exp,
+# mul, add and the stack of its states, under the name the models give
+# it); the rest is elementwise work, casts and concatenations
+SSM_PROFILE_PARTS = {
+    "K8 attention": MOE_PROFILE_PARTS["K8 attention"],
+    "mm (projections, FFN, LoRAs, head)": ("op", ("aten::mm",)),
+    "einsum (WKV/SSD, _sdpa)": ("op", ("aten::einsum",)),
+    "cumsum": ("op", ("aten::cumsum",)),
+    "chunk loop": ("op", ("rwkv6 WKV chunk loop", "mamba2 SSD chunk loop")),
+}
 
 
 def _launches() -> dict:
@@ -2344,13 +2410,37 @@ def _open_gates(model, params) -> int:
     return len(cross)
 
 
-def _k8_per_prefill(cfg) -> int:
-    """K8 launches of one ``prefill_step``: every self-attention layer
-    without a softcap; Whisper's encoder twice (``forward`` and
-    ``init_cache``) and its decoder once."""
+def _set_ssm_leaves(params) -> int:
+    """Sets every RWKV and Mamba layer's SSM_LEAVES to their ramps;
+    returns the count of layers set."""
+    import torch
+    done = 0
+    for p in params.get("layers", ()):
+        for block, leaves in SSM_LEAVES.items():
+            if block not in p:
+                continue
+            for name, (first, last) in leaves.items():
+                leaf = p[block][name]
+                leaf.copy_(torch.linspace(first, last, leaf.numel(),
+                                          device=leaf.device).reshape(
+                                              leaf.shape))
+            done += 1
+    return done
+
+
+def _k8_per_prefill(cfg, t: int) -> int:
+    """K8 launches of one ``prefill_step`` over ``t`` tokens: each
+    self-attention sub-block of the plan that ``attention.flash_route``
+    takes at ``t`` (no softcap; a window, if any, that ``t`` fits inside);
+    Whisper's encoder twice (``forward`` and ``init_cache``) and its
+    decoder once."""
+    from repro_torch.models import attention, transformer
     if cfg.family == "audio":
         return 2 * cfg.encoder_layers + cfg.num_layers
-    return 0 if cfg.attn_softcap else cfg.num_layers
+    plan = transformer.layer_plan(cfg)
+    kinds = plan.group_kinds * plan.n_groups + plan.tail_kinds
+    return sum(attention.flash_route(transformer._attn_cfg(cfg, kind), t=t)
+               for kind in kinds if kind not in ("rwkv", "mamba", "cross"))
 
 
 def gemma2_window_checks(dev) -> dict:
@@ -2403,20 +2493,21 @@ def gemma2_window_checks(dev) -> dict:
 
 
 def family_serving_model(dev, arch: str) -> dict:
-    """One of FAMILY_SERVE at every published width, random bf16 weights
-    drawn on the card (seed 0), its depth and prefill reckoned against the
-    free memory first: ``make_prefill`` at 4 x 2048 tokens (Whisper: 448
+    """One of FAMILY_SERVE or SSM_SERVE at every published width, random
+    bf16 weights drawn on the card (seed 0), its depth and prefill
+    reckoned against the free memory first: ``make_prefill`` at 4 x 2048 tokens (Whisper: 448
     tokens against 1500 frames), a ragged 2000 (not Whisper, whose 1500
     frames are ragged already), ``generate`` 16 + 16, K8's launches held
     to each step's count; decode against prefill in bf16, reported; a
     profile of a prefill and of a decode step; the hard check in f32 at
     F32_CHECK_DEPTH, TF32 off; for gemma2, its window at full width
     (``gemma2_window_checks``).  llama-vision's gates are opened
-    (GATES_OPEN) after ``init`` in every run.  Returns what was measured.
+    (GATES_OPEN), and the RWKV and Mamba layers' constant leaves set to
+    SSM_LEAVES, after ``init`` in every run.  Returns what was measured.
     """
     import torch
 
-    from repro_torch.models import layers
+    from repro_torch.models import layers, transformer
     from repro_torch.models.registry import build_model, make_batch
     from repro_torch.serve import step as serve_mod
 
@@ -2448,7 +2539,8 @@ def family_serving_model(dev, arch: str) -> dict:
         model = build_model(cfg, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = model.init(gen)
-        return model, params, gen, _open_gates(model, params)
+        return (model, params, gen, _open_gates(model, params),
+                _set_ssm_leaves(params))
 
     full = _serve_config(arch=arch)
     t = WHISPER_T if full.family == "audio" else PREFILL_T
@@ -2469,15 +2561,28 @@ def family_serving_model(dev, arch: str) -> dict:
               if cfg.cross_attn_every else "")
     extra += (f", window {cfg.window}, softcaps {cfg.attn_softcap}/"
               f"{cfg.final_softcap}" if cfg.attn_softcap else "")
+    extra += (f", RWKV-6 time and channel mix ({cfg.d_model // 64} heads of "
+              f"64, {cfg.rwkv_impl} WKV, chunk 64), no attention"
+              if cfg.rwkv else "")
+    if cfg.ssm_state and not cfg.rwkv:
+        plan = transformer.layer_plan(cfg)
+        extra += (f", Mamba-2 (d_inner {2 * cfg.d_model}, "
+                  f"{2 * cfg.d_model // cfg.ssm_head_dim} heads of "
+                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                  f"{cfg.ssm_chunk}) with a shared attention block after "
+                  f"every {cfg.attn_every} ({plan.n_groups} invocations, "
+                  f"window {cfg.window}) and a tail of "
+                  f"{len(plan.tail_kinds)}")
+    heads = ("" if cfg.rwkv else f", heads {cfg.num_heads}/"
+             f"{cfg.num_kv_heads} x {cfg.resolved_head_dim}")
     log(f"  {arch}: {n} of {full.num_layers} layers"
         f"{'' if n == full.num_layers else ' (cut: the rest stand for further pipeline stages)'}"
-        f", widths as published: d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, "
+        f", widths as published: d_model {cfg.d_model}{heads}, "
         f"d_ff {cfg.d_ff} {cfg.activation}, vocab {cfg.padded_vocab}{extra}; "
         f"memory reckoning (bytes) {reckoning}")
     held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    model, params, gen, opened = draw(cfg, 0)
+    model, params, gen, opened, ssm_set = draw(cfg, 0)
     batch = make_batch(cfg, PREFILL_B, t, gen)
     tokens = batch["tokens"]
     extras = {k: v for k, v in batch.items()
@@ -2488,12 +2593,16 @@ def family_serving_model(dev, arch: str) -> dict:
         f"peak while drawing them {torch.cuda.max_memory_allocated()} bytes"
         + (f"; {opened} cross layers' gates opened to {GATES_OPEN} (init "
            f"closes them)" if opened else "")
+        + (f"; {ssm_set} layers' constant leaves set to ramps {SSM_LEAVES}"
+           if ssm_set else "")
         + "; stubs " + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
                                  for k, v in extras.items()))
     step("init")
     torch.cuda.reset_peak_memory_stats()
 
-    k8 = _k8_per_prefill(cfg)
+    k8 = _k8_per_prefill(cfg, t)
+    parts = (SSM_PROFILE_PARTS if cfg.rwkv or cfg.ssm_state
+             else FAMILY_PROFILE_PARTS)
     prefill = serve_mod.make_prefill(model, serve_mod.ServeConfig(max_len=t))
     logits, cache = run("prefill", lambda: prefill(params, tokens, extras), k8)
     step("prefill")
@@ -2532,18 +2641,20 @@ def family_serving_model(dev, arch: str) -> dict:
     with torch.no_grad():
         out["profile_prefill"] = device_profile(
             lambda: prefill(params, tokens, extras),
-            f"{arch} prefill {PREFILL_B} x {t}", parts=FAMILY_PROFILE_PARTS)
+            f"{arch} prefill {PREFILL_B} x {t}", parts=parts)
     step("profile prefill")
 
     if tail is not None:
+        k8_ragged = _k8_per_prefill(cfg, RAGGED_T)
         ragged, _ = run("ragged prefill", lambda: prefill(
-            params, tokens[:, :RAGGED_T], extras), k8)
+            params, tokens[:, :RAGGED_T], extras), k8_ragged)
         _require(ragged.shape[1] == RAGGED_T and _all_finite(ragged),
                  f"{arch} ragged prefill at T={RAGGED_T}")
         diff = _abs_err(ragged[:, -100:], tail)
         del ragged, tail
         out["ragged_vs_full_max_abs"] = diff
-        log(f"  ragged prefill T={RAGGED_T}: finite, K8 launched {k8} times; "
+        log(f"  ragged prefill T={RAGGED_T}: finite, K8 launched "
+            f"{k8_ragged} times; "
             f"last 100 positions' logits against the T={PREFILL_T} "
             f"prefill's: max |diff| {diff!r} (reported)")
         step("ragged")
@@ -2578,7 +2689,7 @@ def family_serving_model(dev, arch: str) -> dict:
         out["profile_decode"] = device_profile(
             lambda: model.decode_step(params, tokens[:, :1], small, pos=0),
             f"{arch} decode step of {PREFILL_B} tokens at context 1",
-            parts=FAMILY_PROFILE_PARTS)
+            parts=parts)
     del small, head, toks, params, model, extras, batch, tokens
     torch.cuda.empty_cache()
     step("profile decode")
@@ -2587,14 +2698,14 @@ def family_serving_model(dev, arch: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = _serve_config(arch=arch, dtype="float32", **F32_CHECK_DEPTH[arch])
-    model, params, gen, opened = draw(cfg32, 1)
+    model, params, gen, opened, ssm_set = draw(cfg32, 1)
     batch = make_batch(cfg32, F32_CHECK_B, F32_CHECK_T, gen)
     tokens = batch["tokens"]
     extras = {k: v for k, v in batch.items()
               if k in ("frames", "image_embeds")}
     fwd, _ = run("f32 prefill", lambda: serve_mod.make_prefill(
         model, serve_mod.ServeConfig(max_len=F32_CHECK_T))(
-            params, tokens, extras), _k8_per_prefill(cfg32))
+            params, tokens, extras), _k8_per_prefill(cfg32, F32_CHECK_T))
     err32, agree32 = _decode_vs_prefill(model, params, tokens, fwd, extras)
     _require(err32 < DECODE_TOL, f"{arch} f32 decode vs prefill max |diff| "
                                  f"{err32} >= {DECODE_TOL}")
@@ -2602,6 +2713,8 @@ def family_serving_model(dev, arch: str) -> dict:
     depth = ", ".join(f"{k} {v}" for k, v in F32_CHECK_DEPTH[arch].items())
     log(f"  f32 at {depth}, full width, TF32 off"
         + (f", {opened} cross layer's gates open" if opened else "")
+        + (f", {ssm_set} layers' constant leaves on their ramps"
+           if ssm_set else "")
         + f": decode vs prefill logits over {F32_CHECK_T} positions, max "
         f"|diff| {err32:.4g} < {DECODE_TOL}, top-1 agreement {agree32:.4f}")
     del params, model, fwd, extras, batch
@@ -2618,11 +2731,11 @@ def family_serving_model(dev, arch: str) -> dict:
     return out
 
 
-def family_serving_path(dev) -> dict:
-    """Each of FAMILY_SERVE through ``family_serving_model``, one after
-    the other.  Returns what was measured by model."""
+def family_serving_path(dev, archs=FAMILY_SERVE) -> dict:
+    """Each of ``archs`` through ``family_serving_model``, one after the
+    other.  Returns what was measured by model."""
     measured = {}
-    for arch in FAMILY_SERVE:
+    for arch in archs:
         measured[arch] = family_serving_model(dev, arch)
         log(f"  {arch}: {json.dumps(measured[arch])}")
     return measured
@@ -2865,7 +2978,8 @@ def time_flash_kernel(dev) -> dict:
     and granite-moe's (16/8, d = 64), the Hopper route at both head
     sizes; then at the families' shapes (FAMILY_K8_SHAPES, batch 4):
     llama-vision's (32/8, d = 128), Whisper's encoder (12/12 x 1500, d =
-    64, not causal) and decoder (12/12 x 448, causal).
+    64, not causal) and decoder (12/12 x 448, causal), and zamba2's shared
+    attention (32/32 x 2048, d = 64, causal).
 
     Operations: the useful products, 2 flop per multiply-add for QK^T and
     for P V over the visible (query, key) pairs (T (T + 1) / 2 causal,
@@ -3131,6 +3245,21 @@ def main() -> int:
         launches[k] += n
     log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
         f"{family_launches}")
+    t0 = phase("main path: serving rwkv6-7b and zamba2-1.2b prefill and "
+               "decode")
+    hk.reset_launches()
+    sk.reset_launches()
+    fk.reset_launches()
+    family_serving_path(dev, SSM_SERVE)
+    torch.cuda.synchronize()
+    ssm_launches = {k: n for k, n in _launches().items() if n}
+    _require(ssm_launches.keys() == set(SERVE_KERNELS),
+             f"rwkv6/zamba2 serving path launched {ssm_launches}")
+    for k, n in ssm_launches.items():
+        by_path[k]["ssm"] = n
+        launches[k] += n
+    log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+        f"{ssm_launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     _require(not missing, f"kernels not launched on the main path: {missing}")
 

@@ -123,26 +123,39 @@ def lm_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
     each stack is unstacked, the same for every leaf: a dense layer's
     ``ffn`` (``w_gate``, ``w_up``, ``w_down``), an MoE layer's
     (``router: {w}``, ``w_gate``, ``w_up``, ``w_down`` and, with shared
-    experts, ``shared``), gemma2's local and global pair, and
-    llama-vision's cross layers with their scalar gates alike.  Plans
-    with a tail or a shared block (zamba2) are refused.
+    experts, ``shared``), gemma2's local and global pair, llama-vision's
+    cross layers with their scalar gates, an RWKV layer's ``mix`` and a
+    Mamba layer's ``ssm`` alike, each leaf in its own dtype (the f32
+    ``decay_base``, ``bonus``, ``a_log``, ``dt_bias`` and ``d_skip`` stay
+    f32 in a bf16 model).  zamba2's ``shared_attn`` sub-block has no
+    stack: its one dict, ``params["shared_attn"]``, is carried once, as
+    the port's ``params["shared_attn"]``, and its layers' entries are
+    empty dicts.  ``params["tail"]`` (a list, one dict per layer) follows
+    the groups as the last layers, in order.
     """
-    if params.get("tail") or "shared_attn" in params:
-        raise NotImplementedError(
-            "layer plans with a tail or a shared block are not ported yet "
-            "(ROADMAP queue 1, \"rwkv6 and mamba2\")")
     plan = layer_plan(cfg)
     k = len(plan.group_kinds)
     groups = params["groups"]
-    if set(groups) != {f"sub{i}" for i in range(k)}:
+    stacked = [i for i, kind in enumerate(plan.group_kinds)
+               if kind != "shared_attn"]
+    if set(groups) != {f"sub{i}" for i in stacked}:
         raise ValueError(f"groups {sorted(groups)} do not match the plan "
                          f"{plan.group_kinds}")
-    out = {key: _tree(params[key], lambda a: _tensor(a, device))
-           for key in ("embed", "final_norm", "lm_head") if key in params}
-    subs = [_unstack(groups[f"sub{i}"], plan.n_groups, device)
-            for i in range(k)]
-    out["layers"] = [subs[i][g] for g in range(plan.n_groups)
-                     for i in range(k)]
+    if len(params.get("tail", ())) != len(plan.tail_kinds):
+        raise ValueError(f"{len(params.get('tail', ()))} tail layers for "
+                         f"the plan's {plan.tail_kinds}")
+
+    def tensors(tree):
+        return _tree(tree, lambda a: _tensor(a, device))
+
+    out = {key: tensors(params[key])
+           for key in ("embed", "final_norm", "lm_head", "shared_attn")
+           if key in params}
+    subs = {i: _unstack(groups[f"sub{i}"], plan.n_groups, device)
+            for i in stacked}
+    out["layers"] = [subs[i][g] if i in subs else {}
+                     for g in range(plan.n_groups) for i in range(k)]
+    out["layers"] += [tensors(p) for p in params.get("tail", ())]
     return out
 
 

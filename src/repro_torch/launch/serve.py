@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
       --reduced --batch 4 --prompt-len 16 --gen 16 [--device cpu]
 
-The dense and the MoE architectures (``qwen3-moe-235b-a22b``,
-``granite-moe-1b-a400m``: each MoE layer counts its dispatch with K7 and
-sums its combine with K5), ``gemma2-27b``, ``llama-3.2-vision-11b`` (its
-image stub passed through) and ``whisper-small`` (its frame stub passed
-through).  ``--device`` defaults to ``cuda``: the model runs on the card
+Every architecture of ``repro_torch.configs``: the dense and the MoE
+ones (``qwen3-moe-235b-a22b``, ``granite-moe-1b-a400m``: each MoE layer
+counts its dispatch with K7 and sums its combine with K5),
+``gemma2-27b``, ``llama-3.2-vision-11b`` (its image stub passed
+through), ``whisper-small`` (its frame stub passed through), and the
+two with O(1) state a token: ``rwkv6-7b`` (attention-free) and
+``zamba2-1.2b`` (Mamba-2 layers with one shared attention block after
+every 6).  ``--device`` defaults to ``cuda``: the model runs on the card
 unless the CPU is asked for.
 """
 

@@ -11,10 +11,12 @@ H % KV == 0; per-head dim ``head_dim``.
 
 Routes.  Self-attention over a whole sequence without a cache, causal
 (a prefill) or bidirectional (Whisper's encoder), runs the flash-attention
-kernel K8 (``flash_route``); everything else — decode against the cache,
-windows, softcaps, cross-attention — runs the plain ``_sdpa``, as in the
-reference.  The route is decided from the config and the arguments before
-anything is launched.
+kernel K8 (``flash_route``), and so does a windowed layer's over a
+sequence that fits inside its window (zamba2's shared attention), where
+the band masks nothing; everything else — decode against the cache,
+longer windows, softcaps, cross-attention — runs the plain ``_sdpa``, as
+in the reference.  The route is decided from the config and the
+arguments before anything is launched.
 """
 
 from __future__ import annotations
@@ -114,15 +116,18 @@ def _sdpa(q, k, v, bias, softcap_val, scale, bf16_grad=False):
 
 
 def flash_route(cfg: AttnConfig, *, positions=None, kv_x=None,
-                kv_positions=None, cache=None, kv_block=None) -> bool:
+                kv_positions=None, cache=None, kv_block=None,
+                t: Optional[int] = None) -> bool:
     """True where ``attend`` runs K8: self-attention, causal or not, over
-    positions 0..T-1 with no cache, window, softcap, bf16 score round trip
-    or blockwise path.  A head size the kernel does not take raises there;
-    it does not send the prefill to ``_sdpa``."""
+    positions 0..T-1 with no cache, softcap, bf16 score round trip or
+    blockwise path, and no window unless the sequence length ``t`` fits
+    inside it (causal over 0..T-1 with T <= window, the band ``k > q -
+    window`` masks nothing).  A head size the kernel does not take raises
+    there; it does not send the prefill to ``_sdpa``."""
     return (kv_x is None and cache is None and kv_block is None
             and positions is None and kv_positions is None
-            and cfg.window is None and cfg.logit_softcap is None
-            and not cfg.bf16_score_grad)
+            and (cfg.window is None or (t is not None and t <= cfg.window))
+            and cfg.logit_softcap is None and not cfg.bf16_score_grad)
 
 
 def attend(
@@ -148,7 +153,7 @@ def attend(
     scale = cfg.head_dim ** -0.5
     use_flash = flash_route(cfg, positions=positions, kv_x=kv_x,
                             kv_positions=kv_positions, cache=cache,
-                            kv_block=kv_block)
+                            kv_block=kv_block, t=t)
 
     q = _split_heads(layers.dense(params["wq"], x), cfg.num_heads,
                      cfg.head_dim)

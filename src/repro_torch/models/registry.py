@@ -15,7 +15,7 @@ from repro_torch.models.whisper import WhisperModel
 def build_model(cfg: ModelConfig, device="cuda"):
     """The model of ``cfg`` on ``device`` (default the card):
     ``WhisperModel`` for the audio family, else ``CausalLM`` (dense, MoE,
-    gemma2, VLM); raises for layers not ported yet (rwkv6, mamba2)."""
+    gemma2, VLM, RWKV-6, zamba2's Mamba-2 with its shared attention)."""
     if cfg.family == "audio":
         return WhisperModel(cfg, device)
     return CausalLM(cfg, device)

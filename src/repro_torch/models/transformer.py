@@ -1,34 +1,43 @@
-"""The causal LM for the dense, MoE, gemma2 and VLM families: the
-reference's ``CausalLM`` on one card.
+"""The causal LM for the dense, MoE, gemma2, VLM, RWKV-6 and zamba2
+families: the reference's ``CausalLM`` on one card.
 
 The reference expresses every architecture as ``n_groups`` repetitions of
-a small group of sub-blocks and scans over stacked parameters.  Here the
-layers are a Python loop over per-layer parameter dicts
-(``params["layers"][i]``, the same keys as one group slice of the
-reference's ``params["groups"][f"sub{i}"]``; layer ``g * k + i`` is
-group ``g``'s sub-block ``i`` of ``k``, and
-``convert.lm_params_from_numpy`` unstacks them).  The plan is kept, so
-that an architecture this slice does not serve is refused by name:
+a small group of sub-blocks (and an optional ragged tail) and scans over
+stacked parameters.  Here the layers are a Python loop over per-layer
+parameter dicts (``params["layers"][i]``, the same keys as one group
+slice of the reference's ``params["groups"][f"sub{i}"]``; layer
+``g * k + i`` is group ``g``'s sub-block ``i`` of ``k``, the tail's
+layers follow the groups, and ``convert.lm_params_from_numpy`` unstacks
+them):
 
   dense            group = ("attn",) x L                  ported
   moe              group = ("attn",) x L, expert FFN       ported
   gemma2           group = ("attn_local", "attn_global")   ported
   llama-vision     ("attn",)*5 + ("cross",)                ported
-  rwkv6 / zamba2   ("rwkv",) / ("mamba",)*k + shared attn  "rwkv6 and mamba2"
+  rwkv6            ("rwkv",) x L                           ported
+  zamba2           ("mamba",)*k + ("shared_attn",) x L//k, ported
+                   tail ("mamba",) x L%k
 
-(A refused plan names the ROADMAP queue 1 item that ports it, by title;
-the Whisper family is ``models/whisper.py``.)
+zamba2's ``shared_attn`` weights are held once, in
+``params["shared_attn"]``, as in the reference; its entries in
+``params["layers"]`` are empty dicts, so that a walk over the tree
+counts those weights once.  Each invocation has its own KV cache (a
+window ring).  The Whisper family is ``models/whisper.py``.
 
 A plain ``attn`` layer's prefill attention runs K8
-(``attention.flash_route``); gemma2's layers, all softcapped (and the
-local ones windowed), and the gated ``cross`` layers, which attend to the
-image K/V, run the plain ``_sdpa``, as does every decode step.  A cross
-layer's image K/V are projected once, into its cache.  An MoE layer's FFN
-is ``moe.apply_local`` in both: K7 counts its dispatch and K5 sums its
-combine.  Its capacity is reckoned from the tokens of the call,
-as in the reference, so a decode step of a few tokens drops more rows
-than the prefill of the same tokens does, and their logits differ by
-design unless the capacity factor is large enough that nothing drops.
+(``attention.flash_route``), and so does zamba2's shared attention while
+the prompt fits inside its window; gemma2's layers, all softcapped (and
+the local ones windowed), and the gated ``cross`` layers, which attend
+to the image K/V, run the plain ``_sdpa``, as does every decode step.  A
+cross layer's image K/V are projected once, into its cache.  An MoE
+layer's FFN is ``moe.apply_local`` in both: K7 counts its dispatch and
+K5 sums its combine.  Its capacity is reckoned from the tokens of the
+call, as in the reference, so a decode step of a few tokens drops more
+rows than the prefill of the same tokens does, and their logits differ
+by design unless the capacity factor is large enough that nothing drops.
+RWKV-6's WKV and Mamba-2's SSD and causal convolution are plain torch
+(``models/rwkv6.py``, ``models/mamba2.py``); their decode caches carry
+state, not keys: ``{"s", "last", "cm_last"}`` and ``{"h", "conv"}``.
 """
 
 from __future__ import annotations
@@ -39,12 +48,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mlp, moe
+from repro_torch.models import attention, layers, mamba2, mlp, moe, rwkv6
 
-SERVED_KINDS = ("attn", "attn_local", "attn_global", "cross")
-# ROADMAP queue 1's item, by title, that ports each refused layer kind
-PORTED_BY = {"rwkv": "rwkv6 and mamba2", "mamba": "rwkv6 and mamba2",
-             "shared_attn": "rwkv6 and mamba2"}
+# the layer kinds whose decode cache is a KV buffer written at a position
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -81,20 +88,9 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Raise for what this model does not serve: the audio family (it is
-    ``whisper.WhisperModel``) and layer kinds other than attention (with a
-    dense or an expert FFN) and gated cross-attention."""
+    """Raise for the audio family: it is ``whisper.WhisperModel``."""
     if cfg.family == "audio":
         raise ValueError(f"{cfg.name}: use whisper.WhisperModel for audio")
-    plan = layer_plan(cfg)
-    kinds = sorted(set(plan.group_kinds + plan.tail_kinds)
-                   - set(SERVED_KINDS))
-    if kinds:
-        items = ", ".join(f'"{t}"' for t in
-                          sorted({PORTED_BY[k] for k in kinds}))
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(kinds)} not ported yet (ROADMAP queue "
-            f"1, {items})")
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str) -> attention.AttnConfig:
@@ -121,6 +117,17 @@ def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
         bf16_combine=cfg.moe_bf16_combine)
 
 
+def _rwkv_cfg(cfg: ModelConfig) -> rwkv6.RWKVConfig:
+    return rwkv6.RWKVConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                            dtype=cfg.dtype)
+
+
+def _mamba_cfg(cfg: ModelConfig) -> mamba2.Mamba2Config:
+    return mamba2.Mamba2Config(d_model=cfg.d_model, state_dim=cfg.ssm_state,
+                               head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+                               dtype=cfg.dtype)
+
+
 def _norm_init(cfg: ModelConfig, device, d=None) -> dict:
     d = d or cfg.d_model
     dt = layers.torch_dtype(cfg.dtype)
@@ -134,16 +141,24 @@ def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Sub-blocks: attention + gated MLP or experts; gated cross-attention
+# Sub-blocks: attention + gated MLP or experts; gated cross-attention;
+# RWKV-6 time and channel mix; Mamba-2
 # ---------------------------------------------------------------------------
 
 
 def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     dt = layers.torch_dtype(cfg.dtype)
+    if kind == "rwkv":
+        return {"norm1": _norm_init(cfg, gen.device),
+                "norm2": _norm_init(cfg, gen.device),
+                "mix": rwkv6.init(gen, _rwkv_cfg(cfg))}
+    if kind == "mamba":
+        return {"norm": _norm_init(cfg, gen.device),
+                "ssm": mamba2.init(gen, _mamba_cfg(cfg))}
     p = {"norm1": _norm_init(cfg, gen.device),
          "attn": attention.init(gen, _attn_cfg(cfg, kind)),
          "norm2": _norm_init(cfg, gen.device)}
-    if cfg.is_moe and kind != "cross":
+    if cfg.is_moe and kind not in ("cross", "shared_attn"):
         p["ffn"] = moe.init(gen, _moe_cfg(cfg))
     else:
         p["ffn"] = mlp.init(gen, cfg.d_model, cfg.d_ff, dt, cfg.activation)
@@ -157,20 +172,51 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
 
 def _ffn_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
     """Returns (out, aux, dispatch ids or None)."""
-    if kind == "cross" or not cfg.is_moe:
+    if kind in ("cross", "shared_attn") or not cfg.is_moe:
         return mlp.apply(p, h, cfg.activation), 0.0, None
     b, s, d = h.shape
     out, aux, disp = moe.apply_local(p, h.reshape(b * s, d), _moe_cfg(cfg))
     return out.reshape(b, s, d), aux, disp
 
 
+def _rwkv_apply(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                cache: Optional[dict]):
+    """Time mix then channel mix, each pre-norm with a residual.  With a
+    cache (decode), each token shift reads its ``last`` from it: the
+    time mix the previous step's normed block input, the channel mix its
+    normed ``x2``."""
+    rc = _rwkv_cfg(cfg)
+    x1 = _norm(cfg, p["norm1"], h)
+    if cache is None:
+        h = h + rwkv6.time_mix(p["mix"], x1, rc, impl=cfg.rwkv_impl)
+        x2 = _norm(cfg, p["norm2"], h)
+        return h + rwkv6.channel_mix(p["mix"], x2), None
+    tm, st = rwkv6.time_mix_decode(
+        p["mix"], x1, {"s": cache["s"], "last": cache["last"]}, rc)
+    h = h + tm
+    x2 = _norm(cfg, p["norm2"], h)
+    h = h + rwkv6.channel_mix(p["mix"], x2, last=cache["cm_last"])
+    return h, {"s": st["s"], "last": st["last"], "cm_last": x2[:, 0, :]}
+
+
 def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
                cache: Optional[dict], positions=None, image_embeds=None):
-    """One pre-norm block.  Returns (h, aux, new_cache).
+    """One pre-norm block.  Returns (h, aux, new_cache); ``cache=None``
+    is the prefill.
 
     A cross layer attends to ``image_embeds`` (its cache: their K/V,
     projected once) and adds both branches through tanh gates; its cache
-    comes back as it went in."""
+    comes back as it went in.  ``rwkv`` and ``mamba`` layers return their
+    stepped state in decode."""
+    if kind == "rwkv":
+        h, new_cache = _rwkv_apply(cfg, p, h, cache)
+        return h, 0.0, new_cache
+    if kind == "mamba":
+        xn = _norm(cfg, p["norm"], h)
+        if cache is None:
+            return h + mamba2.apply(p["ssm"], xn, _mamba_cfg(cfg)), 0.0, None
+        out, st = mamba2.decode_step(p["ssm"], xn, cache, _mamba_cfg(cfg))
+        return h + out, 0.0, st
     acfg = _attn_cfg(cfg, kind)
     xn = _norm(cfg, p["norm1"], h)
     if kind == "cross":
@@ -196,14 +242,21 @@ def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
 
 def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                device, p=None, image_embeds=None) -> dict:
+    dt = layers.torch_dtype(cfg.dtype)
+    if kind == "rwkv":
+        st = rwkv6.init_state(_rwkv_cfg(cfg), batch, device)
+        return {"s": st["s"], "last": st["last"].to(dt),
+                "cm_last": st["cm_last"].to(dt)}
+    if kind == "mamba":
+        st = mamba2.init_state(_mamba_cfg(cfg), batch, device)
+        return {"h": st["h"], "conv": st["conv"].to(dt)}
     acfg = _attn_cfg(cfg, kind)
     if kind == "cross":  # the image K/V, projected once
         def heads(w):
             return layers.dense(w, image_embeds).reshape(
                 batch, -1, acfg.num_kv_heads, acfg.head_dim).transpose(1, 2)
         return {"k": heads(p["attn"]["wk"]), "v": heads(p["attn"]["wv"])}
-    c = attention.init_cache(acfg, batch, max_len,
-                             layers.torch_dtype(cfg.dtype), device)
+    c = attention.init_cache(acfg, batch, max_len, dt, device)
     return {"k": c["k"], "v": c["v"]}  # pos passed per step
 
 
@@ -213,8 +266,8 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 class CausalLM:
-    """Dense, MoE, gemma2 or VLM causal LM on ``device`` (default the
-    card)."""
+    """Dense, MoE, gemma2, VLM, RWKV-6 or zamba2 causal LM on ``device``
+    (default the card)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         check_served(cfg)
@@ -241,8 +294,18 @@ class CausalLM:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.dense_init(gen, cfg.d_model,
                                                   cfg.padded_vocab, dt)
-        params["layers"] = [_sub_init(gen, cfg, kind) for kind in self.kinds]
+        # a shared block's weights once; its layers' entries stay empty
+        params["layers"] = [{} if kind == "shared_attn"
+                            else _sub_init(gen, cfg, kind)
+                            for kind in self.kinds]
+        if "shared_attn" in self.kinds:
+            params["shared_attn"] = _sub_init(gen, cfg, "shared_attn")
         return params
+
+    def _layer_params(self, params) -> list:
+        """Each layer's parameters, the shared block's where it runs."""
+        return [params["shared_attn"] if kind == "shared_attn" else p
+                for kind, p in zip(self.kinds, params["layers"])]
 
     # -- forward ------------------------------------------------------------
 
@@ -251,12 +314,12 @@ class CausalLM:
         MoE aux losses (0.0 for a dense model).
 
         The layers attend over positions 0..T-1, the route that runs K8
-        where the layer has no window and no softcap; cross layers attend
-        to ``image_embeds`` (B, image tokens, d).
+        where the layer has no softcap and T fits its window, if any;
+        cross layers attend to ``image_embeds`` (B, image tokens, d).
         """
         h = layers.embed(params["embed"], tokens)
         aux = 0.0
-        for kind, p in zip(self.kinds, params["layers"]):
+        for kind, p in zip(self.kinds, self._layer_params(params)):
             h, a, _ = _sub_apply(self.cfg, kind, p, h, cache=None,
                                  image_embeds=image_embeds)
             aux = aux + a
@@ -282,8 +345,9 @@ class CausalLM:
 
     def init_cache(self, params, batch: int, max_len: int,
                    image_embeds=None) -> dict:
-        """Empty KV buffers for the attention layers; a cross layer's cache
-        is its projection of ``image_embeds``."""
+        """Empty KV buffers for the attention layers (a window ring for a
+        windowed one), zero states for the RWKV and Mamba layers; a cross
+        layer's cache is its projection of ``image_embeds``."""
         return {"layers": [
             _sub_cache(self.cfg, kind, batch, max_len, self.device, p,
                        image_embeds)
@@ -295,17 +359,18 @@ class CausalLM:
 
         Returns (logits (B, 1, V) f32, the cache).  The attention layers'
         buffers are written in place; a cross layer's image K/V are kept
-        as they are.
+        as they are; the RWKV and Mamba layers' states come back stepped.
         """
         pos = int(pos)
         h = layers.embed(params["embed"], tokens)
         positions = pos + torch.arange(tokens.shape[1], device=h.device)
         new_layers = []
-        for kind, p, c in zip(self.kinds, params["layers"], cache["layers"]):
-            if kind != "cross":  # a KV cache written at the position
+        for kind, p, c in zip(self.kinds, self._layer_params(params),
+                              cache["layers"]):
+            if kind in ATTN_KINDS:  # a KV cache written at the position
                 c = dict(c, pos=pos)
             h, _, nc = _sub_apply(self.cfg, kind, p, h, cache=c,
                                   positions=positions)
-            new_layers.append({"k": nc["k"], "v": nc["v"]})
+            new_layers.append({k: v for k, v in nc.items() if k != "pos"})
         h = _norm(self.cfg, params["final_norm"], h)
         return self.unembed_logits(params, h), {"layers": new_layers}

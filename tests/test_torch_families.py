@@ -497,12 +497,19 @@ def test_convert_carries_every_layer_in_order(arch, changes):
 
 
 def test_convert_refuses_a_shared_block():
+    # no longer refused: zamba2's shared block is carried once, as the
+    # port's params["shared_attn"], and its layers' entries are empty
+    # (tests/test_torch_ssm.py holds every leaf bit for bit)
     cfg = ref_get_config("zamba2-1.2b").reduced()
     rp = jax.tree.map(np.asarray,
                       ref_build_model(cfg).init(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP queue 1, "rwkv6 and mamba2"'):
-        convert.lm_params_from_numpy(rp, cfg, CPU)
+    p = convert.lm_params_from_numpy(rp, cfg, CPU)
+    kinds = build_model(get_config("zamba2-1.2b").reduced(), CPU).kinds
+    assert [k for k, layer in zip(kinds, p["layers"]) if not layer] == [
+        "shared_attn"] * (cfg.num_layers // cfg.attn_every)
+    np.testing.assert_array_equal(
+        p["shared_attn"]["attn"]["wq"]["w"].numpy(),
+        rp["shared_attn"]["attn"]["wq"]["w"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

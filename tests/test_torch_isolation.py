@@ -41,7 +41,7 @@ def _imported_roots(path):
 def test_port_sources_import_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
-    assert len([f for f in files if f.parent.name == "examples"]) == 6
+    assert len([f for f in files if f.parent.name == "examples"]) == 7
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -55,6 +55,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.transformer, repro_torch.models.moe, "
             "repro_torch.models.whisper, repro_torch.models.registry, "
+            "repro_torch.models.rwkv6, repro_torch.models.mamba2, "
             "repro_torch.serve.step, "
             "repro_torch.launch.serve, repro_torch.cli.main, "
             "repro_torch.advisor, repro_torch.obs.heatmap, "

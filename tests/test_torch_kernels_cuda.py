@@ -492,7 +492,8 @@ def test_flash_kernel_matches_plain(cuda, b, h, kv, t, d, dtype, causal):
 @pytest.mark.parametrize("b,h,kv,t,d,causal", [
     (4, 12, 12, 1500, 64, False),    # whisper-small's encoder
     (4, 12, 12, 448, 64, True),      # its decoder's prefill
-    (4, 32, 8, 2048, 128, True)])    # llama-3.2-vision-11b, GQA group 4
+    (4, 32, 8, 2048, 128, True),     # llama-3.2-vision-11b, GQA group 4
+    (4, 32, 32, 2048, 64, True)])    # zamba2-1.2b's shared attention
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_the_families_shapes(cuda, b, h, kv, t, d, causal,
                                              dtype):

@@ -37,6 +37,7 @@ CPU = "cpu"
 LAYER = dict(rtol=1e-6, atol=1e-6)
 ATTN = dict(rtol=1e-5, atol=1e-5)
 MODEL = dict(rtol=1e-4, atol=1e-4)
+PREFILL_T = 2048        # the serving path's prefill on the card
 
 
 def _t(x):
@@ -178,19 +179,27 @@ def test_flash_route_is_chosen_from_config_and_arguments():
     for other in (rep(cfg, window=8), rep(cfg, logit_softcap=50.0),
                   rep(cfg, bf16_score_grad=True)):
         assert not attention.flash_route(other)
+    # a window that the sequence fits inside masks nothing: K8 takes it
+    assert attention.flash_route(rep(cfg, window=8), t=8)
+    assert not attention.flash_route(rep(cfg, window=8), t=9)
+    assert not attention.flash_route(rep(cfg, window=8, logit_softcap=50.0),
+                                     t=8)
     # bidirectional self-attention (Whisper's encoder) takes K8 too
     assert attention.flash_route(rep(cfg, causal=False))
     # the served LM layers keep their routes: a causal K8 prefill for the
     # dense, MoE and llama-vision self-attention layers; gemma2's
-    # softcapped (and windowed) pair and the cross layers stay on _sdpa
+    # softcapped (and windowed) pair and the cross layers stay on _sdpa;
+    # zamba2's shared attention (window 4096) takes K8 at T <= 4096
     for arch, kind, k8 in (("qwen2-72b", "attn", True),
+                           ("zamba2-1.2b", "shared_attn", True),
                            ("qwen3-moe-235b-a22b", "attn", True),
                            ("granite-moe-1b-a400m", "attn", True),
                            ("llama-3.2-vision-11b", "attn", True),
                            ("gemma2-27b", "attn_local", False),
                            ("gemma2-27b", "attn_global", False)):
         acfg = transformer._attn_cfg(get_config(arch), kind)
-        assert acfg.causal and attention.flash_route(acfg) == k8, arch
+        assert acfg.causal and attention.flash_route(
+            acfg, t=PREFILL_T) == k8, arch
     # a head size the kernel does not take is its refusal on the card,
     # never a quiet detour through _sdpa
     assert attention.flash_route(rep(cfg, head_dim=8))
@@ -345,18 +354,17 @@ def test_temperature_sampling_draws_from_the_generator():
 
 
 def test_unported_architectures_are_refused_by_name():
-    # each refusal names the ROADMAP queue 1 item that ports it, by title
-    for arch, item in (("rwkv6-7b", "rwkv6 and mamba2"),
-                       ("zamba2-1.2b", "rwkv6 and mamba2")):
-        with pytest.raises(NotImplementedError,
-                           match=f'ROADMAP queue 1, "{item}"'):
-            build_model(get_config(arch).reduced(), CPU)
-    for arch in ("qwen2-72b", "qwen1.5-110b", "command-r-plus-104b",
-                 "qwen3-moe-235b-a22b", "granite-moe-1b-a400m",
-                 "gemma2-27b", "llama-3.2-vision-11b", "whisper-small"):
-        build_model(get_config(arch), CPU)
-    assert isinstance(build_model(get_config("whisper-small"), CPU),
-                      WhisperModel)
+    # none is refused any more: build_model builds every one of the ten
+    # configs, at its published widths and reduced
+    assert len(ARCHS) == 10
+    for arch in ARCHS:
+        for cfg in (get_config(arch), get_config(arch).reduced()):
+            model = build_model(cfg, CPU)
+            assert isinstance(model, WhisperModel) == (cfg.family == "audio")
+            if not isinstance(model, WhisperModel):  # cross and shared
+                # blocks come on top of the config's layers
+                assert sum(k not in ("cross", "shared_attn")
+                           for k in model.kinds) == cfg.num_layers
 
 
 def test_bf16_params_cross_through_their_bits():
