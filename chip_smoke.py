@@ -26,7 +26,13 @@ llama-3.2-vision-11b (gated image cross-attention; its self-attention in
 K8) and whisper-small (its bidirectional encoder and causal decoder
 prefill in K8), then rwkv6-7b (attention-free: no kernel launches) and
 zamba2-1.2b (Mamba-2 layers; its shared attention block in K8 while the
-prompt fits its window).  Phases, each of which must pass:
+prompt fits its window).  Last it trains: granite-moe-1b-a400m whole
+through ``repro_torch.launch.train`` (each MoE layer's dispatch count in
+K7 and its combine in K5 under autograd; attention on the plain path,
+since K8 has no backward), its restart from a checkpoint, one step each
+of whisper-small and zamba2-1.2b, and the training batch's tokens as the
+embedding gradient's scatter through K6.  Phases, each of which must
+pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
@@ -55,7 +61,15 @@ prompt fits its window).  Phases, each of which must pass:
    plain versions there, outside the counts), then the families' serving
    (K8's launches held to each step's count; gemma2's window and ring at
    full width against their oracles), then rwkv6's and zamba2's (no
-   launch for rwkv6; K8 held to zamba2's shared-attention invocations);
+   launch for rwkv6; K8 held to zamba2's shared-attention invocations),
+   then training (outside the counts first: K5 under autograd against
+   its plain version forward and backward, every gradient leaf with K5
+   against the plain combine, blockwise attention against dense; then
+   granite's steps, K5 and K7 held to twice a layer a step and K8 to 0,
+   the loss falling, one step profiled, the restart's replayed steps
+   against their first pass, whisper-small's and zamba2's step moving
+   every leaf, and the Zipf and uniform token streams through
+   ``Session.validate``);
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take
    (K5 and K7 also on the MoE layers' live inputs).
@@ -174,6 +188,28 @@ FAMILY_K8_SHAPES = (
     ("whisper encoder", "whisper-small", 1500, False),
     ("whisper decoder", "whisper-small", WHISPER_T, True),
     ("zamba2 shared attention", "zamba2-1.2b", PREFILL_T, True))
+# the training path: granite-moe-1b-a400m (examples/train_lm.py's model)
+# whole at every published width, bf16 with an f32 master, TRAIN_STEPS
+# steps of TRAIN_B x TRAIN_T tokens (the reference launcher's batch of 8 at
+# the serving path's 2048), step TRAIN_PROFILE_STEP profiled; its
+# restart at RESTART_LAYERS layers; one step each of whisper-small (448
+# tokens over its 1500 frames) and zamba2-1.2b
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_PROFILE_STEP = 8, 2048, 10, 5
+RESTART_LAYERS, RESTART_STEPS = 4, 12
+RESTART_SAVE_EVERY, RESTART_FAIL_AT = 4, 10
+REPLAY_RTOL = 1e-3                   # replayed xent against the first pass
+ONE_STEP = (("whisper-small", TRAIN_B, WHISPER_T),
+            ("zamba2-1.2b", PREFILL_B, PREFILL_T))
+# the gradient check: granite at 2 layers in f32 on 4 x 2048 tokens; each
+# leaf within GRAD_TOL x its largest |g| (K5 sums in no fixed order)
+GRAD_CHECK_LAYERS, GRAD_CHECK_B, GRAD_TOL = 2, 4, 1e-4
+K5_FWD_RTOL = 1e-5                   # K5 forward, of the largest sum
+BLOCKWISE_TOL = 1e-5                 # blockwise against dense, f32
+# the embedding gradient's rows: the 49,155 ids of granite's vocab into
+# whole 4096-segment blocks, the scatter-add ops' rule
+EMBED_SEGMENTS = 13 * 4096
+TRAIN_KERNELS = ("scatter_add", "bincount", "scatter_add_instrumented")
 FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
 FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
 # bf16 beyond the reference test's T = 64, where a typical output is small
@@ -1893,6 +1929,20 @@ MOE_PROFILE_PARTS = {
 }
 
 
+# a train step's device time by part, by the kernels' names: K5, K7, K8;
+# the backward of the MoE's bf16 row gathers (PyTorch's sort-based index
+# backward); cuBLAS's bf16 GEMMs; the f32 GEMMs of ``_sdpa``'s einsums
+# (TF32 off); the softmax forward and backward
+TRAIN_PROFILE_PARTS = {
+    **{k: MOE_PROFILE_PARTS[k] for k in ("K5 combine", "K7 dispatch count",
+                                         "K8 attention")},
+    "index backward": ("kernel", ("indexing_backward_kernel",)),
+    "bf16 GEMMs": ("kernel", ("nvjet", "gemm_bf16")),
+    "f32 GEMMs (attention)": ("kernel", ("gemm_f32f32",)),
+    "softmax": ("kernel", ("softmax", "SoftMax")),
+}
+
+
 def device_profile(fn, label: str, top: int = 6, parts=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: host wall time, device
     time (the sum of the CUDA kernels' own times, which one stream runs one
@@ -2742,6 +2792,532 @@ def family_serving_path(dev, archs=FAMILY_SERVE) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3. the training path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording_train(profile_step=None, parts=None):
+    """While open, every step that ``train.step.make_train_step`` makes
+    records its launches by kernel and its device-synchronised seconds,
+    and step ``profile_step`` (0-based) runs under ``device_profile``;
+    ``rec["bytes"]`` holds the bytes of the first step's parameters and
+    optimizer state.  Steps run and count their launches as they
+    otherwise do."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.train import step as train_mod
+    rec = {"launches": [], "seconds": [], "profile": None, "bytes": None}
+    make = train_mod.make_train_step
+
+    def recorded_make(model, tcfg, ocfg):
+        step = make(model, tcfg, ocfg)
+
+        def recorded(state, batch):
+            if rec["bytes"] is None:
+                rec["bytes"] = {part: sum(
+                    t.numel() * t.element_size()
+                    for t in tree.leaves(state[part]))
+                    for part in ("params", "opt")}
+            before = _launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(rec["seconds"]) == profile_step:
+                box = {}
+                rec["profile"] = device_profile(
+                    lambda: box.update(out=step(state, batch)),
+                    f"{model.cfg.name} train step {profile_step}", top=10,
+                    parts=parts)
+                out = box["out"]
+            else:
+                out = step(state, batch)
+            torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["launches"].append({k: v - before[k]
+                                    for k, v in _launches().items()
+                                    if v != before[k]})
+            return out
+
+        return recorded
+
+    train_mod.make_train_step = recorded_make
+    try:
+        yield rec
+    finally:
+        train_mod.make_train_step = make
+
+
+@contextlib.contextmanager
+def recording_dispatch(n: int):
+    """While open, K7's launcher keeps copies of the ids and the counts
+    of its first ``n`` calls (``rec``: a list of pairs).  Every call runs
+    and counts its launch as it otherwise does."""
+    from repro_torch.kernels.scatter_add import kernel as sk
+    rec = []
+    bincount = sk.bincount_launch
+
+    def recorded(ids, num_segments):
+        counts = bincount(ids, num_segments)
+        if len(rec) < n:
+            rec.append((ids.clone(), counts.clone()))
+        return counts
+
+    sk.bincount_launch = recorded
+    try:
+        yield rec
+    finally:
+        sk.bincount_launch = bincount
+
+
+def check_train_dispatch(rec, cfg) -> str:
+    """K7 at the train step's shape: each recorded dispatch of the first
+    step (``recording_dispatch``), TRAIN_B x TRAIN_T x top-k sorted ids
+    into the experts, its count from the path and a launch on the same
+    ids (outside the counts) both bit for bit ``bincount_plain``."""
+    import torch
+
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    n_ids = TRAIN_B * TRAIN_T * cfg.top_k
+    _require(len(rec) == 2 * cfg.num_layers,
+             f"{len(rec)} K7 calls recorded in the first step")
+    largest = 0
+    for i, (ids, counts) in enumerate(rec):
+        _require(ids.numel() == n_ids and bool((ids[1:] >= ids[:-1]).all()),
+                 f"K7 call {i}: {ids.numel()} ids, sorted "
+                 f"{bool((ids[1:] >= ids[:-1]).all())}")
+        plain = sk.bincount_plain(ids, cfg.num_experts)
+        with uncounted():
+            again = sk.bincount_launch(ids, cfg.num_experts)
+            torch.cuda.synchronize()
+        _require(torch.equal(counts, plain) and torch.equal(again, plain),
+                 f"K7 at the train step's dispatch, call {i}: {n_ids} ids "
+                 f"-> {cfg.num_experts}, path or relaunch != bincount_plain")
+        largest = max(largest, int(plain.max()))
+    return (f"K7 on the first step's {len(rec)} dispatches ({n_ids} sorted "
+            f"ids -> {cfg.num_experts} experts each; forward and recompute): "
+            f"the path's counts and a relaunch bit-equal to bincount_plain "
+            f"(largest count {largest})")
+
+
+@contextlib.contextmanager
+def plain_combine():
+    """While open, the MoE combine is ``scatter_add_plain`` (an
+    ``index_add`` that autograd differentiates by itself) in place of K5
+    under autograd."""
+    from repro_torch.kernels.scatter_add import kernel as sk
+    fn = sk.scatter_add_autograd
+    sk.scatter_add_autograd = sk.scatter_add_plain
+    try:
+        yield
+    finally:
+        sk.scatter_add_autograd = fn
+
+
+def check_k5_autograd(dev, err: dict) -> None:
+    """K5 under autograd (``scatter_add_autograd``) on the card at the
+    train step's combine, TRAIN_B x TRAIN_T tokens x top-8 rows of
+    d_model f32, and at a decode step's, 4 tokens: some ids dropped (-1
+    and S + 3).  The forward within K5_FWD_RTOL of ``scatter_add_plain``
+    relative to its largest sum, the backward bit for bit autograd's own
+    gradient of that ``index_add``, zero on the dropped rows."""
+    import torch
+
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    cfg = _serve_config(arch=TRAIN_ARCH)
+    for tokens in (TRAIN_B * TRAIN_T, PREFILL_B):
+        n, d = tokens * cfg.top_k, cfg.d_model
+        gen = torch.Generator(device=dev).manual_seed(tokens)
+        vals = torch.randn((n, d), generator=gen, device=dev)
+        ids = torch.div(torch.randperm(n, generator=gen, device=dev),
+                        cfg.top_k, rounding_mode="floor").to(torch.int32)
+        ids[::97] = -1
+        ids[5::89] = tokens + 3
+        w = torch.randn((tokens, d), generator=gen, device=dev)
+        got = vals.clone().requires_grad_()
+        with uncounted():
+            out = sk.scatter_add_autograd(got, ids, tokens)
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+        want = vals.clone().requires_grad_()
+        plain = sk.scatter_add_plain(want, ids, tokens)
+        (plain * w).sum().backward()
+        out, plain = out.detach(), plain.detach()
+        abs_err = _abs_err(out, plain)
+        rel = abs_err / float(plain.abs().max())
+        dropped = (ids < 0) | (ids >= tokens)
+        case = f"({n}, {d}) f32 -> {tokens}, {int(dropped.sum())} dropped"
+        _require(rel <= K5_FWD_RTOL,
+                 f"K5 under autograd {case}: forward rel err {rel}")
+        _require(torch.equal(got.grad, want.grad),
+                 f"K5 under autograd {case}: backward not the plain gather")
+        _require(bool(dropped.any()) and not got.grad[dropped].any(),
+                 f"K5 under autograd {case}: dropped rows got a gradient")
+        err["scatter_add"] = max(err["scatter_add"], abs_err)
+        log(f"  K5 under autograd {case} ({sk.scatter_add_route(vals, tokens)}"
+            f" route): forward max |err| {abs_err:.3g} ({rel:.3g} of the "
+            f"largest sum), backward bit-equal to autograd's index_add "
+            f"gradient, dropped rows 0")
+
+
+def check_training_grads(dev) -> dict:
+    """Every gradient leaf of granite at every published width, cut to
+    GRAD_CHECK_LAYERS layers, f32 (TF32 off), on GRAD_CHECK_B x TRAIN_T
+    tokens of the step's data: with K5 as the combine, then with the plain
+    combine (``plain_combine``), each leaf within GRAD_TOL x max|g|; the
+    expert weights' gradients non-zero (K5's own result has no
+    ``grad_fn``: without ``scatter_add_autograd`` they would be 0)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import step as train_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _serve_config(num_layers=GRAD_CHECK_LAYERS, dtype="float32",
+                        arch=TRAIN_ARCH)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    toks = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+        global_batch=GRAD_CHECK_B)).global_batch_at(0)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    grad_fn = train_mod.make_grad_fn(model, train_mod.TrainConfig())
+    before = _launches()
+    with uncounted():
+        g_k5, m_k5 = grad_fn(params, batch)
+        torch.cuda.synchronize()
+        k5 = _launches()["scatter_add"] - before["scatter_add"]
+        with plain_combine():
+            g_pl, m_pl = grad_fn(params, batch)
+            torch.cuda.synchronize()
+        _require(_launches()["scatter_add"] - before["scatter_add"] == k5
+                 == 2 * GRAD_CHECK_LAYERS,
+                 f"K5 launches {k5} with K5, then more with the plain "
+                 f"combine")
+    worst, leaves = 0.0, 0
+    for a, b in zip(tree.leaves(g_k5), tree.leaves(g_pl)):
+        scale = float(b.abs().max())
+        e = _abs_err(a, b)
+        _require(e <= GRAD_TOL * scale, f"gradient leaf {tuple(b.shape)}: "
+                                        f"max |err| {e} > {GRAD_TOL} x {scale}")
+        worst = max(worst, e / scale if scale else 0.0)
+        leaves += 1
+    experts = [float(p["ffn"][w].abs().max()) for p in g_k5["layers"]
+               for w in ("w_gate", "w_up", "w_down")]
+    _require(min(experts) > 0, f"expert gradients {experts}")
+    xent_gap = abs(float(m_k5["xent"]) - float(m_pl["xent"]))
+    log(f"  gradients at {GRAD_CHECK_LAYERS} layers, full width, f32, "
+        f"{GRAD_CHECK_B} x {TRAIN_T} tokens: {leaves} leaves, K5 against the "
+        f"plain combine within {worst:.3g} x max|g| (bound {GRAD_TOL}); "
+        f"expert gradients' max |g| {min(experts):.3g}-{max(experts):.3g}, "
+        f"none zero; xent {float(m_k5['xent'])!r} vs {float(m_pl['xent'])!r}")
+    del g_k5, g_pl, params, model
+    torch.cuda.empty_cache()
+    return {"leaves": leaves, "worst_rel": worst, "xent_gap": xent_gap,
+            "expert_grad_max_min": min(experts)}
+
+
+def check_blockwise(dev) -> dict:
+    """Blockwise attention (``kv_block`` = the config's 1024, and with
+    512-query blocks) against the dense plain ``_sdpa`` at granite's
+    attention shape, TRAIN_B x TRAIN_T, f32: within BLOCKWISE_TOL."""
+    import torch
+
+    from repro_torch.models import attention, transformer
+
+    cfg = _serve_config(arch=TRAIN_ARCH, dtype="float32")
+    acfg = transformer._attn_cfg(cfg, "attn")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = attention.init(gen, acfg)
+    x = torch.randn((TRAIN_B, TRAIN_T, cfg.d_model), generator=gen,
+                    device=dev)
+    pos = torch.arange(TRAIN_T, device=dev)   # positions given: not K8
+    out = {}
+    with torch.no_grad():
+        dense, _ = attention.attend(p, x, acfg, positions=pos)
+        for q_block in (None, 512):
+            got, _ = attention.attend(p, x, acfg, positions=pos,
+                                      kv_block=cfg.kv_block, q_block=q_block)
+            torch.testing.assert_close(
+                got, dense, rtol=BLOCKWISE_TOL, atol=BLOCKWISE_TOL,
+                msg=f"blockwise (q_block {q_block}) vs dense")
+            out[f"q_block {q_block}"] = _abs_err(got, dense)
+    log(f"  blockwise attention, {TRAIN_B} x {acfg.num_heads}/"
+        f"{acfg.num_kv_heads} x {TRAIN_T} x {acfg.head_dim} f32, kv_block "
+        f"{cfg.kv_block}, against dense _sdpa: max |err| {out} (bound "
+        f"{BLOCKWISE_TOL})")
+    return out
+
+
+def train_reckoning(cfg, state_bytes: dict) -> dict:
+    """Bytes of a train step of ``cfg`` at TRAIN_B x TRAIN_T: the state
+    (bf16 parameters; f32 m, v and master), the step's transients (bf16
+    gradients and the new parameters), and the activations under remat:
+    each layer's bf16 input, kept for the recompute; one layer's
+    recompute, the MoE's (the expert-sorted rows and the (E, C, d) buffer,
+    bf16; the three (E, C, f) products and the expert output; the f32
+    combine values) or the attention's f32 scores three at a time
+    (scores, probabilities and their gradient), whichever is larger; and
+    the head's logits (bf16, their f32 copy and its gradient).
+    ``state_bytes``: the parameters' and the optimizer state's bytes."""
+    n_tok = TRAIN_B * TRAIN_T
+    p_bytes, opt_bytes = state_bytes["params"], state_bytes["opt"]
+    rows = n_tok * cfg.top_k
+    cap = int(rows / cfg.num_experts * cfg.moe_capacity_factor)
+    slots = cfg.num_experts * cap
+    moe = (rows * cfg.d_model * 2 + slots * cfg.d_model * 2
+           + 3 * slots * cfg.d_expert * 2 + slots * cfg.d_model * 2
+           + rows * cfg.d_model * 4)
+    scores = 3 * TRAIN_B * cfg.num_heads * TRAIN_T * TRAIN_T * 4
+    act = (cfg.num_layers * n_tok * cfg.d_model * 2 + max(moe, scores)
+           + n_tok * cfg.padded_vocab * (2 + 4 + 4))
+    return {"state": p_bytes + opt_bytes, "transients": 2 * p_bytes,
+            "activations": act,
+            "total": p_bytes + opt_bytes + 2 * p_bytes + act}
+
+
+def train_whole(dev, tmp: Path) -> dict:
+    """granite-moe-1b-a400m whole at every published width: bf16
+    parameters with an f32 master, TRAIN_STEPS steps of TRAIN_B x TRAIN_T
+    tokens through ``launch.train.main`` in-process, no checkpoints.  Each
+    step's launches (K5 and K7 twice a layer: forward and recompute; K8
+    never), seconds and xent; one step profiled; the peak memory beside
+    the reckoning; K7's counts of the first step against
+    ``bincount_plain`` (``check_train_dispatch``).  ``launch.train``
+    raises where the loss did not fall."""
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    cfg = _serve_config(arch=TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with recording_train(TRAIN_PROFILE_STEP, TRAIN_PROFILE_PARTS) as rec, \
+            recording_dispatch(2 * cfg.num_layers) as dispatched:
+        hist = launch_train.main([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+            "--save-every", "0", "--ckpt-dir", str(tmp / "unused"),
+            "--device", dev])["history"]
+    peak = torch.cuda.max_memory_allocated() - held
+    k7 = check_train_dispatch(dispatched, cfg)
+    del dispatched
+    reckoned = train_reckoning(cfg, rec["bytes"])
+    xent = [h["xent"] for h in hist]
+    per_layer = 2 * cfg.num_layers
+    want = {"bincount": per_layer, "scatter_add": per_layer}
+    _require(all(n == want for n in rec["launches"]),
+             f"train step launches {rec['launches']}, expected {want} "
+             f"each (K8 0)")
+    _require(all(np.isfinite(xent)) and xent[-1] < xent[0],
+             f"xent {xent}")
+    # the first step warms up, the profiled one carries the profiler
+    steady = statistics.median(
+        [s for i, s in enumerate(rec["seconds"])
+         if i not in (0, TRAIN_PROFILE_STEP)])
+    out = {"steps": len(hist), "xent": xent,
+           "step_seconds": rec["seconds"], "median_step_s": steady,
+           "tokens_per_s": TRAIN_B * TRAIN_T / steady,
+           "launches_per_step": rec["launches"][0],
+           "peak_memory_bytes": peak, "reckoning": reckoned,
+           "profile": rec["profile"]}
+    log(f"  {TRAIN_ARCH} whole: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts x {cfg.d_expert} top-"
+        f"{cfg.top_k}, vocab {cfg.padded_vocab}; bf16 params, f32 master, "
+        f"{TRAIN_B} x {TRAIN_T} tokens a step, remat {cfg.remat}")
+    log(f"  memory: reckoned (bytes) {reckoned}; peak {peak} "
+        f"({peak / 1e9:.2f} GB)")
+    log(f"  launches a step (every step): {rec['launches'][0]} (K8 0)")
+    log(f"  {k7}")
+    log(f"  xent by step: {', '.join(f'{x:.4f}' for x in xent)}")
+    log(f"  step seconds: {', '.join(f'{s:.3f}' for s in rec['seconds'])}; "
+        f"median of steps 1-{TRAIN_STEPS - 1} but {TRAIN_PROFILE_STEP} "
+        f"(profiled) {steady:.4f} s "
+        f"({out['tokens_per_s']:.0f} tokens/s)")
+    return out
+
+
+def train_restart(dev) -> dict:
+    """The same widths at RESTART_LAYERS layers: RESTART_STEPS steps,
+    checkpoints every RESTART_SAVE_EVERY steps into a temporary directory
+    (removed after), the failure at RESTART_FAIL_AT: exactly one restart,
+    and the replayed steps' xent within REPLAY_RTOL of their first pass
+    (K5's atomic order is not fixed, so they need not be equal)."""
+    from repro_torch.launch import train as launch_train
+
+    real = launch_train.get_config
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        cfg = dataclasses.replace(real(TRAIN_ARCH), num_layers=RESTART_LAYERS)
+        n = int(cfg.param_count())
+        ckpt_bytes = n * (2 + 12)     # bf16 parameters, f32 m, v, master
+        saves = RESTART_FAIL_AT // RESTART_SAVE_EVERY
+        log(f"  free disk in {tmp}: {free} bytes; {saves} checkpoints of "
+            f"about {ckpt_bytes} bytes each ({n} parameters)")
+        _require(free > 2 * saves * ckpt_bytes,
+                 f"{free} bytes free for {saves} checkpoints of "
+                 f"{ckpt_bytes}")
+        launch_train.get_config = lambda arch: dataclasses.replace(
+            real(arch), num_layers=RESTART_LAYERS)
+        try:
+            t0 = time.perf_counter()
+            out = launch_train.main([
+                "--arch", TRAIN_ARCH, "--steps", str(RESTART_STEPS),
+                "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+                "--save-every", str(RESTART_SAVE_EVERY),
+                "--simulate-failure-at", str(RESTART_FAIL_AT),
+                "--ckpt-dir", tmp, "--device", dev])
+            seconds = time.perf_counter() - t0
+        finally:
+            launch_train.get_config = real
+    hist = out["history"]
+    steps = [h["step"] for h in hist]
+    resumed = RESTART_FAIL_AT // RESTART_SAVE_EVERY * RESTART_SAVE_EVERY
+    _require(out["restarts"] == 1 and steps == list(range(RESTART_FAIL_AT))
+             + list(range(resumed, RESTART_STEPS)),
+             f"restarts {out['restarts']}, steps {steps}")
+    first = {h["step"]: h["xent"] for h in hist[:RESTART_FAIL_AT]}
+    gaps = [abs(h["xent"] - first[h["step"]]) / first[h["step"]]
+            for h in hist[RESTART_FAIL_AT:] if h["step"] in first]
+    _require(gaps and max(gaps) <= REPLAY_RTOL,
+             f"replayed xent gaps {gaps}")
+    xent = ", ".join(f"{h['xent']:.4f}" for h in hist)
+    log(f"  restart at {RESTART_LAYERS} layers: {len(hist)} steps run in "
+        f"{seconds:.1f} s, 1 restart from step {resumed}; replayed steps "
+        f"{list(range(resumed, RESTART_FAIL_AT))}: xent relative gaps "
+        f"{gaps} (bound {REPLAY_RTOL}); xent by step run: {xent}")
+    return {"steps": steps, "replay_rel_gaps": gaps, "seconds": seconds,
+            "free_disk_bytes": free, "checkpoint_bytes": ckpt_bytes}
+
+
+def train_one_step(dev, arch: str, b: int, t: int) -> dict:
+    """One train step of ``arch`` whole at every published width, bf16
+    with an f32 master, on ``make_batch``'s b x t tokens (and stub): the
+    xent and grad norm finite, every leaf moved (its f32 master no longer
+    the bf16 parameter it started from), K8 never launched.  The
+    constant SSM leaves take their SSM_LEAVES ramps first, as in
+    serving."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_mod
+
+    cfg = _serve_config(arch=arch)
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = model.init(gen)
+    _set_ssm_leaves(params)
+    state = {"params": params, "opt": adamw.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    batch = make_batch(cfg, b, t, gen, dev)
+    step = train_mod.make_train_step(
+        model, train_mod.TrainConfig(),
+        adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10))
+    torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _launches().items()
+                if v != before[k]}
+    xent, gnorm = float(metrics["xent"]), float(metrics["grad_norm"])
+    still = [i for i, (p, m) in enumerate(zip(tree.leaves(params),
+                                              tree.leaves(new["opt"]["master"])))
+             if torch.equal(p.to(torch.float32), m)]
+    n_leaves = len(tree.leaves(params))
+    _require(np.isfinite(xent) and np.isfinite(gnorm),
+             f"{arch} train step xent {xent}, grad norm {gnorm}")
+    _require(not still, f"{arch}: leaves {still} of {n_leaves} did not move")
+    _require("flash_attention" not in launched,
+             f"{arch} train step launched {launched}")
+    stub = {"audio": f" over {cfg.encoder_frames} frames",
+            "vlm": f" with {cfg.image_tokens} image tokens"}.get(
+                cfg.family, "")
+    log(f"  {arch} whole, one step of {b} x {t} tokens{stub}: xent "
+        f"{xent:.4f}, grad norm {gnorm:.4g}, {n_leaves} leaves all moved, "
+        f"launches {launched or 'none'}, {seconds:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    del new, state, params, model
+    torch.cuda.empty_cache()
+    return {"xent": xent, "grad_norm": gnorm, "leaves": n_leaves,
+            "launches": launched, "seconds": seconds}
+
+
+def embedding_stream(dev, tables_dir) -> dict:
+    """The training batch's token stream as the embedding gradient's
+    scatter through the paper's tool: TRAIN_B x TRAIN_T tokens of the
+    data pipeline, Zipf(1.1) (the step's) and uniform, over the 49,155
+    ids of the vocab into EMBED_SEGMENTS rows, each through
+    ``Session.validate`` (trace against kernel: K6's counters, e rel err
+    0.0) and ``Session.profile``: e for Zipf more than 1.5 x e for
+    uniform (the reference's ``tests/test_optim_serve_misc.py``)."""
+    from repro_torch.analysis import Session, WorkloadSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    cfg = _serve_config(arch=TRAIN_ARCH)
+    sess = Session("v5e", cache_dir=tables_dir, provider="kernel")
+    out = {}
+    for name, alpha in (("zipf", 1.1), ("uniform", 0.0)):
+        toks = SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+            global_batch=TRAIN_B, zipf_alpha=alpha)).global_batch_at(0)
+        ids = toks.reshape(-1).astype(np.int32)
+        before = sk.LAUNCHES["scatter_add_instrumented"]
+        spec = WorkloadSpec.from_scatter_add(
+            ids, np.ones((ids.size, 1), np.float32), EMBED_SEGMENTS,
+            label=f"embedding grad, {name}", waves_per_tile=32)
+        rep = sess.validate(spec, providers=("trace", "kernel"))
+        e_err = rep.rel_err("kernel", "e")
+        prof = sess.profile(spec)
+        k6 = sk.LAUNCHES["scatter_add_instrumented"] - before
+        _require(e_err == 0.0 and k6 > 0,
+                 f"embedding stream {name}: e rel err {e_err}, K6 {k6}")
+        out[name] = {"e": prof.e, "U": prof.scatter_utilization,
+                     "bottleneck": prof.bottleneck, "e_rel_err": e_err,
+                     "k6_launches": k6}
+        log(f"  embedding-gradient stream, {name}: {ids.size} ids over "
+            f"{cfg.vocab_size} -> {EMBED_SEGMENTS} rows; validate e rel err "
+            f"{e_err!r}, K6 launched {k6}; e {prof.e!r}, U "
+            f"{prof.scatter_utilization!r}, {prof.bottleneck}")
+    _require(out["zipf"]["e"] > 1.5 * out["uniform"]["e"],
+             f"embedding stream e: Zipf {out['zipf']['e']}, uniform "
+             f"{out['uniform']['e']}")
+    return out
+
+
+def training_path(dev, tmp: Path, err: dict) -> dict:
+    """The training phase: K5 under autograd against its plain version,
+    the gradients with K5 against the plain combine, blockwise attention
+    against dense (these three outside the counts), then the counted
+    path: granite-moe-1b-a400m trained whole, its restart at
+    RESTART_LAYERS layers, one step each of whisper-small and
+    zamba2-1.2b, and the embedding-gradient stream through K6.  Returns
+    what was measured."""
+    out = {}
+    check_k5_autograd(dev, err)
+    out["grad_check"] = check_training_grads(dev)
+    out["blockwise"] = check_blockwise(dev)
+    out["whole"] = train_whole(dev, tmp)
+    out["restart"] = train_restart(dev)
+    for arch, b, t in ONE_STEP:
+        out[arch] = train_one_step(dev, arch, b, t)
+    out["embedding_stream"] = embedding_stream(dev, tmp / "tables")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 4. times
 # ---------------------------------------------------------------------------
 
@@ -3260,6 +3836,22 @@ def main() -> int:
         launches[k] += n
     log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
         f"{ssm_launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = phase(f"main path: training {TRAIN_ARCH} whole, its restart, "
+                   f"one step of whisper-small and zamba2-1.2b")
+        hk.reset_launches()
+        sk.reset_launches()
+        fk.reset_launches()
+        training_path(dev, Path(tmp), err)
+        torch.cuda.synchronize()
+        train_launches = {k: n for k, n in _launches().items() if n}
+        _require(train_launches.keys() == set(TRAIN_KERNELS),
+                 f"training path launched {train_launches}")
+        for k, n in train_launches.items():
+            by_path[k]["training"] = n
+            launches[k] += n
+        log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+            f"{train_launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     _require(not missing, f"kernels not launched on the main path: {missing}")
 

@@ -13,6 +13,10 @@ build:
 The LM substrate does have weights: ``lm_params_from_numpy`` takes a
 reference ``CausalLM``'s parameters, and ``whisper_params_from_numpy`` a
 ``WhisperModel``'s, as numpy arrays, into the port's per-layer layout.
+``lm_params_to_numpy`` and ``whisper_params_to_numpy`` are their
+inverses, for any tree of the parameters' structure (gradients, AdamW's
+m, v and master), so that the port's training state can be held against
+the reference's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core.counters import CounterSet, WaveTrace
 from repro_torch.core.qmodel import ServiceTimeTable
 from repro_torch.core.timing import ScatterUnitParams
@@ -100,15 +105,9 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(x, fn):
-    if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
-
-
 def _unstack(stacked, n: int, device) -> list:
     """A tree whose leaves carry a leading axis of ``n`` -> ``n`` trees."""
-    return [_tree(stacked, lambda a, i=i: _tensor(a[i], device))
+    return [tree.map(lambda a, i=i: _tensor(a[i], device), stacked)
             for i in range(n)]
 
 
@@ -145,8 +144,8 @@ def lm_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
         raise ValueError(f"{len(params.get('tail', ()))} tail layers for "
                          f"the plan's {plan.tail_kinds}")
 
-    def tensors(tree):
-        return _tree(tree, lambda a: _tensor(a, device))
+    def tensors(t):
+        return tree.map(lambda a: _tensor(a, device), t)
 
     out = {key: tensors(params[key])
            for key in ("embed", "final_norm", "lm_head", "shared_attn")
@@ -164,9 +163,64 @@ def whisper_params_from_numpy(params: Mapping, cfg, device="cuda") -> dict:
     (``WhisperModel.init`` through ``jax.tree.map(np.asarray, ...)``):
     ``enc_blocks`` and ``dec_blocks``, stacked along a leading layer axis
     there, become per-layer lists."""
-    out = {key: _tree(params[key], lambda a: _tensor(a, device))
+    out = {key: tree.map(lambda a: _tensor(a, device), params[key])
            for key in ("embed", "enc_norm", "dec_norm")}
     out["enc_blocks"] = _unstack(params["enc_blocks"], cfg.encoder_layers,
                                  device)
     out["dec_blocks"] = _unstack(params["dec_blocks"], cfg.num_layers, device)
+    return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a tensor; bf16 comes back as f32 holding the same
+    values (numpy has no bf16, and the port reads no ``ml_dtypes``)."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy().copy()
+
+
+def _stack(trees: list) -> dict:
+    """``n`` trees of one structure -> one tree whose leaves carry a
+    leading axis of ``n`` (``_unstack``'s inverse)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([_array(t) for t in trees])
+
+
+def lm_params_to_numpy(params: Mapping, cfg) -> dict:
+    """The reference's ``CausalLM`` layout, as numpy, of the port's
+    parameters (or of any tree of their structure): the inverse of
+    ``lm_params_from_numpy``.  Each group's sub-block ``i`` is stacked
+    over the groups into ``groups[f"sub{i}"]``, zamba2's shared block
+    stays one dict and the tail's layers a list."""
+    plan = layer_plan(cfg)
+    k = len(plan.group_kinds)
+    lay = params["layers"]
+    if len(lay) != plan.n_groups * k + len(plan.tail_kinds):
+        raise ValueError(f"{len(lay)} layers for the plan {plan}")
+    out = {key: tree.map(_array, params[key])
+           for key in ("embed", "final_norm", "lm_head", "shared_attn")
+           if key in params}
+    out["groups"] = {
+        f"sub{i}": _stack([lay[g * k + i] for g in range(plan.n_groups)])
+        for i, kind in enumerate(plan.group_kinds) if kind != "shared_attn"}
+    if plan.tail_kinds:
+        out["tail"] = [tree.map(_array, p) for p in lay[plan.n_groups * k:]]
+    return out
+
+
+def whisper_params_to_numpy(params: Mapping, cfg) -> dict:
+    """The reference's ``WhisperModel`` layout, as numpy, of the port's
+    parameters (or of any tree of their structure): the inverse of
+    ``whisper_params_from_numpy``."""
+    if (len(params["enc_blocks"]), len(params["dec_blocks"])) != (
+            cfg.encoder_layers, cfg.num_layers):
+        raise ValueError(f"{len(params['enc_blocks'])} + "
+                         f"{len(params['dec_blocks'])} blocks for "
+                         f"{cfg.encoder_layers} + {cfg.num_layers} layers")
+    out = {key: tree.map(_array, params[key])
+           for key in ("embed", "enc_norm", "dec_norm")}
+    out["enc_blocks"] = _stack(params["enc_blocks"])
+    out["dec_blocks"] = _stack(params["dec_blocks"])
     return out

@@ -24,7 +24,11 @@ each the counterpart of a Pallas kernel of
     (``bincount_route``).
 
 Each launcher runs its kernel for a CUDA tensor and the plain torch
-version for a CPU tensor; it never falls back from one to the other.  All
+version for a CPU tensor; it never falls back from one to the other.
+``scatter_add_autograd`` is K5 under autograd (the MoE combine in
+training): its forward is ``scatter_add_launch``, its backward the
+gather ``scatter_add_grad_plain``, plain torch, as the reference's
+gradient of the segment sum is XLA's transpose and no Pallas kernel.  All
 keep the Pallas kernels' drop rule: an id outside [0, S), negative or not,
 adds nothing.  Unlike the Pallas launchers they take N unpadded: the
 kernels stop at the last row themselves.
@@ -144,6 +148,18 @@ def scatter_add_plain(values: torch.Tensor, ids: torch.Tensor,
     return out.to(torch.float32)
 
 
+def scatter_add_grad_plain(grad_out: torch.Tensor, ids: torch.Tensor,
+                           num_segments: int) -> torch.Tensor:
+    """The segment sum's gradient with respect to its values: row i is
+    ``grad_out[ids[i]]``, zero where ``ids[i]`` is outside [0, S) (the
+    row was dropped, so it moved nothing)."""
+    keep = _kept(ids, num_segments)
+    if num_segments == 0:
+        return grad_out.new_zeros((ids.shape[0], grad_out.shape[1]))
+    rows = grad_out[ids.clamp(0, num_segments - 1).to(torch.int64)]
+    return torch.where(keep[:, None], rows, 0.0)
+
+
 def bincount_plain(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """(S,) int32 counts; out-of-range ids drop."""
     kept = ids[_kept(ids, num_segments)].to(torch.int64)
@@ -217,6 +233,31 @@ def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
             "scatter_add")
     _build.count_launch(LAUNCHES, "scatter_add")
     return out
+
+
+class _ScatterAdd(torch.autograd.Function):
+    """K5 forward (``scatter_add_launch``: the kernel on the card, the
+    plain version on the CPU), the gather backward."""
+
+    @staticmethod
+    def forward(ctx, values, ids, num_segments):
+        ctx.save_for_backward(ids)
+        ctx.num_segments, ctx.dtype = num_segments, values.dtype
+        return scatter_add_launch(values, ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, = ctx.saved_tensors
+        grad = scatter_add_grad_plain(grad_out, ids, ctx.num_segments)
+        return grad.to(ctx.dtype), None, None
+
+
+def scatter_add_autograd(values: torch.Tensor, ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """``scatter_add_launch`` that autograd differentiates with respect to
+    ``values``: the launcher's own result has no ``grad_fn``, since the
+    kernel writes it through ctypes."""
+    return _ScatterAdd.apply(values, ids, num_segments)
 
 
 def scatter_add_instrumented_launch(values: torch.Tensor, ids: torch.Tensor,

@@ -2,9 +2,10 @@
 
 Flags: QKV bias (qwen), attention-logit softcap (gemma2), sliding window
 (gemma2 local layers / zamba2 long-context), cross-attention
-(whisper/llama-vision), bidirectional (whisper encoder) and KV-cache
-decode.  The blockwise path of the reference (``attn_impl="blockwise"``)
-is not ported yet.
+(whisper/llama-vision), bidirectional (whisper encoder), KV-cache
+decode, and the reference's blockwise path (``kv_block``, ``q_block``:
+an online softmax over key blocks, and over query blocks too) for long
+prefill and training.
 
 Shape conventions: activations (B, T, d); Q heads H, KV heads KV with
 H % KV == 0; per-head dim ``head_dim``.
@@ -15,8 +16,11 @@ kernel K8 (``flash_route``), and so does a windowed layer's over a
 sequence that fits inside its window (zamba2's shared attention), where
 the band masks nothing; everything else — decode against the cache,
 longer windows, softcaps, cross-attention — runs the plain ``_sdpa``, as
-in the reference.  The route is decided from the config and the
-arguments before anything is launched.
+in the reference, and ``kv_block`` takes the blockwise path.  K8 has no
+backward (the reference's kernel has none either), so where autograd
+would differentiate through the attention (grad enabled and q, k or v
+requiring it) the route is the plain one too.  The route is decided from
+the config and the arguments before K8 is launched.
 """
 
 from __future__ import annotations
@@ -115,19 +119,71 @@ def _sdpa(q, k, v, bias, softcap_val, scale, bf16_grad=False):
     return torch.einsum("bkgqt,bkth->bkgqh", probs.to(v.dtype), v)
 
 
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window, softcap_val,
+                    scale, kv_block: int, kv_len=None):
+    """Online-softmax attention over key blocks of ``kv_block`` (a loop
+    here, the reference's ``lax.scan``); q (B,KV,G,Tq,hd), k/v
+    (B,KV,Tk,hd).  Peak memory (B,KV,G,Tq,kv_block) instead of (...,Tk);
+    the running max, sum and output in f32."""
+    b, kv_h, g, tq, hd = q.shape
+    tk = k.shape[2]
+    if tk % kv_block:
+        raise ValueError(f"{tk} keys is not a whole number of "
+                         f"{kv_block}-key blocks")
+    qf = q.to(torch.float32)
+    m = q.new_full((b, kv_h, g, tq), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((b, kv_h, g, tq), dtype=torch.float32)
+    acc = q.new_zeros((b, kv_h, g, tq, hd), dtype=torch.float32)
+    for start in range(0, tk, kv_block):
+        ks = k[:, :, start:start + kv_block]
+        vs = v[:, :, start:start + kv_block]
+        s = torch.einsum("bkgqh,bkth->bkgqt", qf,
+                         ks.to(torch.float32)) * scale
+        s = layers.softcap(s, softcap_val)
+        s = s + _mask_bias(q_pos, k_pos[start:start + kv_block], causal,
+                           window, kv_len)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqt,bkth->bkgqh", p.to(vs.dtype), vs).to(torch.float32)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _sdpa_blockwise_2d(q, k, v, q_pos, k_pos, causal, window, softcap_val,
+                       scale, q_block: int, kv_block: int, kv_len=None):
+    """``_sdpa_blockwise`` a block of ``q_block`` queries at a time: peak
+    memory (B,KV,G,q_block,kv_block), whatever the sequence length (the
+    reference's long-prefill / train path)."""
+    tq = q.shape[3]
+    if tq % q_block:
+        raise ValueError(f"{tq} queries is not a whole number of "
+                         f"{q_block}-query blocks")
+    return torch.cat([
+        _sdpa_blockwise(q[:, :, :, i:i + q_block], k, v,
+                        q_pos[i:i + q_block], k_pos, causal, window,
+                        softcap_val, scale, kv_block, kv_len)
+        for i in range(0, tq, q_block)], dim=3)
+
+
 def flash_route(cfg: AttnConfig, *, positions=None, kv_x=None,
                 kv_positions=None, cache=None, kv_block=None,
-                t: Optional[int] = None) -> bool:
+                t: Optional[int] = None, grad: bool = False) -> bool:
     """True where ``attend`` runs K8: self-attention, causal or not, over
     positions 0..T-1 with no cache, softcap, bf16 score round trip or
     blockwise path, and no window unless the sequence length ``t`` fits
     inside it (causal over 0..T-1 with T <= window, the band ``k > q -
-    window`` masks nothing).  A head size the kernel does not take raises
-    there; it does not send the prefill to ``_sdpa``."""
+    window`` masks nothing), where autograd will not differentiate
+    through it (``grad``: grad enabled and q, k or v requiring it; K8 is
+    forward-only).  A head size the kernel does not take raises there; it
+    does not send the prefill to ``_sdpa``."""
     return (kv_x is None and cache is None and kv_block is None
             and positions is None and kv_positions is None
             and (cfg.window is None or (t is not None and t <= cfg.window))
-            and cfg.logit_softcap is None and not cfg.bf16_score_grad)
+            and cfg.logit_softcap is None and not cfg.bf16_score_grad
+            and not grad)
 
 
 def attend(
@@ -139,25 +195,33 @@ def attend(
     kv_x: Optional[torch.Tensor] = None,     # cross-attention source
     kv_positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,            # decode: {"k","v","pos"}
-    kv_block: Optional[int] = None,          # blockwise path: raises
-    q_block: Optional[int] = None,           # + q-chunking: raises
+    kv_block: Optional[int] = None,          # blockwise path when set
+    q_block: Optional[int] = None,           # + q-chunking when set
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (output (B,T,d), updated cache or None).
 
     ``positions=None`` means 0..T-1.  With a cache, the new K/V are written
     into the cache's buffers in place (the reference returns new ones);
     the returned cache holds the same buffers and the next position.
+    ``kv_block`` takes the blockwise path, over query blocks too where
+    ``q_block`` divides T and T > ``q_block``, as in the reference.
     """
     b, t, _ = x.shape
     g = cfg.num_heads // cfg.num_kv_heads
     scale = cfg.head_dim ** -0.5
+    src = x if kv_x is None else kv_x
+    # autograd differentiates through q, k and v where any of their
+    # sources requires grad: then K8, forward-only, is not the route
+    grad = torch.is_grad_enabled() and any(
+        z.requires_grad for z in (x, src, *params["wq"].values(),
+                                  *params["wk"].values(),
+                                  *params["wv"].values()))
     use_flash = flash_route(cfg, positions=positions, kv_x=kv_x,
                             kv_positions=kv_positions, cache=cache,
-                            kv_block=kv_block, t=t)
+                            kv_block=kv_block, t=t, grad=grad)
 
     q = _split_heads(layers.dense(params["wq"], x), cfg.num_heads,
                      cfg.head_dim)
-    src = x if kv_x is None else kv_x
     k = _split_heads(layers.dense(params["wk"], src), cfg.num_kv_heads,
                      cfg.head_dim)
     v = _split_heads(layers.dense(params["wv"], src), cfg.num_kv_heads,
@@ -207,15 +271,22 @@ def attend(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=cfg.causal,
             group=g)
     else:
-        if kv_block is not None:
-            raise NotImplementedError(
-                "blockwise attention (kv_block, q_block) is not ported yet: "
-                "ROADMAP queue 1, \"Blockwise attention\"")
         qg = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
         causal = cfg.causal and kv_x is None
-        bias = _mask_bias(positions, kv_positions, causal, cfg.window, kv_len)
-        out = _sdpa(qg, k, v, bias, cfg.logit_softcap, scale,
-                    bf16_grad=cfg.bf16_score_grad)
+        if kv_block is not None and q_block is not None \
+                and t % q_block == 0 and t > q_block:
+            out = _sdpa_blockwise_2d(qg, k, v, positions, kv_positions,
+                                     causal, cfg.window, cfg.logit_softcap,
+                                     scale, q_block, kv_block, kv_len)
+        elif kv_block is not None:
+            out = _sdpa_blockwise(qg, k, v, positions, kv_positions, causal,
+                                  cfg.window, cfg.logit_softcap, scale,
+                                  kv_block, kv_len)
+        else:
+            bias = _mask_bias(positions, kv_positions, causal, cfg.window,
+                              kv_len)
+            out = _sdpa(qg, k, v, bias, cfg.logit_softcap, scale,
+                        bf16_grad=cfg.bf16_score_grad)
     out = out.to(x.dtype).reshape(b, cfg.num_heads, t, cfg.head_dim)
     return layers.dense(params["wo"], _merge_heads(out)), new_cache
 

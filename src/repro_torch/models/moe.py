@@ -20,8 +20,16 @@ The reference's ``apply_local`` (``repro/models/moe.py``), the layer its
      rows past the capacity are dropped (GShard semantics) and add
      nothing to their token;
   5. sums each token's gate-weighted expert rows with K5
-     (``scatter_add_launch``): the reference's unsort and
-     ``einsum("tkd,tk->td")`` as one segment sum of f32 values.
+     (``scatter_add_autograd``: ``scatter_add_launch`` with a gather for
+     its backward): the reference's unsort and ``einsum("tkd,tk->td")``
+     as one segment sum of f32 values.
+
+Under autograd (training) every step is differentiable, as the
+reference's ``jax.grad`` through ``apply_local``: K7's counts are
+integers and need no gradient, the buffer of step 4 is a fresh one whose
+zeros autograd never reads, and the gates are applied out of place where
+autograd needs the rows they scale.  Serving (no grad) scales them in
+place, to keep its memory.
 
 Every launcher runs its plain version for CPU tensors, so the layer runs
 on the device its inputs lie on.  ``apply_ep`` and ``apply_sharded``
@@ -138,7 +146,7 @@ def _expert_ffn_grouped(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
     slots = num_experts * capacity
     slot = torch.where(keep, sid * capacity + pos, slots)
     buf = xs.new_zeros((slots + 1, d))
-    buf.index_put_((slot,), xs)
+    buf.index_put_((slot,), xs)   # under grad: d xs = d buf[slot]
     buf = buf[:slots].view(num_experts, capacity, d)
     act = mlp._ACT[cfg.activation]
     h = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
@@ -155,8 +163,13 @@ def combine_inputs(y_sorted: torch.Tensor, gates: torch.Tensor,
     the token of each, int32.  Row i of ``y_sorted`` is slot ``order[i]``
     of the token-major (T, k) stream, so it belongs to token
     ``order[i] // k``."""
-    vals = y_sorted.to(torch.float32, copy=True)
-    vals.mul_(gates.reshape(-1)[order][:, None])
+    g = gates.reshape(-1)[order][:, None]
+    if torch.is_grad_enabled() and (y_sorted.requires_grad
+                                    or gates.requires_grad):
+        vals = y_sorted.to(torch.float32) * g   # autograd keeps both
+    else:
+        vals = y_sorted.to(torch.float32, copy=True)
+        vals.mul_(g)
     ids = torch.div(order, top_k, rounding_mode="floor").to(torch.int32)
     return vals, ids
 
@@ -191,7 +204,7 @@ def apply_local(p: dict, x: torch.Tensor, cfg: MoEConfig):
     # K5: each token's gate-weighted expert rows summed in f32
     vals, tok = combine_inputs(y_sorted, gates, order, cfg.top_k)
     del y_sorted
-    out = sk.scatter_add_launch(vals, tok, t).to(x.dtype)
+    out = sk.scatter_add_autograd(vals, tok, t).to(x.dtype)
     if cfg.num_shared_experts:
         out = out + mlp.apply(p["shared"], x, cfg.activation)
     return out, aux, flat_ids

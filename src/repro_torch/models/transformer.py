@@ -46,7 +46,9 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mamba2, mlp, moe, rwkv6
 
@@ -200,14 +202,17 @@ def _rwkv_apply(cfg: ModelConfig, p: dict, h: torch.Tensor,
 
 
 def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
-               cache: Optional[dict], positions=None, image_embeds=None):
+               cache: Optional[dict], positions=None, image_embeds=None,
+               kv_block=None, q_block=None):
     """One pre-norm block.  Returns (h, aux, new_cache); ``cache=None``
     is the prefill.
 
     A cross layer attends to ``image_embeds`` (its cache: their K/V,
     projected once) and adds both branches through tanh gates; its cache
     comes back as it went in.  ``rwkv`` and ``mamba`` layers return their
-    stepped state in decode."""
+    stepped state in decode.  ``kv_block``/``q_block`` (the blockwise
+    path) reach every self-attention, not the cross layers', as in the
+    reference."""
     if kind == "rwkv":
         h, new_cache = _rwkv_apply(cfg, p, h, cache)
         return h, 0.0, new_cache
@@ -233,7 +238,8 @@ def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
         return (h + torch.tanh(p["gate_ffn"]).to(h.dtype) * ffn_out, aux,
                 cache)
     attn_out, new_cache = attention.attend(p["attn"], xn, acfg,
-                                           positions=positions, cache=cache)
+                                           positions=positions, cache=cache,
+                                           kv_block=kv_block, q_block=q_block)
     h = h + attn_out
     ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
                                  _norm(cfg, p["norm2"], h))
@@ -258,6 +264,42 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return {"k": heads(p["attn"]["wk"]), "v": heads(p["attn"]["wv"])}
     c = attention.init_cache(acfg, batch, max_len, dt, device)
     return {"k": c["k"], "v": c["v"]}  # pos passed per step
+
+
+def remat_layer(fn, h: torch.Tensor):
+    """``fn(h)`` whose activations are recomputed in the backward pass
+    (the reference's ``jax.checkpoint`` of its group body).  The layers
+    draw no random numbers, so no RNG state is kept for the replay; a
+    replayed MoE layer launches K7 and K5 again."""
+    return torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor,
+                  loss_chunk: int) -> torch.Tensor:
+    """Next-token xent, f32: position t's logits against label t + 1.
+    With ``loss_chunk``, a chunk of positions at a time, the last one
+    padded and masked, so that the f32 (B, chunk, V) logits are never
+    made at the full length, as in the reference."""
+    h_in, gold = h[:, :-1], labels[:, 1:]
+    t = h_in.shape[1]
+    if not loss_chunk or t <= loss_chunk:
+        return layers.softmax_xent(model.unembed_logits(params, h_in), gold)
+    pad = (-t) % loss_chunk
+    mask = torch.ones(gold.shape, dtype=torch.float32, device=gold.device)
+    if pad:
+        h_in = torch.nn.functional.pad(h_in, (0, 0, 0, pad))
+        gold = torch.nn.functional.pad(gold, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, t + pad, loss_chunk):
+        logits = model.unembed_logits(
+            params, h_in[:, i:i + loss_chunk]).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        g = torch.gather(logits, -1,
+                         gold[:, i:i + loss_chunk, None].long())[..., 0]
+        total = total + torch.sum((logz - g) * mask[:, i:i + loss_chunk])
+    return total / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +344,17 @@ class CausalLM:
             params["shared_attn"] = _sub_init(gen, cfg, "shared_attn")
         return params
 
+    def stacked(self, params) -> dict:
+        """A tree of ``params``' structure: True for each leaf that the
+        reference stacks over its groups (a group's sub-block: every
+        layer but the tail's), False for the tail, the shared block, the
+        embedding, the head and the final norm."""
+        n = self.plan.n_groups * len(self.plan.group_kinds)
+        out = tree.map(lambda _: False, params)
+        out["layers"] = [tree.map(lambda _, i=i: i < n, p)
+                         for i, p in enumerate(params["layers"])]
+        return out
+
     def _layer_params(self, params) -> list:
         """Each layer's parameters, the shared block's where it runs."""
         return [params["shared_attn"] if kind == "shared_attn" else p
@@ -314,16 +367,28 @@ class CausalLM:
         MoE aux losses (0.0 for a dense model).
 
         The layers attend over positions 0..T-1, the route that runs K8
-        where the layer has no softcap and T fits its window, if any;
-        cross layers attend to ``image_embeds`` (B, image tokens, d).
+        where the layer has no softcap and T fits its window, if any, and
+        autograd is not recording through it; with ``attn_impl ==
+        "blockwise"`` they take the blockwise path (``kv_block``,
+        ``q_block``).  Cross layers attend to ``image_embeds`` (B, image
+        tokens, d).  Under grad, ``remat == "block"`` recomputes each
+        layer in the backward pass instead of keeping its activations
+        (``remat_layer``).
         """
+        cfg = self.cfg
+        kv_block = cfg.kv_block if cfg.attn_impl == "blockwise" else None
+        q_block = cfg.q_block or None
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
         h = layers.embed(params["embed"], tokens)
         aux = 0.0
         for kind, p in zip(self.kinds, self._layer_params(params)):
-            h, a, _ = _sub_apply(self.cfg, kind, p, h, cache=None,
-                                 image_embeds=image_embeds)
+            def layer(h, kind=kind, p=p):
+                return _sub_apply(cfg, kind, p, h, cache=None,
+                                  image_embeds=image_embeds,
+                                  kv_block=kv_block, q_block=q_block)[:2]
+            h, a = remat_layer(layer, h) if remat else layer(h)
             aux = aux + a
-        return _norm(self.cfg, params["final_norm"], h), aux
+        return _norm(cfg, params["final_norm"], h), aux
 
     def unembed_logits(self, params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -340,6 +405,17 @@ class CausalLM:
     def forward(self, params, tokens: torch.Tensor, *, image_embeds=None):
         h, aux = self.hidden(params, tokens, image_embeds=image_embeds)
         return self.unembed_logits(params, h), aux
+
+    def loss(self, params, batch: dict, *, loss_chunk: int = 0):
+        """Next-token xent of ``batch["tokens"]`` against
+        ``batch["labels"]``, plus 0.001 x the MoE aux loss for an MoE
+        model: (total, {"xent", "aux"}), f32 scalars."""
+        h, aux = self.hidden(params, batch["tokens"],
+                             image_embeds=batch.get("image_embeds"))
+        xent = _chunked_xent(self, params, h, batch["labels"], loss_chunk)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=xent.device)
+        total = xent + 0.001 * aux if self.cfg.is_moe else xent
+        return total, {"xent": xent, "aux": aux}
 
     # -- serving ------------------------------------------------------------
 

@@ -16,7 +16,10 @@ the decoder's prefill self-attention runs K8 causally
 (``attention.flash_route``); cross-attention (to the encoder's 1500
 frames) and every decode step run the plain ``_sdpa``, as in the
 reference.  ``init_cache`` encodes the frames again and projects each
-decoder layer's cross K/V from that output once.
+decoder layer's cross K/V from that output once.  Under grad (``loss``)
+no self-attention takes K8, which has no backward, and with ``remat ==
+"block"`` each encoder and decoder layer is recomputed in the backward
+pass, as the reference checkpoints its scan bodies.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mlp
+from repro_torch.models.transformer import remat_layer
 
 
 def _acfg(cfg: ModelConfig, causal: bool) -> attention.AttnConfig:
@@ -88,6 +93,15 @@ class WhisperModel:
             "dec_norm": layers.layernorm_init(cfg.d_model, dt, dev),
         }
 
+    def stacked(self, params) -> dict:
+        """A tree of ``params``' structure: True for each leaf that the
+        reference stacks over its layers (every encoder and decoder
+        block's), False for the embedding and the two final norms."""
+        out = tree.map(lambda _: False, params)
+        for key in ("enc_blocks", "dec_blocks"):
+            out[key] = tree.map(lambda _: True, params[key])
+        return out
+
     # -- encoder ------------------------------------------------------------
 
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -97,12 +111,15 @@ class WhisperModel:
         h = frames + layers.sinusoidal_positions(
             frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
         acfg = _acfg(cfg, causal=False)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
         for p in params["enc_blocks"]:
-            a, _ = attention.attend(p["attn"], layers.layernorm(p["norm1"], h),
-                                    acfg)
-            h = h + a
-            h = h + mlp.apply(p["ffn"], layers.layernorm(p["norm2"], h),
-                              "gelu")
+            def body(h, p=p):
+                a, _ = attention.attend(
+                    p["attn"], layers.layernorm(p["norm1"], h), acfg)
+                h = h + a
+                return h + mlp.apply(
+                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu")
+            h = remat_layer(body, h) if remat else body(h)
         return layers.layernorm(params["enc_norm"], h)
 
     # -- decoder ------------------------------------------------------------
@@ -127,18 +144,34 @@ class WhisperModel:
         acfg = _acfg(cfg, causal=True)
         xcfg = _acfg(cfg, causal=False)
         kv_block = cfg.kv_block if cfg.attn_impl == "blockwise" else None
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
         for p in params["dec_blocks"]:
-            a, _ = attention.attend(p["attn"], layers.layernorm(p["norm1"], h),
-                                    acfg, kv_block=kv_block)
-            h = h + a
-            a, _ = attention.attend(p["cross"],
-                                    layers.layernorm(p["norm_c"], h), xcfg,
-                                    kv_x=enc)
-            h = h + a
-            h = h + mlp.apply(p["ffn"], layers.layernorm(p["norm2"], h),
-                              "gelu")
+            def body(h, p=p):
+                a, _ = attention.attend(
+                    p["attn"], layers.layernorm(p["norm1"], h), acfg,
+                    kv_block=kv_block)
+                h = h + a
+                a, _ = attention.attend(
+                    p["cross"], layers.layernorm(p["norm_c"], h), xcfg,
+                    kv_x=enc)
+                h = h + a
+                return h + mlp.apply(
+                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu")
+            h = remat_layer(body, h) if remat else body(h)
         h = layers.layernorm(params["dec_norm"], h)
         return layers.unembed(params["embed"], h), 0.0
+
+    def loss(self, params, batch: dict, *, loss_chunk: int = 0):
+        """Next-token xent of ``batch["tokens"]`` given
+        ``batch["frames"]``: (xent, {"xent", "aux": 0}).  ``loss_chunk``
+        is ignored: the 52k vocab's full logits are small, as in the
+        reference."""
+        del loss_chunk
+        logits, _ = self.forward(params, batch["tokens"], batch["frames"])
+        xent = layers.softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+        return xent, {"xent": xent,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=xent.device)}
 
     # -- serving ------------------------------------------------------------
 

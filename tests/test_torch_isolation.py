@@ -41,7 +41,7 @@ def _imported_roots(path):
 def test_port_sources_import_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
-    assert len([f for f in files if f.parent.name == "examples"]) == 7
+    assert len([f for f in files if f.parent.name == "examples"]) == 8
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -62,7 +62,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.analysis.resilience, repro_torch.service, "
             "repro_torch.analysis.providers.fault, repro_torch.core.hlo, "
             "repro_torch.analysis.providers.hlo, repro_torch.audit, "
-            "repro_torch.lint.rules\n"
+            "repro_torch.lint.rules, repro_torch.launch.train, "
+            "repro_torch.train.step, repro_torch.optim.adamw, "
+            "repro_torch.checkpoint.store, repro_torch.data.pipeline, "
+            "repro_torch.runtime.fault_tolerance, "
+            "repro_torch.runtime.stragglers\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -629,3 +629,75 @@ def test_moe_layer_at_full_width(cuda, monkeypatch):
         want = torch.einsum("tkd,tk->td", y, gates)
     assert out.dtype == torch.float32 and out.shape == (t, mcfg.d_model)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,segments", [(131072, 1024, 16384),
+                                          (32, 1024, 4), (5000, 3, 70)])
+def test_scatter_add_autograd_on_the_card(cuda, n, d, segments):
+    """K5 under autograd: the forward is K5 (one launch), within 1e-5 of
+    the plain f64 sum; the backward is bit for bit autograd's own
+    gradient of the plain version's ``index_add``, 0 on dropped rows.
+    K5's own result has no ``grad_fn``: without the Function autograd
+    would drop this gradient silently."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    vals = torch.randn((n, d), generator=gen, device=cuda)
+    ids = torch.randint(-2, segments + 2, (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.randn((segments, d), generator=gen, device=cuda)
+    assert sk.scatter_add_launch(vals, ids, segments).grad_fn is None
+    got = vals.clone().requires_grad_()
+    before = sk.LAUNCHES["scatter_add"]
+    out = sk.scatter_add_autograd(got, ids, segments)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["scatter_add"] - before == 1
+    want = vals.clone().requires_grad_()
+    plain = sk.scatter_add_plain(want, ids, segments)
+    (plain * w).sum().backward()
+    torch.testing.assert_close(out.detach(), plain.detach(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got.grad, want.grad)
+    dropped = (ids < 0) | (ids >= segments)
+    assert dropped.any() and not got.grad[dropped].any()
+
+
+@pytest.mark.cuda
+def test_moe_layer_gradients_at_full_width(cuda, monkeypatch):
+    """One granite-moe-1b-a400m MoE layer at its published widths in f32,
+    TF32 off, on 2048 seeded tokens, under autograd: K7 and K5 launched
+    once each; the gradients of x, the router and every expert weight
+    within 1e-4 x their largest of the same layer with the plain combine
+    (autograd's own ``index_add``), and the expert weights' non-zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-1b-a400m")
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_expert=cfg.d_expert,
+                         num_experts=cfg.num_experts, top_k=cfg.top_k,
+                         dtype="float32")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = moe.init(gen, mcfg)
+    x = torch.randn((2048, mcfg.d_model), generator=gen, device=cuda)
+    w = torch.randn((2048, mcfg.d_model), generator=gen, device=cuda)
+
+    def grads():
+        leaves = [x, p["router"]["w"], p["w_gate"], p["w_up"], p["w_down"]]
+        live = [t.detach().requires_grad_() for t in leaves]
+        q = dict(p, router={"w": live[1]}, w_gate=live[2], w_up=live[3],
+                 w_down=live[4])
+        out, aux, _ = moe.apply_local(q, live[0], mcfg)
+        return torch.autograd.grad((out * w).sum() + aux, live)
+
+    before = dict(sk.LAUNCHES)
+    got = grads()
+    torch.cuda.synchronize()
+    assert (sk.LAUNCHES["bincount"] - before["bincount"],
+            sk.LAUNCHES["scatter_add"] - before["scatter_add"]) == (1, 1)
+    monkeypatch.setattr(sk, "scatter_add_autograd", sk.scatter_add_plain)
+    want = grads()
+    assert sk.LAUNCHES["scatter_add"] - before["scatter_add"] == 1
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert all(float(g.abs().max()) > 0 for g in got[2:])

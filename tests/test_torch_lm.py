@@ -255,9 +255,52 @@ def test_multi_token_write_past_the_ring_raises():
     with pytest.raises(ValueError, match="overruns"):
         attention.attend(p, x, cfg, positions=torch.arange(6, 9),
                          cache=dict(cache, pos=6))
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP queue 1, "Blockwise attention"'):
-        attention.attend(p, x, cfg, kv_block=64)
+
+
+# the reference's blockwise cases (tests/test_sequence_models.py): dense
+# GQA, and a window with a softcap; their bound 1e-4
+BLOCKWISE = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("window,softcap,kv", [(None, None, 2),
+                                               (24, 20.0, 4), (40, None, 2)])
+@pytest.mark.parametrize("q_block", [None, 16, 64])
+def test_blockwise_attention_matches_the_reference(window, softcap, kv,
+                                                   q_block, monkeypatch):
+    """``kv_block`` takes the blockwise path (online softmax over 16-key
+    blocks), over 16-query blocks too where ``q_block`` divides T and T >
+    ``q_block`` (64 does not: the 1-D path): equal to the reference's
+    ``attend`` on the same path and to its dense attention, no K8."""
+    rcfg, cfg, rp, p = _attn_case(window=window, softcap=softcap, kv=kv)
+    x = np.random.default_rng(5).standard_normal((2, 64, 64)).astype(
+        np.float32)
+    want, _ = ref_attention.attend(rp, jnp.asarray(x), rcfg, kv_block=16,
+                                   q_block=q_block)
+    dense, _ = ref_attention.attend(rp, jnp.asarray(x), rcfg)
+    calls = _count_k8(monkeypatch)
+    got, _ = attention.attend(p, _t(x), cfg, kv_block=16, q_block=q_block)
+    assert calls == []
+    np.testing.assert_allclose(_np(got), want, **BLOCKWISE)
+    np.testing.assert_allclose(_np(got), dense, **BLOCKWISE)
+
+
+def test_blockwise_2d_equals_the_reference_function():
+    """``_sdpa_blockwise_2d`` on the same (B,KV,G,T,hd) inputs as the
+    reference's, causal with a window, and a ragged key count raises."""
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, 2, 2, 32, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 32, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 32, 8)).astype(np.float32)
+    pos = np.arange(32)
+    args = (True, 12, 30.0, 8 ** -0.5, 8, 16)
+    want = ref_attention._sdpa_blockwise_2d(
+        *(jnp.asarray(a) for a in (q, k, v, pos, pos)), *args)
+    got = attention._sdpa_blockwise_2d(*(_t(a) for a in (q, k, v, pos, pos)),
+                                       *args)
+    np.testing.assert_allclose(_np(got), want, **BLOCKWISE)
+    with pytest.raises(ValueError, match="12-key blocks"):
+        attention._sdpa_blockwise(*(_t(a) for a in (q, k, v, pos, pos)),
+                                  True, None, None, 1.0, 12)
 
 
 # -- the model ---------------------------------------------------------------
