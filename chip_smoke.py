@@ -31,8 +31,10 @@ through ``repro_torch.launch.train`` (each MoE layer's dispatch count in
 K7 and its combine in K5 under autograd; attention on the plain path,
 since K8 has no backward), its restart from a checkpoint, one step each
 of whisper-small and zamba2-1.2b, and the training batch's tokens as the
-embedding gradient's scatter through K6.  Phases, each of which must
-pass:
+embedding gradient's scatter through K6.  Last the multi-device paths
+run on one-rank meshes: the MoE layers' expert-parallel and
+tensor-parallel bodies, and granite's train step and prefill with
+DTensor state.  Phases, each of which must pass:
 
 0. the environment: the card's name and power limit, torch and CUDA;
 1. build every kernel with nvcc (one process per source, in parallel),
@@ -69,7 +71,18 @@ pass:
    the loss falling, one step profiled, the restart's replayed steps
    against their first pass, whisper-small's and zamba2's step moving
    every leaf, and the Zipf and uniform token streams through
-   ``Session.validate``);
+   ``Session.validate``), then the mesh: a one-rank NCCL group on the
+   card, qwen3-moe-235b-a22b's MoE layer at every published width
+   through ``moe.apply_ep`` on a (1, 1, 1) ("pod", "data", "model") mesh
+   and granite-moe-1b-a400m's through ``moe.apply_sharded`` on a (1, 1)
+   mesh, each against ``apply_local`` on the same inputs (K7's counts
+   on both bit-equal to ``bincount_plain``, the outputs within a bf16
+   bound where both drop the same rows, each route's drop share), then
+   granite whole with its train state as DTensors on the mesh: a step
+   against the same step without one (xent within the spread that K5's
+   atomic order gives repeated runs, and equal with a deterministic
+   combine; K5 = K7 = 48 and K8 0 a step; the seconds of each), and a
+   prefill (K8's launches equal, the argmax agreeing);
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take
    (K5 and K7 also on the MoE layers' live inputs).
@@ -3318,6 +3331,450 @@ def training_path(dev, tmp: Path, err: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3. the mesh path: one-rank NCCL meshes on the card
+# ---------------------------------------------------------------------------
+
+
+# the mesh phase: qwen3-moe-235b-a22b's MoE layer at every published width
+# through apply_ep on a (1, 1, 1) ("pod", "data", "model") mesh, and
+# granite-moe-1b-a400m's through apply_sharded on a (1, 1) mesh, each
+# against apply_local on the same inputs; then granite whole: one train
+# step of TRAIN_B x TRAIN_T tokens with its state as DTensors, and a
+# prefill of PREFILL_B x PREFILL_T, each against the same without a mesh.
+# One card is one rank: the collectives run, over one rank.  At capacity
+# factor 8.0, where nothing drops, the EP body's buffers grow as tokens x
+# cf^2 on one rank (the capacity applies at the dispatch and again at
+# each expert: 34 GB for its (E, C, d) buffer alone at 4 x 2048 tokens),
+# so that comparison takes MESH_NODROP_B x MESH_NODROP_T tokens; capacity
+# 1.25 (the configs') takes the full PREFILL_B x PREFILL_T
+MESH_NODROP_B, MESH_NODROP_T = 4, 512
+MESH_CFS = (8.0, 1.25)
+# the layer's tokens: unit normals plus one shared normal direction of
+# half their scale, which skews the router towards some experts (a
+# router on unit normals alone is nearly balanced and drops nothing)
+MESH_SHARED_SCALE = 0.5
+# bf16 against bf16 on another route: each element within MESH_BF16_RTOL
+# of |want| (two bf16 ulps) plus MESH_BF16_RTOL x mean |want|, and the
+# mean |err| at most MESH_BF16_MEAN x the mean |want|
+MESH_BF16_RTOL, MESH_BF16_MEAN = 1.6e-2, 2.0 ** -8
+# the step's xent against the unmeshed step's, both on K5: the spread of
+# step 0's xent (these tokens and weights) over nine unmeshed runs on an
+# H100, six of tools/train_repeat.py and three of this phase (11.158946
+# to 11.159167): K5's atomic order alone moves it that far.  With the
+# combine's plain version in PyTorch's deterministic mode (outside the
+# counts) the two forward losses hold to MESH_XENT_DET
+MESH_XENT_SPREAD = 2.21e-4
+MESH_XENT_DET = 1e-6
+# the meshed prefill's logits against the unmeshed prefill's, both on K5:
+# the share of positions whose argmax agrees.  K5's atomic order alone
+# moves granite's bf16 logits at random weights (argmaxes of nearly flat
+# logits), as two unmeshed prefills show; the deterministic comparison
+# (the plain combine, outside the counts) holds the arithmetic to
+# MESH_XENT_DET of the mean |logit|
+MESH_TOP1 = 0.9
+MESH_STEPS = 2                       # each way: the second is timed warm
+MESH_KERNELS = ("flash_attention", "bincount", "scatter_add")
+
+
+def _bf16_close(got, want, what: str) -> dict:
+    """``got`` against ``want`` within the bf16 bound; returns the max
+    and mean |err| and the mean |want|."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs()
+    mean_want = float(scale.mean())
+    worst = float((diff - MESH_BF16_RTOL * (scale + mean_want)).max())
+    mean_err = float(diff.mean())
+    _require(worst <= 0 and mean_err <= MESH_BF16_MEAN * mean_want,
+             f"{what}: max |err| {float(diff.max())}, mean |err| {mean_err} "
+             f"against mean |want| {mean_want}")
+    del diff, scale
+    torch.cuda.synchronize()
+    return {"max_abs_err": float((got.float() - want.float()).abs().max()),
+            "mean_abs_err": mean_err, "mean_abs_want": mean_want}
+
+
+@contextlib.contextmanager
+def recording_counts():
+    """While open, K7's launcher keeps each call's (ids, counts, number
+    of segments); every call runs and counts its launch as it otherwise
+    does."""
+    from repro_torch.kernels.scatter_add import kernel as sk
+    rec = []
+    bincount = sk.bincount_launch
+
+    def recorded(ids, num_segments):
+        counts = bincount(ids, num_segments)
+        rec.append((ids, counts, num_segments))
+        return counts
+
+    sk.bincount_launch = recorded
+    try:
+        yield rec
+    finally:
+        sk.bincount_launch = bincount
+
+
+def _k7_bit_equal(rec, what: str) -> None:
+    """Each recorded K7 count against ``bincount_plain`` on its ids."""
+    import torch
+
+    from repro_torch.kernels.scatter_add import kernel as sk
+    for i, (ids, counts, n) in enumerate(rec):
+        _require(torch.equal(counts, sk.bincount_plain(ids, n)),
+                 f"{what}: K7 call {i} ({ids.numel()} ids -> {n}) != "
+                 f"bincount_plain")
+
+
+def _dropped(counts, capacity: int) -> int:
+    return int((counts.long() - capacity).clamp(min=0).sum())
+
+
+def mesh_moe_layer(dev, mesh, arch: str, path: str) -> dict:
+    """``arch``'s MoE layer at every published width, bf16 weights drawn
+    on the card (seed 0), through ``moe.apply_ep`` (``path`` "ep") or
+    ``moe.apply_sharded`` on ``mesh``, against ``apply_local`` on the same
+    inputs (outside the counts) at each capacity factor: K7's counts on
+    both routes bit-equal to ``bincount_plain``, the outputs within the
+    bf16 bound where the two drop the same rows (EP at 8.0, where nothing
+    drops; TP at any factor), and each route's drop share."""
+    import torch
+
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.models import moe, transformer
+    from repro_torch.parallel import ctx as pctx
+
+    cfg = _serve_config(arch=arch)
+    base = transformer._moe_cfg(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.init(gen, base)
+    d, e, k = base.d_model, base.num_experts, base.top_k
+    n_tok = PREFILL_B * PREFILL_T
+    x = (torch.randn((n_tok, d), generator=gen, device=dev)
+         + MESH_SHARED_SCALE * torch.randn((1, d), generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    data_axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    cfs = MESH_CFS if path == "ep" else (base.capacity_factor,)
+    out = {}
+    for cf in cfs:
+        mcfg = dataclasses.replace(base, capacity_factor=cf)
+        b, t = ((MESH_NODROP_B, MESH_NODROP_T) if path == "ep" and cf > 2
+                else (PREFILL_B, PREFILL_T))
+        xs = x[:b * t]
+        tk = b * t * k
+        with torch.no_grad():
+            with uncounted(), recording_counts() as local_rec:
+                want, _, want_disp = moe.apply_local(p, xs, mcfg)
+            torch.cuda.synchronize()
+            before = dict(sk.LAUNCHES)
+            t0 = time.perf_counter()
+            with pctx.use_mesh(mesh, data_axes=data_axes, tp_axis="model"), \
+                    recording_counts() as mesh_rec:
+                if path == "ep":
+                    got, aux, disp = moe.apply_ep(
+                        p, xs.view(b, t, d), mcfg, mesh, data_axes=data_axes,
+                        tp_axis="model", ep_axis=data_axes[-1])
+                else:
+                    got, aux, disp = moe.apply_sharded(
+                        p, xs.view(b, t, d), mcfg, mesh, data_axes=data_axes,
+                        tp_axis="model")
+                got = got.full_tensor().reshape(b * t, d)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = {n: sk.LAUNCHES[n] - before[n] for n in sk.LAUNCHES
+                    if sk.LAUNCHES[n] != before[n]}
+        _k7_bit_equal(local_rec, f"{arch} apply_local cf {cf}")
+        _k7_bit_equal(mesh_rec, f"{arch} {path} cf {cf}")
+        capacity = max(1, int(tk / e * cf))
+        local_drop = _dropped(local_rec[0][1], capacity) / tk
+        if path == "ep":
+            # one rank: every row goes to shard 0; then its experts
+            cap = max(1, int(tk * cf))
+            cap2 = max(1, int(cap / e * cf))
+            _require(len(mesh_rec) == 2 and launches == {
+                "bincount": 2, "scatter_add": 1},
+                f"{arch} apply_ep cf {cf}: launches {launches}, K7 calls "
+                f"{len(mesh_rec)}")
+            mesh_drop = (_dropped(mesh_rec[0][1], cap)
+                         + _dropped(mesh_rec[1][1], cap2)) / tk
+        else:
+            _require(len(mesh_rec) == 1 and launches == {
+                "bincount": 1, "scatter_add": 1},
+                f"{arch} apply_sharded cf {cf}: launches {launches}")
+            mesh_drop = _dropped(mesh_rec[0][1], capacity) / tk
+        row = {"tokens": b * t, "seconds": seconds, "launches": launches,
+               "drop_share_local": local_drop, "drop_share_mesh": mesh_drop,
+               "k7_calls_bit_equal": len(local_rec) + len(mesh_rec),
+               "largest_count": int(local_rec[0][1].max()),
+               "capacity_local": capacity}
+        same_drops = path != "ep" or (local_drop == 0 and mesh_drop == 0)
+        if path == "ep" and cf > 2:
+            _require(same_drops, f"{arch} cf {cf}: rows dropped "
+                     f"({local_drop}, {mesh_drop}) where none should")
+        if same_drops:
+            row.update(_bf16_close(got, want, f"{arch} {path} cf {cf}"))
+        _require(_all_finite(got) and torch.equal(
+            disp.full_tensor().reshape(-1), want_disp),
+            f"{arch} {path}: outputs not finite, or another dispatch than "
+            f"apply_local's")
+        del want, want_disp, got, aux, disp, local_rec, mesh_rec
+        out[cf] = row
+        log(f"  {arch} {path} on {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names}: {b} x {t} tokens x top-{k} -> {e} "
+            f"experts, capacity factor {cf}: launches {launches}; K7 "
+            f"{row['k7_calls_bit_equal']} counts bit-equal to bincount_plain "
+            f"(largest {row['largest_count']}, apply_local's capacity "
+            f"{capacity}); drop share apply_local {local_drop:.6f}, {path} "
+            f"{mesh_drop:.6f}"
+            + (f"; out vs apply_local max |err| {row['max_abs_err']:.4g}, "
+               f"mean {row['mean_abs_err']:.4g} (mean |want| "
+               f"{row['mean_abs_want']:.4g})" if same_drops else
+               " (different drops by design: outputs not compared)")
+            + f"; {seconds:.3f} s")
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_state(params, mesh, cfg):
+    """A train state on ``mesh``: ``params`` placed by
+    ``parallel.sharding``, AdamW's state from them."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    ps = shd.distribute(params, shd.param_shardings(params, cfg, mesh))
+    return {"params": ps, "opt": adamw.init(ps),
+            "step": torch.zeros((), dtype=torch.int32, device=params[
+                "embed"]["table"].device)}
+
+
+def mesh_train_and_prefill(dev, mesh) -> dict:
+    """granite-moe-1b-a400m whole at every published width (seed 0, the
+    training phase's tokens of step 0): MESH_STEPS steps unmeshed, then
+    the same from the same weights with the state as DTensors on
+    ``mesh`` and the batch sharded over its data axis; then a prefill of
+    PREFILL_B x PREFILL_T unmeshed and on the mesh.  The first step's
+    xent within MESH_XENT_SPREAD (and, outside the counts, the forward
+    loss with the plain combine in deterministic mode within
+    MESH_XENT_DET), K5 = K7 = 2 a layer and K8 0 a step on both, each
+    step's seconds (the second of each: DTensor's host cost),
+    the peak memory beside the reckoning; the prefill's K8 launches equal
+    and its logits' argmax agreeing at MESH_TOP1 of the positions (with
+    the deterministic combine, outside the counts, the logits within
+    MESH_XENT_DET of the mean |logit|; and two unmeshed prefills
+    compared, for K5's own spread)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as train_mod
+
+    cfg = _serve_config(arch=TRAIN_ARCH)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_T, global_batch=TRAIN_B))
+    toks = torch.from_numpy(data.global_batch_at(0)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    step = train_mod.make_train_step(model, train_mod.TrainConfig(), ocfg)
+    per_layer = {"bincount": 2 * cfg.num_layers,
+                 "scatter_add": 2 * cfg.num_layers}
+    out = {}
+    for name in ("unmeshed", "meshed"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        if name == "unmeshed":
+            state = {"params": tree.map(lambda t: t.clone(), params),
+                     "opt": adamw.init(params),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            # the baseline: its launches are not the mesh path's
+            scope, b = uncounted(), batch
+        else:
+            state = _mesh_state(params, mesh, cfg)
+            b = shd.distribute(batch, shd.shardings_of(
+                shd.batch_pspecs(batch, ("data",)), mesh))
+            scope = pctx.use_mesh(mesh, data_axes=("data",), tp_axis="model")
+        state_bytes = {part: sum(t.numel() * t.element_size()
+                                 for t in tree.leaves(state[part]))
+                       for part in ("params", "opt")}
+        rows = []
+        with scope:
+            for _ in range(MESH_STEPS):
+                before = _launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                xent = float(metrics["xent"].full_tensor()
+                             if hasattr(metrics["xent"], "full_tensor")
+                             else metrics["xent"])
+                torch.cuda.synchronize()
+                rows.append({"seconds": time.perf_counter() - t0,
+                             "xent": xent,
+                             "launches": {k: v - before[k] for k, v in
+                                          _launches().items()
+                                          if v != before[k]}})
+        peak = torch.cuda.max_memory_allocated() - held
+        del state, metrics
+        _require(all(r["launches"] == per_layer for r in rows),
+                 f"{name} step launches {[r['launches'] for r in rows]}, "
+                 f"expected {per_layer} (K8 0)")
+        out[name] = {"steps": rows, "peak_memory_bytes": peak,
+                     "reckoning": train_reckoning(cfg, state_bytes)}
+        xents = ", ".join(repr(r["xent"]) for r in rows)
+        secs = ", ".join(f"{r['seconds']:.4f}" for r in rows)
+        log(f"  {TRAIN_ARCH} whole, {name}"
+            + (f" on {tuple(mesh.shape)} {mesh.mesh_dim_names}"
+               if name == "meshed" else "")
+            + f": {TRAIN_B} x {TRAIN_T} tokens a step; xent {xents}; "
+            f"seconds {secs}; launches a "
+            f"step {rows[0]['launches']} (K8 0); peak {peak} bytes against "
+            f"{out[name]['reckoning']['total']} reckoned")
+    gap = abs(out["meshed"]["steps"][0]["xent"]
+              - out["unmeshed"]["steps"][0]["xent"])
+    _require(gap <= MESH_XENT_SPREAD,
+             f"meshed step's xent {gap} from the unmeshed step's")
+    out["xent_gap"] = gap
+    # the same forward loss with a deterministic combine (outside the
+    # counts): the meshed path's arithmetic against the unmeshed path's
+    det = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad(), uncounted(), plain_combine():
+            det["unmeshed"] = float(model.loss(params, batch)[1]["xent"])
+            with pctx.use_mesh(mesh, data_axes=("data",), tp_axis="model"):
+                ps = shd.distribute(params, shd.param_shardings(
+                    params, cfg, mesh))
+                b = shd.distribute(batch, shd.shardings_of(
+                    shd.batch_pspecs(batch, ("data",)), mesh))
+                det["meshed"] = float(
+                    model.loss(ps, b)[1]["xent"].full_tensor())
+                del ps, b
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_gap = abs(det["meshed"] - det["unmeshed"])
+    _require(det_gap <= MESH_XENT_DET * det["unmeshed"],
+             f"deterministic xent: meshed {det['meshed']!r}, unmeshed "
+             f"{det['unmeshed']!r}")
+    out["deterministic_xent"] = det
+    host = (out["meshed"]["steps"][-1]["seconds"]
+            - out["unmeshed"]["steps"][-1]["seconds"])
+    log(f"  the first step's xent: meshed - unmeshed {gap!r} (within "
+        f"{MESH_XENT_SPREAD}); with the plain combine in deterministic "
+        f"mode {det['meshed']!r} meshed, {det['unmeshed']!r} unmeshed "
+        f"(|diff| {det_gap!r}, within {MESH_XENT_DET} relative); step "
+        f"{MESH_STEPS} "
+        f"{out['meshed']['steps'][-1]['seconds']:.4f} s meshed against "
+        f"{out['unmeshed']['steps'][-1]['seconds']:.4f} s unmeshed "
+        f"({host:+.4f} s: DTensor's host cost)")
+
+    tokens = toks[:PREFILL_B]
+    ps = shd.distribute(params, shd.param_shardings(params, cfg, mesh))
+    tok_dt = shd.distribute({"t": tokens}, shd.shardings_of(
+        shd.batch_pspecs({"t": tokens}, ("data",)), mesh))["t"]
+
+    def prefill(meshed: bool):
+        with torch.no_grad():
+            if not meshed:
+                return model.forward(params, tokens)[0]
+            with pctx.use_mesh(mesh, data_axes=("data",), tp_axis="model"):
+                return model.forward(ps, tok_dt)[0].full_tensor()
+
+    def agreement(got, want) -> dict:
+        diff = (got - want).abs()
+        return {"top1_agreement": float(
+                    (got.argmax(-1) == want.argmax(-1)).float().mean()),
+                "max_abs_err": float(diff.max()),
+                "mean_abs_err": float(diff.mean()),
+                "mean_abs_want": float(want.abs().mean())}
+
+    # the arithmetic: with the combine's plain version in deterministic
+    # mode (outside the counts), meshed against unmeshed
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with uncounted(), plain_combine():
+            want = prefill(False)
+            got = prefill(True)
+            det = agreement(got, want)
+            del got, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _require(det["max_abs_err"] <= MESH_XENT_DET * det["mean_abs_want"],
+             f"meshed prefill, deterministic combine: {det}")
+    # on K5: the unmeshed prefill twice (outside the counts), then meshed
+    k8 = {}
+    with uncounted():
+        before = _launches()["flash_attention"]
+        want = prefill(False)
+        k8["unmeshed"] = _launches()["flash_attention"] - before
+        again = agreement(prefill(False), want)
+    torch.cuda.synchronize()
+    before = _launches()["flash_attention"]
+    t0 = time.perf_counter()
+    got = prefill(True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k8["meshed"] = _launches()["flash_attention"] - before
+    _require(k8["meshed"] == k8["unmeshed"] == cfg.num_layers,
+             f"prefill K8 launches {k8}")
+    _require(got.shape == want.shape and _all_finite(got),
+             f"meshed prefill logits {tuple(got.shape)}")
+    meshed = agreement(got, want)
+    _require(meshed["top1_agreement"] >= MESH_TOP1,
+             f"meshed prefill: {meshed}")
+    out["prefill"] = {"k8": k8["meshed"], "seconds": seconds,
+                      "deterministic": det, "meshed": meshed,
+                      "unmeshed_twice": again}
+    log(f"  prefill {PREFILL_B} x {PREFILL_T}: K8 {k8['meshed']} meshed, "
+        f"{k8['unmeshed']} unmeshed; meshed {seconds:.3f} s")
+    for label, row in (("deterministic combine, meshed vs unmeshed", det),
+                       ("K5, unmeshed twice", again),
+                       ("K5, meshed vs unmeshed", meshed)):
+        log(f"  prefill logits, {label}: top-1 agreement "
+            f"{row['top1_agreement']:.4f}, max |diff| "
+            f"{row['max_abs_err']:.4g}, mean {row['mean_abs_err']:.4g} "
+            f"against mean |logit| {row['mean_abs_want']:.4g}")
+    del got, want, ps, tok_dt, params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_path(dev) -> dict:
+    """The mesh phase: a one-rank NCCL group (no network: a ``HashStore``
+    and the loopback interface), a (1, 1, 1) ("pod", "data", "model") mesh
+    and a (1, 1) ("data", "model") mesh on the card; qwen3-moe's layer
+    through ``apply_ep``, granite's through ``apply_sharded``, then
+    granite whole: a train step and a prefill on the mesh.  The group is
+    destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh3 = mesh_mod.compat_make_mesh((1, 1, 1), ("pod", "data", "model"))
+        mesh2 = mesh_mod.compat_make_mesh((1, 1), ("data", "model"))
+        out = {"qwen3-moe layer": mesh_moe_layer(
+            dev, mesh3, "qwen3-moe-235b-a22b", "ep")}
+        out["granite-moe layer"] = mesh_moe_layer(
+            dev, mesh2, "granite-moe-1b-a400m", "sharded")
+        out["granite-moe whole"] = mesh_train_and_prefill(dev, mesh2)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 4. times
 # ---------------------------------------------------------------------------
 
@@ -3852,6 +4309,22 @@ def main() -> int:
             launches[k] += n
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
             f"{train_launches}")
+    t0 = phase("main path: the mesh (one-rank NCCL meshes): qwen3-moe's "
+               "layer through apply_ep, granite-moe's through "
+               "apply_sharded, granite whole: a train step and a prefill")
+    hk.reset_launches()
+    sk.reset_launches()
+    fk.reset_launches()
+    mesh_path(dev)
+    torch.cuda.synchronize()
+    mesh_launches = {k: n for k, n in _launches().items() if n}
+    _require(mesh_launches.keys() == set(MESH_KERNELS),
+             f"mesh path launched {mesh_launches}")
+    for k, n in mesh_launches.items():
+        by_path[k]["mesh"] = n
+        launches[k] += n
+    log(f"  ok in {time.perf_counter() - t0:.1f} s; launches "
+        f"{mesh_launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     _require(not missing, f"kernels not launched on the main path: {missing}")
 

@@ -11,9 +11,13 @@ a tree of the same structure saved by either package restores in the
 other.  numpy has no bfloat16: a bf16 leaf is stored as the 16-bit
 unsigned view of its bits, as the reference stores it, and the manifest's
 dtype turns it back.  ``restore`` puts each leaf on the device of the
-matching leaf of ``like``.  A background thread writes off the training
-loop; the commit order (leaves -> manifest -> rename -> LATEST) means a
-torn write is never visible.
+matching leaf of ``like``, or with ``shardings`` (a tree of
+``parallel.sharding.NamedSharding``) places it on its mesh.  A DTensor
+leaf (a state on a mesh) is saved as its full tensor, gathered on every
+rank and written by rank 0, so that a checkpoint knows no mesh and
+restores onto any (the reference's elastic restore).  A background
+thread writes off the training loop; the commit order (leaves ->
+manifest -> rename -> LATEST) means a torn write is never visible.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import tree
 
@@ -35,9 +41,22 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``; a DTensor's full tensor (a collective: every
+    rank of its mesh takes part)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().to("cpu", copy=True)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process with no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_savable(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` as numpy; bf16 as its 16-bit pattern."""
-    t = t.detach().to("cpu")
+    t = _host(t)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -55,11 +74,19 @@ def _ids(n: int) -> list[str]:
 
 def save(directory: str, step: int, state: Any) -> str:
     """Synchronous checkpoint write with atomic commit of a tree of
-    tensors (any device)."""
-    tmp = os.path.join(directory, f".tmp_step_{step}")
-    final = os.path.join(directory, f"step_{step}")
-    os.makedirs(tmp, exist_ok=True)
+    tensors (any device; DTensor leaves on every rank of their mesh,
+    which returns once rank 0 has committed)."""
     flat = tree.leaves(state)
+    final = os.path.join(directory, f"step_{step}")
+    meshed = any(isinstance(leaf, DTensor) for leaf in flat)
+    if not _writer():
+        if meshed:
+            for leaf in flat:
+                _host(leaf)
+            dist.barrier()
+        return final
+    tmp = os.path.join(directory, f".tmp_step_{step}")
+    os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": []}
     for lid, leaf in zip(_ids(len(flat)), flat):
         arr = _to_savable(leaf)
@@ -76,6 +103,8 @@ def save(directory: str, step: int, state: Any) -> str:
         f.write(str(step))
     os.replace(os.path.join(directory, ".LATEST_tmp"),
                os.path.join(directory, "LATEST"))
+    if meshed:
+        dist.barrier()
     return final
 
 
@@ -87,11 +116,13 @@ def latest_step(directory: str) -> Optional[int]:
         return int(f.read().strip())
 
 
-def restore(directory: str, like: Any, step: Optional[int] = None
-            ) -> tuple[Any, int]:
+def restore(directory: str, like: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """The checkpoint at ``step`` (default: the committed one) in the
-    structure of ``like``, each leaf on the device of ``like``'s leaf.
-    Returns (tree, step)."""
+    structure of ``like``, each leaf on the device of ``like``'s leaf, or
+    with ``shardings`` (a matching tree of ``NamedSharding``) a DTensor
+    placed on its mesh, whatever mesh it was saved from.  Returns (tree,
+    step)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -104,13 +135,21 @@ def restore(directory: str, like: Any, step: Optional[int] = None
     if len(flat) != len(dtypes):
         raise ValueError(f"{directory} step {step} holds {len(dtypes)} "
                          f"leaves, the tree {len(flat)}")
+    shards = (tree.leaves(shardings) if shardings is not None
+              else [None] * len(flat))
+    if len(shards) != len(flat):
+        raise ValueError(f"{len(shards)} shardings for {len(flat)} leaves")
     out = []
-    for lid, leaf in zip(_ids(len(flat)), flat):
+    for lid, leaf, sh in zip(_ids(len(flat)), flat, shards):
         t = _from_saved(np.load(os.path.join(d, lid + ".npy")), dtypes[lid])
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{lid}: saved {tuple(t.shape)}, the tree "
                              f"{tuple(leaf.shape)}")
-        out.append(t.to(leaf.device))
+        if sh is None:
+            out.append(t.to(leaf.device))
+        else:
+            out.append(distribute_tensor(t.to(sh.mesh.device_type),
+                                         sh.mesh, sh.placements))
     return tree.unflatten(like, out), step
 
 
@@ -153,7 +192,7 @@ class AsyncCheckpointer:
         if self._err:
             raise self._err
         # host copies now: the caller may write the device tensors next
-        host = tree.map(lambda x: x.detach().to("cpu", copy=True), state)
+        host = tree.map(_host, state)
         self._q.put((int(step), host))
 
     def wait(self) -> None:

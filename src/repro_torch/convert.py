@@ -180,11 +180,14 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _stack(trees: list) -> dict:
+def _stack(trees: list, stack=None) -> dict:
     """``n`` trees of one structure -> one tree whose leaves carry a
-    leading axis of ``n`` (``_unstack``'s inverse)."""
+    leading axis of ``n`` (``_unstack``'s inverse); ``stack`` joins the
+    ``n`` leaves of one place (default: ``np.stack`` of their arrays)."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: _stack([t[k] for t in trees], stack) for k in trees[0]}
+    if stack is not None:
+        return stack(trees)
     return np.stack([_array(t) for t in trees])
 
 
@@ -194,19 +197,28 @@ def lm_params_to_numpy(params: Mapping, cfg) -> dict:
     ``lm_params_from_numpy``.  Each group's sub-block ``i`` is stacked
     over the groups into ``groups[f"sub{i}"]``, zamba2's shared block
     stays one dict and the tail's layers a list."""
+    return lm_tree_to_reference(params, cfg, _array, None)
+
+
+def lm_tree_to_reference(params: Mapping, cfg, leaf, stack) -> dict:
+    """``lm_params_to_numpy`` for any leaves: ``leaf`` maps a leaf that
+    stays one (the embedding, the norms, the shared block, the tail's),
+    ``stack`` the list of a sub-block's leaves over the groups to the
+    reference's stacked leaf (None: ``np.stack``)."""
     plan = layer_plan(cfg)
     k = len(plan.group_kinds)
     lay = params["layers"]
     if len(lay) != plan.n_groups * k + len(plan.tail_kinds):
         raise ValueError(f"{len(lay)} layers for the plan {plan}")
-    out = {key: tree.map(_array, params[key])
+    out = {key: tree.map(leaf, params[key])
            for key in ("embed", "final_norm", "lm_head", "shared_attn")
            if key in params}
     out["groups"] = {
-        f"sub{i}": _stack([lay[g * k + i] for g in range(plan.n_groups)])
+        f"sub{i}": _stack([lay[g * k + i] for g in range(plan.n_groups)],
+                          stack)
         for i, kind in enumerate(plan.group_kinds) if kind != "shared_attn"}
     if plan.tail_kinds:
-        out["tail"] = [tree.map(_array, p) for p in lay[plan.n_groups * k:]]
+        out["tail"] = [tree.map(leaf, p) for p in lay[plan.n_groups * k:]]
     return out
 
 
@@ -219,8 +231,22 @@ def whisper_params_to_numpy(params: Mapping, cfg) -> dict:
         raise ValueError(f"{len(params['enc_blocks'])} + "
                          f"{len(params['dec_blocks'])} blocks for "
                          f"{cfg.encoder_layers} + {cfg.num_layers} layers")
-    out = {key: tree.map(_array, params[key])
+    return whisper_tree_to_reference(params, cfg, _array, None)
+
+
+def whisper_tree_to_reference(params: Mapping, cfg, leaf, stack) -> dict:
+    """``whisper_params_to_numpy`` for any leaves (as
+    ``lm_tree_to_reference``)."""
+    out = {key: tree.map(leaf, params[key])
            for key in ("embed", "enc_norm", "dec_norm")}
-    out["enc_blocks"] = _stack(params["enc_blocks"])
-    out["dec_blocks"] = _stack(params["dec_blocks"])
+    out["enc_blocks"] = _stack(params["enc_blocks"], stack)
+    out["dec_blocks"] = _stack(params["dec_blocks"], stack)
     return out
+
+
+def params_on_mesh(params, cfg, mesh) -> dict:
+    """``params`` (plain tensors, the same on every rank: carried across
+    by ``lm_params_from_numpy`` or ``whisper_params_from_numpy``) as
+    DTensors on ``mesh``, each placed by ``parallel.sharding``."""
+    from repro_torch.parallel import sharding as shd
+    return shd.distribute(params, shd.param_shardings(params, cfg, mesh))

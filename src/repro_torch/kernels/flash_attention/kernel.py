@@ -108,6 +108,8 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, group)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, group=group)
+    if q.device.type == "meta":   # shapes only (launch/specs.py)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     b, h, t, d = q.shape

@@ -32,6 +32,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models import layers
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx as pctx
 
 NEG_INF = -2.0e38
 
@@ -49,9 +51,10 @@ class AttnConfig:
     rope_theta: float = 10000.0
     use_rope: bool = True
     dtype: str = "bfloat16"
-    # Megatron-style GQA TP in the reference: replicate KV heads across the
-    # query groups.  A sharding lever that changes no result; one card
-    # has nothing to shard, so attend ignores it.
+    # Megatron-style GQA TP: under a mesh, repeat the KV heads across the
+    # query groups so that K/V shard over the model axis with the query
+    # heads.  It changes no result; without a mesh there is nothing to
+    # shard and attend does not repeat them.
     tp_expand_heads: bool = False
     # round-trip the scores through bf16 after the f32 QK^T (a backward
     # lever of the reference; the forward keeps it)
@@ -220,11 +223,12 @@ def attend(
                             kv_positions=kv_positions, cache=cache,
                             kv_block=kv_block, t=t, grad=grad)
 
-    q = _split_heads(layers.dense(params["wq"], x), cfg.num_heads,
+    tp = pctx.shard_batch_tp
+    q = _split_heads(tp(layers.dense(params["wq"], x)), cfg.num_heads,
                      cfg.head_dim)
-    k = _split_heads(layers.dense(params["wk"], src), cfg.num_kv_heads,
+    k = _split_heads(tp(layers.dense(params["wk"], src)), cfg.num_kv_heads,
                      cfg.head_dim)
-    v = _split_heads(layers.dense(params["wv"], src), cfg.num_kv_heads,
+    v = _split_heads(tp(layers.dense(params["wv"], src)), cfg.num_kv_heads,
                      cfg.head_dim)
 
     if positions is None:
@@ -265,13 +269,24 @@ def attend(
         kv_len = pos + t
         new_cache = {"k": ck, "v": cv, "pos": pos + t}
 
-    if use_flash:
-        # K8 at the real T: the kernel masks a ragged last tile itself
-        out = flash_kernel.flash_attention_launch(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=cfg.causal,
-            group=g)
+    if cfg.tp_expand_heads and g > 1 and pctx.current() is not None:
+        k = torch.repeat_interleave(k, g, dim=1)        # (B, H, Tk, hd)
+        v = torch.repeat_interleave(v, g, dim=1)
+        k, v = pctx.shard_heads(k), pctx.shard_heads(v)
+        kv_heads = cfg.num_heads
     else:
-        qg = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
+        kv_heads = cfg.num_kv_heads
+    q = pctx.shard_heads(q)
+    g = cfg.num_heads // kv_heads
+
+    def core(q, k, v):
+        if use_flash:
+            # K8 at the real T: the kernel masks a ragged last tile itself
+            return flash_kernel.flash_attention_launch(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=cfg.causal, group=g)
+        bl, hl = q.shape[:2]
+        qg = q.reshape(bl, hl // g, g, t, cfg.head_dim)
         causal = cfg.causal and kv_x is None
         if kv_block is not None and q_block is not None \
                 and t % q_block == 0 and t > q_block:
@@ -287,8 +302,13 @@ def attend(
                               kv_len)
             out = _sdpa(qg, k, v, bias, cfg.logit_softcap, scale,
                         bf16_grad=cfg.bf16_score_grad)
+        return out.reshape(bl, hl, t, cfg.head_dim)
+
+    # under a mesh, on each rank's (batch, heads) shard
+    out = coll.per_head(core, (q, k, v), [("act", 1)] * 3, 1)
     out = out.to(x.dtype).reshape(b, cfg.num_heads, t, cfg.head_dim)
-    return layers.dense(params["wo"], _merge_heads(out)), new_cache
+    merged = pctx.shard_batch_tp(_merge_heads(out))
+    return layers.dense(params["wo"], merged), new_cache
 
 
 def cross_cached(params: dict, x: torch.Tensor, cfg: AttnConfig,

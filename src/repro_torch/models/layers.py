@@ -14,6 +14,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.sharding import P
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -23,10 +28,20 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[name]
 
 
+class MetaGenerator:
+    """Stands in for a generator where ``init`` should only lay out the
+    parameters: every tensor is made on the meta device, with its shape
+    and dtype and no memory, and nothing is drawn (the counterpart of
+    ``jax.eval_shape(model.init, key)``)."""
+    device = torch.device("meta")
+
+
 def truncated_normal_init(gen: torch.Generator, shape, scale: float,
                           dtype=torch.bfloat16) -> torch.Tensor:
     """Truncated-normal fan-in init (matches common LM init schemes)."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(scale).to(dtype)
 
@@ -77,7 +92,31 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(p["table"], DTensor):
+        return _embed_vocab_parallel(p["table"], tokens)
     return F.embedding(tokens, p["table"])
+
+
+def _embed_vocab_parallel(table, tokens) -> torch.Tensor:
+    """The lookup under a mesh, each rank on its shard: the table's rows
+    over the model axis (its columns gathered), the tokens over the data
+    axes where the batch divides.  A rank looks up the tokens in its rows
+    and zeros the rest; the sum over the model axis is every token's row
+    (DTensor's own rule for a vocab-sharded lookup does not hold when the
+    tokens are sharded on another mesh axis)."""
+    ctx = pctx.current()
+    mesh = table.device_mesh
+    lead = pctx.batch_axes_for(ctx, tokens.shape[0])
+    tok = coll.to_local(tokens, mesh, P(lead, None))
+    rows = coll.to_local(table, mesh, P(ctx.tp_axis, None),
+                         ctx.data_axes if lead else ())
+    lo = mesh.get_local_rank(ctx.tp_axis) * rows.shape[0]
+    ids = tok.to(torch.int64) - lo
+    hit = (ids >= 0) & (ids < rows.shape[0])
+    out = F.embedding(ids.clamp(0, rows.shape[0] - 1), rows) \
+        * hit[..., None].to(rows.dtype)
+    out = coll.sum_over(out, mesh.get_group(ctx.tp_axis))
+    return coll.from_local(out, mesh, P(lead, None, None))
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -132,14 +171,56 @@ def sinusoidal_positions(num: int, d: int, device="cuda") -> torch.Tensor:
 # -- losses ------------------------------------------------------------------
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean cross-entropy; logits (..., V) any dtype, computed in f32."""
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's -log softmax(logits)[label], f32; logits (..., V)
+    any dtype.  DTensor logits (under a mesh) are taken on each rank's
+    shard: the vocab over the model axis where it divides."""
+    if isinstance(logits, DTensor):
+        return _nll_vocab_parallel(logits, labels)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def _nll_vocab_parallel(logits, labels) -> torch.Tensor:
+    """``nll`` of (B, T, V) DTensor logits, Megatron's vocab-parallel
+    cross-entropy: each rank takes the log-sum-exp and the label's logit
+    over its slice of the vocab, and the model axis combines them (DTensor's
+    own rule for a gather from a sharded dimension does not hold when the
+    batch is sharded on another mesh axis).  Each rank's ``logsumexp``
+    keeps no (B, T, V) temporary for its backward."""
+    ctx = pctx.current()
+    mesh = logits.device_mesh
+    lead = pctx.batch_axes_for(ctx, logits.shape[0])
+    tp = pctx.axis_size(mesh, ctx.tp_axis)
+    split = logits.shape[-1] % tp == 0
+    spec = P(lead, *(None,) * (logits.ndim - 2), ctx.tp_axis if split
+             else None)
+    local = coll.to_local(logits, mesh, spec).to(torch.float32)
+    gold = coll.to_local(labels, mesh, P(lead)).to(torch.int64)
+    lse = torch.logsumexp(local, dim=-1)
+    lo = mesh.get_local_rank(ctx.tp_axis) * local.shape[-1] if split else 0
+    ids = gold - lo
+    hit = (ids >= 0) & (ids < local.shape[-1])
+    g = torch.gather(local, -1, ids.clamp(0, local.shape[-1] - 1)[..., None]
+                     )[..., 0] * hit.to(local.dtype)
+    if split:   # log sum_r exp(lse_r), about the largest lse_r
+        group = mesh.get_group(ctx.tp_axis)
+        m = lse.detach().clone()
+        torch.distributed.all_reduce(
+            m, op=torch.distributed.ReduceOp.MAX, group=group)
+        lse = m + torch.log(coll.sum_over(torch.exp(lse - m), group))
+        g = coll.sum_over(g, group)
+    out = lse - g
+    return coll.from_local(out, mesh, P(lead, *(None,) * (out.ndim - 1)))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy; logits (..., V) any dtype, computed in f32."""
+    loss = nll(logits, labels)
     if mask is not None:
-        nll = nll * mask
-        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()

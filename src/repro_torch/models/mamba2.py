@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx as pctx
 
 CHUNK_LOOP = "mamba2 SSD chunk loop"  # the profiler's name for it
 
@@ -137,14 +139,19 @@ def apply(p: dict, x: torch.Tensor, cfg: Mamba2Config) -> torch.Tensor:
     bsz, t, _ = x.shape
     proj = layers.dense(p["in_proj"], x)
     z, xin, b_mat, c_mat, dt_raw = _split_proj(proj, cfg)
+    z, xin = pctx.shard_batch_tp(z), pctx.shard_batch_tp(xin)
     xbc = torch.cat([xin, b_mat, c_mat], dim=-1)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xin, b_mat, c_mat = torch.split(
         xbc, (cfg.d_inner, cfg.state_dim, cfg.state_dim), dim=-1)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    xh = xin.reshape(bsz, t, cfg.num_heads, cfg.head_dim)
-    y, _ = _ssd_chunked(xh, dt, a, b_mat, c_mat, cfg.chunk)
+    xh = pctx.unflatten(xin, -1, (cfg.num_heads, cfg.head_dim))
+    # under a mesh, on each rank's (batch, heads) shard
+    y = coll.per_head(lambda *xs: _ssd_chunked(*xs, cfg.chunk)[0],
+                      (xh, dt, a, b_mat, c_mat),
+                      [("act", 2), ("act", 2), ("param", 0), ("act", None),
+                       ("act", None)], 2)
     y = y + xh.to(torch.float32) * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, t, cfg.d_inner).to(x.dtype)
     y = layers.rmsnorm(p["norm"], y * F.silu(z))

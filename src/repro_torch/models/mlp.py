@@ -1,8 +1,8 @@
 """Gated MLP (SwiGLU/GeGLU) — the dense FFN used by every assigned arch.
 
-The reference's ``pctx.shard_batch_tp`` hints are sharding annotations
-with no effect on one card; they are left out here (``parallel/`` is a
-later item of the port).
+Under a mesh the gate and up projections' outputs are pinned to the
+batch over the data axes and the hidden over the model axis
+(``pctx.shard_batch_tp``), so that the products stay tensor-parallel.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import ctx as pctx
 
 
 def init(gen: torch.Generator, d_model: int, d_ff: int,
@@ -32,5 +33,6 @@ _ACT = {"silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh"),
 
 def apply(p: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     act = _ACT[activation]
-    h = act(layers.dense(p["w_gate"], x)) * layers.dense(p["w_up"], x)
+    h = act(pctx.shard_batch_tp(layers.dense(p["w_gate"], x))) * \
+        pctx.shard_batch_tp(layers.dense(p["w_up"], x))
     return layers.dense(p["w_down"], h)

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx as pctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +93,7 @@ def _ddlerp(p: dict, x: torch.Tensor, x_prev: torch.Tensor):
     xx = x_prev - x
     base = x + xx * p["mix_x"]
     lora = torch.tanh(base @ p["mix_a"])                    # (B,T,5*Lm)
-    lora = lora.reshape(x.shape[:-1] + (len(_MIX_NAMES), -1))
+    lora = pctx.unflatten(lora, -1, (len(_MIX_NAMES), -1))
     adj = torch.einsum("btml,mld->btmd", lora.to(x.dtype), p["mix_b"])
     return [x + xx * (p["mix_base"][i] + adj[..., i, :])
             for i in range(len(_MIX_NAMES))]  # xw, xk, xv, xr, xg
@@ -177,14 +179,19 @@ def time_mix(p: dict, x: torch.Tensor, cfg: RWKVConfig,
     b, t, d = x.shape
     h, n = cfg.num_heads, cfg.head_dim
     xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x))
-    logw = _decay(p, xw).reshape(b, t, h, n)
-    r, k, v = (layers.dense(p[w], xi).reshape(b, t, h, n).to(torch.float32)
-               for w, xi in (("wr", xr), ("wk", xk), ("wv", xv)))
-    g = layers.dense(p["wg"], xg)
-    if impl == "scan":
-        y = _wkv_scan(r, k, v, logw, p["bonus"])
-    else:
-        y = _wkv_chunked(r, k, v, logw, p["bonus"], chunk)
+    tp = pctx.shard_batch_tp
+    logw = pctx.unflatten(tp(_decay(p, xw)), -1, (h, n))
+    r, k, v = (pctx.unflatten(tp(layers.dense(p[w], xi)), -1, (h, n)).to(
+        torch.float32) for w, xi in (("wr", xr), ("wk", xk), ("wv", xv)))
+    g = tp(layers.dense(p["wg"], xg))
+    def wkv(r, k, v, logw, u):
+        if impl == "scan":
+            return _wkv_scan(r, k, v, logw, u)
+        return _wkv_chunked(r, k, v, logw, u, chunk)
+
+    # under a mesh, on each rank's (batch, heads) shard
+    y = coll.per_head(wkv, (r, k, v, logw, p["bonus"]),
+                      [("act", 2)] * 4 + [("param", 0)], 2)
     y = y.reshape(b, t, d).to(x.dtype)
     y = layers.layernorm(p["ln_x"], y)
     return layers.dense(p["wo"], y * F.silu(g))
@@ -214,7 +221,8 @@ def channel_mix(p: dict, x: torch.Tensor, last=None) -> torch.Tensor:
     xp = _token_shift(x, last)
     xk = x + (xp - x) * p["cm_mix_k"]
     xr = x + (xp - x) * p["cm_mix_r"]
-    k = torch.square(torch.relu(layers.dense(p["cm_k"], xk)))
+    k = torch.square(torch.relu(
+        pctx.shard_batch_tp(layers.dense(p["cm_k"], xk))))
     return torch.sigmoid(layers.dense(p["cm_r"], xr)) * \
         layers.dense(p["cm_v"], k)
 

@@ -51,6 +51,7 @@ import torch.utils.checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mamba2, mlp, moe, rwkv6
+from repro_torch.parallel import ctx as pctx
 
 # the layer kinds whose decode cache is a KV buffer written at a position
 ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
@@ -173,12 +174,25 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
 
 
 def _ffn_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
-    """Returns (out, aux, dispatch ids or None)."""
+    """Returns (out, aux, dispatch ids or None).  Under a mesh an MoE
+    layer takes the reference's mesh paths: ``apply_ep`` (experts over
+    the last data axis) where ``use_ep``, else ``apply_sharded``."""
     if kind in ("cross", "shared_attn") or not cfg.is_moe:
         return mlp.apply(p, h, cfg.activation), 0.0, None
-    b, s, d = h.shape
-    out, aux, disp = moe.apply_local(p, h.reshape(b * s, d), _moe_cfg(cfg))
-    return out.reshape(b, s, d), aux, disp
+    mesh_ctx = pctx.current()
+    mcfg = _moe_cfg(cfg)
+    if mesh_ctx is None:
+        b, s, d = h.shape
+        out, aux, disp = moe.apply_local(p, h.reshape(b * s, d), mcfg)
+        return out.reshape(b, s, d), aux, disp
+    if mcfg.use_ep:
+        return moe.apply_ep(p, h, mcfg, mesh_ctx.mesh,
+                            data_axes=mesh_ctx.data_axes,
+                            tp_axis=mesh_ctx.tp_axis,
+                            ep_axis=mesh_ctx.data_axes[-1])
+    return moe.apply_sharded(p, h, mcfg, mesh_ctx.mesh,
+                             data_axes=mesh_ctx.data_axes,
+                             tp_axis=mesh_ctx.tp_axis)
 
 
 def _rwkv_apply(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -293,12 +307,9 @@ def _chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor,
         mask = torch.nn.functional.pad(mask, (0, pad))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, t + pad, loss_chunk):
-        logits = model.unembed_logits(
-            params, h_in[:, i:i + loss_chunk]).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        g = torch.gather(logits, -1,
-                         gold[:, i:i + loss_chunk, None].long())[..., 0]
-        total = total + torch.sum((logz - g) * mask[:, i:i + loss_chunk])
+        logits = model.unembed_logits(params, h_in[:, i:i + loss_chunk])
+        nll = layers.nll(logits, gold[:, i:i + loss_chunk])
+        total = total + torch.sum(nll * mask[:, i:i + loss_chunk])
     return total / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -379,13 +390,14 @@ class CausalLM:
         kv_block = cfg.kv_block if cfg.attn_impl == "blockwise" else None
         q_block = cfg.q_block or None
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        h = layers.embed(params["embed"], tokens)
+        h = pctx.shard_batch(layers.embed(params["embed"], tokens))
         aux = 0.0
         for kind, p in zip(self.kinds, self._layer_params(params)):
             def layer(h, kind=kind, p=p):
-                return _sub_apply(cfg, kind, p, h, cache=None,
+                h, a = _sub_apply(cfg, kind, p, h, cache=None,
                                   image_embeds=image_embeds,
                                   kv_block=kv_block, q_block=q_block)[:2]
+                return pctx.shard_batch(h), a
             h, a = remat_layer(layer, h) if remat else layer(h)
             aux = aux + a
         return _norm(cfg, params["final_norm"], h), aux
@@ -394,6 +406,7 @@ class CausalLM:
         cfg = self.cfg
         logits = (layers.unembed(params["embed"], h) if cfg.tie_embeddings
                   else layers.dense(params["lm_head"], h))
+        logits = pctx.shard_batch_tp(logits)  # vocab TP-sharded
         logits = logits.to(torch.float32)  # frees the bf16 logits
         cap = cfg.final_softcap
         if cap is None or logits.requires_grad:
@@ -438,7 +451,7 @@ class CausalLM:
         as they are; the RWKV and Mamba layers' states come back stepped.
         """
         pos = int(pos)
-        h = layers.embed(params["embed"], tokens)
+        h = pctx.shard_batch(layers.embed(params["embed"], tokens))
         positions = pos + torch.arange(tokens.shape[1], device=h.device)
         new_layers = []
         for kind, p, c in zip(self.kinds, self._layer_params(params),

@@ -31,6 +31,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mlp
 from repro_torch.models.transformer import remat_layer
+from repro_torch.parallel import ctx as pctx
 
 
 def _acfg(cfg: ModelConfig, causal: bool) -> attention.AttnConfig:
@@ -110,6 +111,7 @@ class WhisperModel:
         cfg = self.cfg
         h = frames + layers.sinusoidal_positions(
             frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
+        h = pctx.shard_batch(h)
         acfg = _acfg(cfg, causal=False)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
         for p in params["enc_blocks"]:
@@ -117,8 +119,8 @@ class WhisperModel:
                 a, _ = attention.attend(
                     p["attn"], layers.layernorm(p["norm1"], h), acfg)
                 h = h + a
-                return h + mlp.apply(
-                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu")
+                return pctx.shard_batch(h + mlp.apply(
+                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu"))
             h = remat_layer(body, h) if remat else body(h)
         return layers.layernorm(params["enc_norm"], h)
 
@@ -140,7 +142,7 @@ class WhisperModel:
         auxiliary loss)."""
         cfg = self.cfg
         enc = self.encode(params, frames)
-        h = self._dec_embed(params, tokens)
+        h = pctx.shard_batch(self._dec_embed(params, tokens))
         acfg = _acfg(cfg, causal=True)
         xcfg = _acfg(cfg, causal=False)
         kv_block = cfg.kv_block if cfg.attn_impl == "blockwise" else None
@@ -155,8 +157,8 @@ class WhisperModel:
                     p["cross"], layers.layernorm(p["norm_c"], h), xcfg,
                     kv_x=enc)
                 h = h + a
-                return h + mlp.apply(
-                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu")
+                return pctx.shard_batch(h + mlp.apply(
+                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu"))
             h = remat_layer(body, h) if remat else body(h)
         h = layers.layernorm(params["dec_norm"], h)
         return layers.unembed(params["embed"], h), 0.0
@@ -205,7 +207,7 @@ class WhisperModel:
         """
         cfg = self.cfg
         pos = int(pos)
-        h = self._dec_embed(params, tokens, pos=pos)
+        h = pctx.shard_batch(self._dec_embed(params, tokens, pos=pos))
         acfg = _acfg(cfg, causal=True)
         positions = pos + torch.arange(1, device=h.device)
         new_layers = []

@@ -9,7 +9,9 @@ as in the reference.
 ``update`` writes m, v, master and count in place: the step donates its
 optimizer state, as a jitted step donates its buffers, so that one card
 holds one copy of it (granite-moe-1b-a400m's three f32 trees take 16 GB).
-The parameters it returns are new tensors.  Where the reference casts
+The parameters it returns are new tensors.  On DTensor leaves (under a
+mesh) every in-place write keeps the leaf's placements, and the new
+parameters have their master's.  Where the reference casts
 every leaf to the dtype of the tree's first leaf, each leaf here keeps
 its own (an f32 leaf of a bf16 model stays f32).
 
@@ -61,8 +63,8 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 def init(params) -> dict:
     """Zero moments, an f32 copy of ``params`` and a step count of 0, on
     the parameters' device."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):   # a DTensor's zeros keep its placements
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = tree.leaves(params)[0].device
     return {

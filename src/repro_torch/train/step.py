@@ -11,10 +11,13 @@ slices of the global batch, the reference's ``lax.scan``, so that the
 activations of one microbatch are live at a time.  ``update`` writes the
 optimizer state in place (``optim/adamw.py``).
 
-The reference's ``constrain_grad_sharding`` pins each microbatch's
-gradients to the parameters' layout in its meshes; with one device there
-is no layout to pin (the reference, without a parallel context, does
-nothing either), so the port has no such option.
+Under a mesh (``parallel.ctx.use_mesh``) the state's leaves are DTensors
+placed by ``parallel/sharding.py`` and the batch is sharded over the data
+axes; the step is the same code.  ``constrain_grad_sharding`` pins each
+microbatch's gradients to the parameters' placements (the reference's
+``with_sharding_constraint``: a reduce-scatter of each microbatch's
+gradients instead of a replicated accumulator); without a mesh it does
+nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 from repro_torch import tree
 from repro_torch.models import layers
 from repro_torch.optim import adamw
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +40,8 @@ class TrainConfig:
     grad_dtype: str = "bfloat16"  # wire dtype of the gradients
     compress_grads: bool = False  # cast the f32-accumulated gradients to
                                   # grad_dtype before the update
+    constrain_grad_sharding: bool = False  # pin each microbatch's
+                                  # gradients to the parameters' placements
 
 
 def make_loss_fn(model, tcfg: TrainConfig):
@@ -80,13 +87,24 @@ def _micro(batch: dict, i: int, n: int) -> dict:
     return {k: rows(v) for k, v in batch.items()}
 
 
-def make_train_step(model, tcfg: TrainConfig, ocfg: adamw.AdamWConfig):
+def make_train_step(model, tcfg: TrainConfig, ocfg: adamw.AdamWConfig,
+                    grad_pspecs=None):
     """``step(state, batch) -> (new_state, metrics)`` over
     ``{"params", "opt", "step"}`` (``init_state``); metrics are the last
     microbatch's ``xent`` and ``aux`` (as the reference's scan carries
-    them), ``grad_norm`` and ``lr``, as 0-d tensors."""
+    them), ``grad_norm`` and ``lr``, as 0-d tensors.  ``grad_pspecs``:
+    the specs ``constrain_grad_sharding`` pins the gradients to (default:
+    the parameters' own, ``sharding.param_pspecs``)."""
     grad_fn = make_grad_fn(model, tcfg)
     wire_dt = layers.torch_dtype(tcfg.grad_dtype)
+
+    def constrain(g):
+        ctx = pctx.current()
+        if not tcfg.constrain_grad_sharding or ctx is None:
+            return g
+        specs = grad_pspecs if grad_pspecs is not None \
+            else shd.param_pspecs(g, model.cfg)
+        return tree.map(lambda x, s: pctx.constrain(x, s), g, specs)
 
     def step(state: dict, batch: dict):
         params = state["params"]
@@ -98,10 +116,11 @@ def make_train_step(model, tcfg: TrainConfig, ocfg: adamw.AdamWConfig):
             if rows % n:
                 raise ValueError(f"a batch of {rows} rows in {n} "
                                  f"microbatches")
-            grads = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = constrain(tree.map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params))
             for i in range(n):
                 g, metrics = grad_fn(params, _micro(batch, i, n))
+                g = constrain(g)
                 for acc, gi in zip(tree.leaves(grads), tree.leaves(g)):
                     acc.add_(gi.to(torch.float32))
                 del g

@@ -47,3 +47,16 @@ def map(fn: Callable, tree, *rest) -> Any:  # noqa: A001 - jax.tree.map
     if any(len(o) != len(flat) for o in others):
         raise ValueError("trees of different structure")
     return unflatten(tree, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def map_with_path(fn: Callable, tree, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, where ``path`` is
+    the tuple of dict keys and list indices (as strings) that reach the
+    leaf, the names ``jax.tree_util``'s key paths carry."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)

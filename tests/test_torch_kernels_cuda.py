@@ -701,3 +701,144 @@ def test_moe_layer_gradients_at_full_width(cuda, monkeypatch):
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     assert all(float(g.abs().max()) > 0 for g in got[2:])
+
+
+# -- the mesh paths on a one-rank NCCL group ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_rank_meshes():
+    """A one-rank NCCL group (a ``HashStore``, the loopback interface) and
+    its (1, 1, 1) ("pod", "data", "model") and (1, 1) meshes on the card;
+    the group is destroyed after the module's cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield (mesh_mod.compat_make_mesh((1, 1, 1), ("pod", "data", "model")),
+               mesh_mod.compat_make_mesh((1, 1), ("data", "model")))
+    finally:
+        dist.destroy_process_group()
+
+
+def _launch_counts(fn):
+    before = {**sk.LAUNCHES, **fk.LAUNCHES}
+    out = fn()
+    torch.cuda.synchronize()
+    after = {**sk.LAUNCHES, **fk.LAUNCHES}
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,experts,cf", [("ep", 64, 8.0),
+                                             ("sharded", 8, 1.25)])
+def test_moe_mesh_paths_on_one_rank(cuda, one_rank_meshes, path, experts,
+                                    cf):
+    """``apply_ep`` (64 experts, capacity 8.0: nothing drops) and
+    ``apply_sharded`` (8 experts, capacity 1.25: rows drop, the same as
+    ``apply_local``'s) in f32 on one rank, against ``apply_local``
+    within 1e-5: K7 twice (the dispatch and the local experts) or once,
+    K5 once."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import ctx as pctx
+    mesh = one_rank_meshes[0] if path == "ep" else one_rank_meshes[1]
+    data_axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    cfg = moe.MoEConfig(d_model=256, d_expert=128, num_experts=experts,
+                        top_k=4, capacity_factor=cf, dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init(gen, cfg)
+    x = torch.randn((2, 128, 256), generator=gen, device=cuda)
+    want, _, disp_want = moe.apply_local(p, x.reshape(-1, 256), cfg)
+    apply = moe.apply_ep if path == "ep" else moe.apply_sharded
+    with pctx.use_mesh(mesh, data_axes=data_axes):
+        (got, aux, disp), launches = _launch_counts(
+            lambda: apply(p, x, cfg, mesh, data_axes=data_axes))
+        got = got.full_tensor().reshape(-1, 256)
+        disp = disp.full_tensor()
+    assert launches == {"bincount": 2 if path == "ep" else 1,
+                        "scatter_add": 1}
+    assert torch.equal(disp, disp_want)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_meshed_loss_and_prefill_on_one_rank(cuda, one_rank_meshes):
+    """granite-moe-1b-a400m reduced (f32) with DTensor parameters on the
+    (1, 1) mesh: the loss within 1e-5 of the unmeshed one, and a prefill
+    (K8 a layer, as unmeshed) within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel import sharding as shd
+    mesh = one_rank_meshes[1]
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = make_batch(cfg, 4, 64, device=cuda)
+    want, _ = model.loss(params, batch)
+    with torch.no_grad():
+        logits, k8 = _launch_counts(
+            lambda: model.forward(params, batch["tokens"])[0])
+    ps = shd.distribute(params, shd.param_shardings(params, cfg, mesh))
+    bs = shd.distribute(batch, shd.shardings_of(
+        shd.batch_pspecs(batch, ("data",)), mesh))
+    with pctx.use_mesh(mesh, data_axes=("data",)):
+        got, _ = model.loss(ps, bs)
+        with torch.no_grad():
+            mlogits, mk8 = _launch_counts(
+                lambda: model.forward(ps, bs["tokens"])[0].full_tensor())
+    torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5,
+                               atol=1e-5)
+    assert k8["flash_attention"] == mk8["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(mlogits, logits, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    "command-r-plus-104b", "gemma2-27b", "granite-moe-1b-a400m",
+    "llama-3.2-vision-11b", "qwen1.5-110b", "qwen2-72b",
+    "qwen3-moe-235b-a22b", "rwkv6-7b", "whisper-small", "zamba2-1.2b"])
+def test_every_model_on_a_one_rank_mesh(cuda, one_rank_meshes, arch):
+    """Each model of the zoo, reduced (f32), with DTensor parameters on
+    the (1, 1) mesh: its loss and the gradient of every leaf against the
+    unmeshed ones (1e-5; 1e-4 x the leaf's largest |g|), through this
+    card's PyTorch build's DTensor rules."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel import sharding as shd
+    mesh = one_rank_meshes[1]
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = make_batch(cfg, 4, 64, device=cuda)
+
+    def loss_and_grads(p, b):
+        live = [x.detach().requires_grad_() for x in tree.leaves(p)]
+        loss, _ = model.loss(tree.unflatten(p, live), b)
+        return loss, torch.autograd.grad(loss, live, allow_unused=True)
+
+    want, want_g = loss_and_grads(params, batch)
+    ps = shd.distribute(params, shd.param_shardings(params, cfg, mesh))
+    bs = shd.distribute(batch, shd.shardings_of(
+        shd.batch_pspecs(batch, ("data",)), mesh))
+    with pctx.use_mesh(mesh, data_axes=("data",)):
+        got, got_g = loss_and_grads(ps, bs)
+        got = got.full_tensor()
+        got_g = [None if g is None else g.full_tensor() for g in got_g]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got_g, want_g):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert float((a - b).abs().max()) <= 1e-4 * float(
+                b.abs().max()) + 1e-7

@@ -447,6 +447,69 @@ def test_rwkv_decode_equals_forward_through_the_published_depth():
             assert float((got[:, 0] - fwd[:, i]).abs().max()) < DECODE_TOL
 
 
+def _bf16_decode_gaps(seed: int, layers: int = 4, t: int = 32):
+    """rwkv6-7b reduced in bf16, one set of (perturbed) parameters in
+    both packages: each package's teacher-forced decode logits against
+    its own prefill's (max |diff|), and the mean |diff| of its decode
+    from the f32 forward of the same parameters (the port's, f32)."""
+    rcfg, cfg = (dataclasses.replace(c, num_layers=layers, dtype="bfloat16")
+                 for c in _config("rwkv6-7b"))
+    ref_model = ref_build_model(rcfg)
+    rp_np = jax.tree.map(np.asarray,
+                         ref_model.init(jax.random.PRNGKey(seed)))
+    _perturb(rp_np, rcfg, seed + 11)
+    rp = jax.tree.map(jnp.asarray, rp_np)
+    p = convert.lm_params_from_numpy(rp_np, rcfg, CPU)
+    model = build_model(cfg, CPU)
+    tokens = _tokens(cfg, 2, t, seed=seed)
+    ref_fwd = np.asarray(jax.jit(ref_model.forward)(
+        rp, jnp.asarray(tokens))[0], np.float32)
+    rdecode = _ref_decode(ref_model)
+    rcache = ref_model.init_cache(rp, 2, t)
+    ref_dec = []
+    for i in range(t):
+        logits, rcache = rdecode(rp, rcache, jnp.asarray(tokens[:, i:i + 1]),
+                                 jnp.asarray(i, jnp.int32))
+        ref_dec.append(np.asarray(logits[:, 0], np.float32))
+    p32 = convert.lm_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), rp_np), rcfg, CPU)
+    with torch.no_grad():
+        truth = _np(build_model(dataclasses.replace(cfg, dtype="float32"),
+                                CPU).forward(p32, _t(tokens))[0])
+        fwd = _np(model.forward(p, _t(tokens))[0])
+        cache = model.init_cache(p, 2, t)
+        dec = []
+        for i in range(t):
+            logits, cache = model.decode_step(p, _t(tokens[:, i:i + 1]),
+                                              cache, pos=i)
+            dec.append(_np(logits[:, 0]))
+    ref_dec, dec = np.stack(ref_dec, 1), np.stack(dec, 1)
+    return {"ref_gap": float(np.abs(ref_dec - ref_fwd).max()),
+            "gap": float(np.abs(dec - fwd).max()),
+            "ref_from_f32": float(np.abs(ref_dec - truth).mean()),
+            "from_f32": float(np.abs(dec - truth).mean())}
+
+
+def test_rwkv_bf16_decode_gap_is_the_references():
+    """rwkv6's bf16 decode against its prefill (1.812 max |diff| on the
+    card at full width) is bf16 rounding of the reference's own design,
+    not a fault of the port: over four seeds at the reduced width, 4
+    layers and 32 positions, the port's largest gap is within 2x the
+    reference's largest (0.0625 against 0.0596 when measured), and its
+    bf16 decode is as far from the f32 forward of the same parameters as
+    the reference's is (mean |diff| within 2x).  Each package's decode
+    and prefill share most of their rounding (the gaps are a tenth of
+    either's distance from f32), so seeds differ: one seed alone can
+    show either package's gap at 0."""
+    runs = [_bf16_decode_gaps(seed) for seed in range(4)]
+    ref_gap = max(r["ref_gap"] for r in runs)
+    gap = max(r["gap"] for r in runs)
+    assert 0 < ref_gap and gap <= 2 * ref_gap, (gap, ref_gap)
+    ref_far = np.mean([r["ref_from_f32"] for r in runs])
+    far = np.mean([r["from_f32"] for r in runs])
+    assert far <= 2 * ref_far and ref_far <= 2 * far, (far, ref_far)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generate_equals_the_reference(arch):
     cfg, ref_model, rp, model, p = _models(arch, seed=3)
