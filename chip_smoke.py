@@ -1619,6 +1619,124 @@ def audit_path(dev, results: Path, cache_dir) -> int:
     return validated
 
 
+ZOO_HOST_S = 180.0          # the zoo phase's host seconds, at most
+
+
+def zoo_path(dev, results: Path, cache_dir) -> int:
+    """The zoo audit at the production shapes (``train_4k``,
+    ``prefill_32k``, ``decode_32k``), every config at full width: first
+    as a user runs it, ``python -m repro_torch audit --all`` in a process
+    of its own; then each config through ``audit_config`` in this
+    process, its host seconds, sites and findings by rule and severity
+    logged and its counts held to the process's report.  Each step is
+    captured on meta tensors: none of it may launch a kernel.  Then each
+    distinct finding spec (by fingerprint, over the zoo) through
+    ``Session.validate(spec, ("trace", "kernel"))`` with the kernel on
+    ``dev``: K6 once a spec (its segment axis in whole blocks,
+    ``tests/_audit_specs.kernel_ready``), e relative error exactly 0.0.
+    The phase's host seconds stay under ZOO_HOST_S.
+
+    Returns the number of specs validated (K6's launches on this path).
+    """
+    import subprocess
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _audit_specs import distinct_specs, kernel_ready
+
+    from repro_torch.analysis import Session
+    from repro_torch.analysis.providers import InstrumentedKernelProvider
+    from repro_torch.audit import audit_config
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import counters
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+
+    def launched() -> dict:
+        return {**hk.LAUNCHES, **sk.LAUNCHES}
+
+    start = time.perf_counter()
+    before = launched()
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               REPRO_TORCH_RESULTS=str(results / "zoo"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "audit", "--all",
+         "--format", "json", "--fail-on", "error"],
+        capture_output=True, text=True, env=env, timeout=600)
+    cli_s = time.perf_counter() - t0
+    _require(proc.returncode in (0, 1) and proc.stdout,
+             f"audit --all: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    everything = json.loads(proc.stdout)
+    graphs = sorted((results / "zoo" / "cli" / "audit" / "graph").iterdir())
+    _require(len(graphs) == len(everything["steps"]),
+             f"audit --all wrote {len(graphs)} graphs for "
+             f"{len(everything['steps'])} steps")
+    log(f"  python -m repro_torch audit --all: {cli_s:.3f} s host, rc "
+        f"{proc.returncode}, {everything['sites_scanned']} sites from "
+        f"{everything['instructions_scanned']} nodes, "
+        f"{len(everything['findings'])} findings {everything['counts']}")
+
+    sess = Session("v5e", cache_dir=cache_dir)
+    specs = {}
+    n_findings = 0
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        rep = audit_config(arch, session=sess)
+        host = time.perf_counter() - t0
+        by = {}
+        for f in rep.findings:
+            by[f"{f.rule_id}/{f.severity}"] = \
+                by.get(f"{f.rule_id}/{f.severity}", 0) + 1
+        kinds = {f.site.kind for f in rep.findings if f.site is not None}
+        _require(rep.findings and "kv_cache_write" in kinds
+                 or arch == "rwkv6-7b",
+                 f"zoo audit {arch}: findings {by}, kinds {kinds}")
+        if "moe" in arch:
+            _require({"dispatch_scatter", "histogram_scatter"} <= kinds,
+                     f"zoo audit {arch}: kinds {kinds}")
+        log(f"    {arch}: {host:.3f} s host, steps {rep.steps}, "
+            f"{rep.sites_scanned} sites from {rep.instructions_scanned} "
+            f"nodes, findings {dict(sorted(by.items()))}")
+        n_findings += len(rep.findings)
+        for key, spec in distinct_specs(rep).items():
+            specs.setdefault(key, spec)
+    _require(n_findings == len(everything["findings"]),
+             f"in process {n_findings} findings, audit --all "
+             f"{len(everything['findings'])}")
+    _require(not any(sess.stats_snapshot().values())
+             and launched() == before,
+             f"the zoo audit collected {sess.stats_snapshot()} and "
+             f"launched {launched()} (was {before})")
+
+    kernel = InstrumentedKernelProvider(torch_device=dev)
+    t0 = time.perf_counter()
+    es = []
+    for spec in specs.values():
+        ready = kernel_ready(spec)
+        if ready is not spec:
+            _require(counters.bitwise_equal(sess.collect(spec, "trace"),
+                                            sess.collect(ready, "trace")),
+                     f"{spec.label}: widening the segment axis moved the "
+                     f"counters")
+        rep = sess.validate(ready, ("trace", kernel), check_batch=False)
+        trace, measured = rep.comparisons
+        _require(measured.rel_err["e"] == 0.0
+                 and measured.counters["N"] == trace.counters["N"]
+                 and measured.counters["O"] == trace.counters["O"],
+                 f"validate {spec.label}: {rep.to_dict()}")
+        es.append(measured.counters["e"])
+    if dev != "cpu":
+        import torch
+        torch.cuda.synchronize()
+    log(f"    {len(specs)} distinct finding specs through trace and K6 in "
+        f"{time.perf_counter() - t0:.3f} s: e rel err 0.0, e "
+        f"{sorted(set(es))}")
+    host = time.perf_counter() - start
+    log(f"  the zoo phase: {host:.3f} s host (at most {ZOO_HOST_S})")
+    _require(host <= ZOO_HOST_S, f"the zoo phase took {host:.1f} s host")
+    return len(specs)
+
+
 def _serve_config(num_layers=None, dtype=None, arch=SERVE_ARCH, **changes):
     """``arch`` (qwen2-72b by default) with every width as published;
     depth, dtype and any other field as given."""
@@ -3740,9 +3858,93 @@ def mesh_train_and_prefill(dev, mesh) -> dict:
             f"{row['top1_agreement']:.4f}, max |diff| "
             f"{row['max_abs_err']:.4g}, mean {row['mean_abs_err']:.4g} "
             f"against mean |logit| {row['mean_abs_want']:.4g}")
-    del got, want, ps, tok_dt, params, model
+    del got, want
+    out["decode"] = mesh_decode(model, cfg, mesh, params, ps, tokens,
+                                agreement)
+    del ps, tok_dt, params, model
     torch.cuda.empty_cache()
     return out
+
+
+MESH_DECODE_STEPS = 4
+MESH_DECODE_LEN = 64                 # cache slots, over the model axis
+
+
+def mesh_decode(model, cfg, mesh, params, ps, tokens, agreement) -> dict:
+    """granite's decode on the mesh: a cache of MESH_DECODE_LEN slots laid
+    out by ``cache_pspecs`` (DTensors, the KV sequence over the model
+    axis), MESH_DECODE_STEPS steps from an empty cache teacher-forced with
+    the prefill's tokens, against the same steps unmeshed.  K7 and K5
+    launch once a layer a step both ways (the unmeshed run outside the
+    counts); with the plain combine in deterministic mode (outside the
+    counts) the logits are bit-equal; on K5 their agreement is logged."""
+    import torch
+
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel import sharding as shd
+
+    b = tokens.shape[0]
+    tok_dt = shd.distribute({"t": tokens}, shd.shardings_of(
+        shd.batch_pspecs({"t": tokens}, ("data",)), mesh))["t"]
+
+    def run(meshed: bool):
+        with torch.no_grad():
+            cache = model.init_cache(params, b, MESH_DECODE_LEN)
+            p, toks, ctx = params, tokens, contextlib.nullcontext()
+            if meshed:
+                cache = shd.distribute(cache, shd.shardings_of(
+                    shd.cache_pspecs(cache, cfg, data_axes=("data",),
+                                     seq_axis="model"), mesh))
+                p, toks = ps, tok_dt
+                ctx = pctx.use_mesh(mesh, data_axes=("data",),
+                                    tp_axis="model")
+            logits = []
+            with ctx:
+                for i in range(MESH_DECODE_STEPS):
+                    lg, cache = model.decode_step(p, toks[:, i:i + 1],
+                                                  cache, pos=i)
+                    logits.append(lg.full_tensor() if meshed else lg)
+            return torch.cat(logits, dim=1)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with uncounted(), plain_combine():
+            det = agreement(run(True), run(False))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _require(det["max_abs_err"] == 0.0,
+             f"meshed decode, deterministic combine: {det}")
+    want_n = cfg.num_layers * MESH_DECODE_STEPS
+    counts = {}
+    with uncounted():
+        before = dict(sk.LAUNCHES)
+        t0 = time.perf_counter()
+        want = run(False)
+        torch.cuda.synchronize()
+        unmeshed_s = time.perf_counter() - t0
+        counts["unmeshed"] = {k: sk.LAUNCHES[k] - before[k]
+                              for k in ("bincount", "scatter_add")}
+    before = dict(sk.LAUNCHES)
+    t0 = time.perf_counter()
+    got = run(True)
+    torch.cuda.synchronize()
+    meshed_s = time.perf_counter() - t0
+    counts["meshed"] = {k: sk.LAUNCHES[k] - before[k]
+                        for k in ("bincount", "scatter_add")}
+    _require(all(n == want_n for c in counts.values() for n in c.values()),
+             f"decode K7/K5 launches {counts}, want {want_n} each")
+    _require(got.shape == want.shape and _all_finite(got),
+             f"meshed decode logits {tuple(got.shape)}")
+    k5 = agreement(got, want)
+    log(f"  decode {b} x {MESH_DECODE_STEPS} steps from a "
+        f"{MESH_DECODE_LEN}-slot cache: K7 = K5 = {want_n} both ways; "
+        f"deterministic combine max |diff| {det['max_abs_err']!r} "
+        f"(bit-equal); on K5 top-1 agreement {k5['top1_agreement']:.4f}, "
+        f"max |diff| {k5['max_abs_err']:.4g}; {meshed_s:.3f} s meshed, "
+        f"{unmeshed_s:.3f} s unmeshed")
+    return {"launches": counts, "deterministic": det, "k5": k5,
+            "meshed_s": meshed_s, "unmeshed_s": unmeshed_s}
 
 
 def mesh_path(dev) -> dict:
@@ -4235,6 +4437,21 @@ def main() -> int:
             launches[k] += audit[k]
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches {audit}")
 
+        t0 = phase("main path: the zoo audit (every config captured at "
+                   "its production shapes) and its finding specs on K6")
+        hk.reset_launches()
+        sk.reset_launches()
+        n_zoo = zoo_path(dev, Path(tmp), tables)
+        torch.cuda.synchronize()
+        zoo = {k: n for k, n in {**hk.LAUNCHES, **sk.LAUNCHES}.items()
+               if n}
+        _require(zoo == {k: n_zoo for k in AUDIT_KERNELS},
+                 f"zoo path launched {zoo} for {n_zoo} specs")
+        for k in AUDIT_KERNELS:
+            by_path[k]["zoo"] = zoo[k]
+            launches[k] += zoo[k]
+        log(f"  ok in {time.perf_counter() - t0:.1f} s; launches {zoo}")
+
     t0 = phase(f"main path: serving {SERVE_ARCH} prefill and decode")
     hk.reset_launches()
     sk.reset_launches()
@@ -4311,7 +4528,8 @@ def main() -> int:
             f"{train_launches}")
     t0 = phase("main path: the mesh (one-rank NCCL meshes): qwen3-moe's "
                "layer through apply_ep, granite-moe's through "
-               "apply_sharded, granite whole: a train step and a prefill")
+               "apply_sharded, granite whole: a train step, a prefill and "
+               "decode steps on a sharded cache")
     hk.reset_launches()
     sk.reset_launches()
     fk.reset_launches()

@@ -1,17 +1,18 @@
-"""HloProvider: roofline counters from a compiled step's HLO text.
+"""HloProvider: roofline counters from a compiled step: a captured torch
+step or HLO text.
 
 The scatter unit needs runtime data (it is data-dependent — that is the
 paper's point), so this provider reports only the static side: FLOPs and
-HBM bytes from the trip-count-aware ``hlo.analyze_module`` walk of the
-module text, and per-link collective wire traffic from the same walk.
+HBM bytes of a captured step (``hlo.flops_and_bytes``) and its
+collectives' ring-model wire traffic (``hlo.capture_collectives``), or of
+HLO text from the trip-count-aware ``hlo.analyze_module`` walk and the
+collectives of the same walk.
 The returned ``CounterSet`` has empty scatter counters;
 ``profile_counters`` then reports the three throughput servers
 (HBM/MXU/ICI) with an empty per-core table.  Pair it with a trace/kernel
 collection of the same step when the scatter verdict is also needed.
 
-It launches nothing.  A compiled XLA object as the source (the
-reference's ``compiled`` route) waits for the port's multi-device and
-zoo-audit slice.
+It launches nothing.
 """
 
 from __future__ import annotations
@@ -41,7 +42,12 @@ class HloProvider:
 
         del device  # cost extraction is device-independent
         meta: dict = {}
-        if spec.hlo_text is not None:
+        if spec.compiled is not None:
+            flops, nbytes = hlo_mod.flops_and_bytes(spec.compiled)
+            coll = hlo_mod.capture_collectives(spec.compiled)
+            wire = float(coll.total_wire_bytes)
+            meta["collectives"] = coll.by_opcode()
+        elif spec.hlo_text is not None:
             cost = hlo_mod.analyze_module(spec.hlo_text, spec.num_devices)
             flops, nbytes = float(cost.flops), float(cost.bytes)
             wire = float(cost.collective_wire_bytes)

@@ -21,8 +21,8 @@ relative errors and the utilization delta.  ``advise`` searches workload
 transforms for a predicted fix (``repro_torch.advisor``) and ``heatmap``
 attributes contention to bins and waves (``repro_torch.obs.heatmap``).
 
-``audit`` is the static contention lint of a compiled step's HLO text
-(``repro_torch.audit``): it scores every atomic-shaped site with the
+``audit`` is the static contention lint of a compiled step, HLO text or
+a captured torch step (``repro_torch.audit``): it scores every atomic-shaped site with the
 model and launches nothing.  ``lint`` comes with its own slice of the
 port.
 """
@@ -519,12 +519,12 @@ class Session:
 
     def audit(self, source, *, label: str = "module", rules=None,
               suppress: Sequence[str] = (), num_cores: int = 8):
-        """Static contention lint of a compiled step's HLO text.
+        """Static contention lint of a compiled step.
 
-        ``source`` is HLO module text or a ``WorkloadSpec`` built with
-        ``from_compiled(hlo_text=...)``; any other source raises
-        ``ValueError`` (capturing a torch program waits for ROADMAP queue
-        1, "Multi-device and the zoo audit").  Scans for atomic-shaped
+        ``source`` is HLO module text, a captured torch step
+        (``launch.lowering.build_captured``), or a ``WorkloadSpec`` built
+        with ``from_compiled(...)``; any other source raises
+        ``ValueError``.  Scans for atomic-shaped
         sites (scatters, KV-cache writes, one-hot / sort-segment
         histograms), scores each matched rule with one columnar model
         pass, and returns an ``AuditReport`` — this session's

@@ -19,9 +19,8 @@ instrumented Hopper kernel (``InstrumentedKernelProvider``) from one and
 the same spec — the model-vs-measured split the paper's validation (§5)
 needs.
 
-A compiled step is described by its HLO text (``from_compiled``); a
-compiled XLA object as the source waits for the port's multi-device and
-zoo-audit slice.
+A compiled step is described by its HLO text or by a captured torch step
+(``launch.lowering.build_captured``), both through ``from_compiled``.
 """
 
 from __future__ import annotations
@@ -69,6 +68,7 @@ class WorkloadSpec:
     sweep's spec list costs nothing until a provider collects it.
     ``kernel`` is the declarative form the shipped providers understand
     (see ``from_histogram`` / ``from_scatter_add``).
+    ``compiled`` (a captured torch step, ``launch.capture.Capture``) or
     ``hlo_text`` describes a compiled step for the HLO provider (no wave
     trace; roofline counters only).
     """
@@ -79,6 +79,7 @@ class WorkloadSpec:
     indices: Optional[np.ndarray] = None
     run: Optional[Any] = None          # () -> WaveTrace, lazy custom source
     kernel: Optional[KernelSource] = None
+    compiled: Optional[Any] = None     # captured torch step (HLO provider)
     hlo_text: Optional[str] = None     # HLO module text (HLO provider)
     # index-stream interpretation (for the ``indices`` source):
     num_bins: int = 256
@@ -96,7 +97,8 @@ class WorkloadSpec:
     def __post_init__(self) -> None:
         sources = sum(s is not None
                       for s in (self.trace, self.indices, self.run,
-                                self.kernel, self.hlo_text))
+                                self.kernel))
+        sources += self.compiled is not None or self.hlo_text is not None
         if sources != 1:
             raise ValueError(
                 f"WorkloadSpec {self.label!r} needs exactly one measurement "
@@ -171,7 +173,9 @@ class WorkloadSpec:
             for k in sorted(self.kernel.params):
                 v = self.kernel.params[k]
                 put(k, _host(v) if hasattr(v, "shape") else v)
-        elif self.hlo_text is not None:
+        elif self.compiled is not None:
+            put("capture", self.compiled.text, self.compiled.chips)
+        if self.hlo_text is not None:
             put("hlo", self.hlo_text)
         put(self.num_bins, self.job_class, self.waves_per_tile,
             self.pipeline_depth, self.num_cores, self.num_devices,
@@ -187,7 +191,7 @@ class WorkloadSpec:
         trace: geometry overrides produce a copied-geometry view via
         ``WaveTrace.with_geometry``.
         """
-        if self.hlo_text is not None:
+        if self.compiled is not None or self.hlo_text is not None:
             raise ValueError(
                 f"WorkloadSpec {self.label!r} has no wave-trace source "
                 f"(compiled/HLO specs carry roofline counters only — "
@@ -290,16 +294,21 @@ class WorkloadSpec:
     def from_compiled(cls, compiled=None, *, label: str,
                       hlo_text: Optional[str] = None, num_devices: int = 1,
                       **kw) -> "WorkloadSpec":
-        """Compiled-step source for the HLO provider (roofline counters),
-        from a module's HLO text.
+        """Compiled-step source for the HLO provider (roofline counters).
 
-        A compiled XLA object (the reference's ``compiled``) has no torch
-        counterpart yet: passing one raises ``NotImplementedError``.
+        Pass a captured torch step (``launch.lowering.build_captured``,
+        a ``launch.capture.Capture``), an HLO module text, or both (the
+        capture supplies FLOPs, bytes and collectives).  Anything else as
+        ``compiled`` (a JAX compiled object among them) raises
+        ``ValueError``.
         """
-        if compiled is not None:
-            raise NotImplementedError(
-                "a compiled-object source is not ported yet (ROADMAP queue "
-                "1, \"Multi-device and the zoo audit\"): pass the step's "
-                "HLO text as hlo_text")
-        return cls(label=label, hlo_text=hlo_text, num_devices=num_devices,
-                   **kw)
+        if compiled is not None and not (hasattr(compiled, "nodes")
+                                         and hasattr(compiled, "text")):
+            raise ValueError(
+                f"from_compiled takes a captured step "
+                f"(launch.lowering.build_captured) or hlo_text, not a "
+                f"{type(compiled).__name__!r}")
+        if compiled is not None and num_devices == 1:
+            num_devices = compiled.chips
+        return cls(label=label, compiled=compiled, hlo_text=hlo_text,
+                   num_devices=num_devices, **kw)

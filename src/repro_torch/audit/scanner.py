@@ -388,3 +388,208 @@ class _Scanner:
 def scan_hlo(text: str) -> ScanResult:
     """Scan an HLO module text for atomic-shaped sites."""
     return _Scanner(text).scan()
+
+
+# ---------------------------------------------------------------------------
+# Captured torch steps (``launch/capture.py``)
+# ---------------------------------------------------------------------------
+
+# shape-only hops the one-hot and consumer walks cross
+_GRAPH_HOPS = ("aten.unsqueeze", "aten.view", "aten.expand", "aten._to_copy",
+               "aten.reshape", "aten._unsafe_view", "aten.clone",
+               "aten.permute", "aten.transpose", "aten.t", "aten.squeeze",
+               "aten.select", "aten.slice")
+_MATMULS = ("aten.mm", "aten.bmm", "aten.matmul", "aten.addmm", "aten.einsum",
+            "aten.baddbmm")
+_REDUCE_COMBINERS = {"sum": "add", "amax": "max", "amin": "min",
+                     "prod": "mul"}
+
+
+class _GraphScanner:
+    """Atomic-shaped sites of a captured step, by the reference scanner's
+    rules for the HLO op each aten node replaces."""
+
+    def __init__(self, capture):
+        self.cap = capture
+        self.inputs = capture.input_storages
+        self.producer: dict[int, object] = {}
+        self.consumers: dict[int, list] = {}
+        for node in capture.nodes:
+            for r in node.outputs:
+                self.producer[r.id] = node
+            for r in node.tensor_args():
+                self.consumers.setdefault(r.id, []).append(node)
+        self.sites: list[AtomicSite] = []
+
+    def _site(self, node, kind, *, operand, update=None, index=None,
+              bins, updates, row, combiner) -> None:
+        update = update or operand
+        self.sites.append(AtomicSite(
+            op_name=f"{node.op.split('.')[-1]}.{node.index}",
+            opcode=node.op, kind=kind, computation=self.cap.label,
+            hlo_line=node.line, operand_dtype=operand.dtype,
+            operand_shape=tuple(operand.shape), update_dtype=update.dtype,
+            update_shape=tuple(update.shape),
+            index_dtype=index.dtype if index is not None else "s32",
+            num_bins=max(1, int(bins)), num_updates=max(1, int(updates)),
+            row_elems=max(1, int(row)), combiner=combiner,
+            loop_depth=node.depth, trip_count=node.trips))
+
+    def _scatter(self, node, *, operand, update, index, bins, updates, row,
+                 combiner) -> None:
+        kind = "scatter"
+        if row <= 1 and combiner in ("add", "max", "min", "mul"):
+            kind = "histogram_scatter"
+        elif row > 1 and combiner in ("overwrite", "add"):
+            kind = "dispatch_scatter"
+        self._site(node, kind, operand=operand, update=update, index=index,
+                   bins=bins, updates=updates, row=row, combiner=combiner)
+
+    # -- the walks over producers and consumers ---------------------------
+
+    def _reaches_arange(self, ref, depth: int = 5) -> bool:
+        node = self.producer.get(ref.id)
+        if node is None or depth < 0:
+            return False
+        if node.op == "aten.arange":
+            return True
+        if node.op in _GRAPH_HOPS:
+            return any(self._reaches_arange(r, depth - 1)
+                       for r in node.tensor_args()[:1])
+        return False
+
+    def _one_hot_kind(self, ref) -> str:
+        """The consumer decides, through shape-only hops: a product makes
+        it a one-hot matmul, anything else a dense histogram."""
+        frontier = [ref]
+        for _ in range(6):
+            nxt = []
+            for r in frontier:
+                for node in self.consumers.get(r.id, []):
+                    if node.op in _MATMULS:
+                        return "one_hot_matmul"
+                    if node.op in _GRAPH_HOPS:
+                        nxt.extend(node.outputs)
+            frontier = nxt
+        return "one_hot_histogram"
+
+    # -- one node ---------------------------------------------------------
+
+    def visit(self, node) -> None:
+        op, a = node.op, node.args
+        if op in ("repro_torch.bincount", "aten.bincount"):
+            ids = a[0]
+            out = node.outputs[0]
+            self._scatter(node, operand=out, update=ids, index=ids,
+                          bins=out.numel, updates=ids.numel, row=1,
+                          combiner="add")
+        elif op == "repro_torch.scatter_add":
+            values, ids, segments = a[0], a[1], a[2]
+            self._scatter(node, operand=node.outputs[0], update=values,
+                          index=ids, bins=segments, updates=ids.numel,
+                          row=values.numel // max(1, ids.numel),
+                          combiner="add")
+        elif op in ("aten.scatter_add", "aten.scatter_add_",
+                    "aten.scatter_reduce", "aten.scatter_reduce_",
+                    "aten.scatter", "aten.scatter_"):
+            self._elementwise_scatter(node)
+        elif op in ("aten.index_put", "aten.index_put_",
+                    "aten._index_put_impl_"):
+            self._index_put(node)
+        elif op in ("aten.index_add", "aten.index_add_", "aten.index_copy",
+                    "aten.index_copy_"):
+            self_, dim, index, src = a[0], a[1], a[2], a[3]
+            dim %= len(self_.shape)
+            bins = self_.shape[dim]
+            self._scatter(node, operand=self_, update=src, index=index,
+                          bins=bins, updates=index.numel,
+                          row=self_.numel // max(1, bins),
+                          combiner="add" if "add" in op else "overwrite")
+        elif op == "aten.embedding_dense_backward":
+            grad, ids, num_weights = a[0], a[1], a[2]
+            self._scatter(node, operand=node.outputs[0], update=grad,
+                          index=ids, bins=num_weights, updates=ids.numel,
+                          row=grad.shape[-1], combiner="add")
+        elif op == "aten.copy_":
+            self._cache_write(node)
+        elif op == "aten._to_copy":
+            self._one_hot(node)
+        elif op in ("aten.sort", "aten.argsort"):
+            keys = a[0]
+            if keys.dtype in _INT_DTYPES and any(
+                    self.consumers.get(o.id) for o in node.outputs[1:]):
+                self._site(node, "sort_segment", operand=keys, index=keys,
+                           bins=keys.numel, updates=keys.numel, row=1,
+                           combiner="none")
+
+    def _elementwise_scatter(self, node) -> None:
+        a = node.args
+        self_, dim, index = a[0], a[1], a[2]
+        src = a[3] if isinstance(a[3], type(self_)) else index
+        combiner = "add" if "add" in node.op else "overwrite"
+        if "reduce" in node.op:
+            reduce = a[4] if len(a) > 4 else node.kwargs.get("reduce", "sum")
+            combiner = _REDUCE_COMBINERS.get(reduce, "cas")
+        dim %= len(self_.shape)
+        self._scatter(node, operand=self_, update=src, index=index,
+                      bins=self_.shape[dim], updates=index.numel, row=1,
+                      combiner=combiner)
+
+    def _index_put(self, node) -> None:
+        a = node.args
+        self_, indices, values = a[0], a[1], a[2]
+        accumulate = a[3] if len(a) > 3 else node.kwargs.get(
+            "accumulate", False)
+        k = len(indices)
+        bins = 1
+        for d in self_.shape[:k]:
+            bins *= d
+        row = self_.numel // max(1, bins)
+        idx = next((i for i in indices if i is not None), None)
+        if idx is not None and idx.dtype == "pred":
+            return                    # a mask: each element its own slot
+        updates = idx.numel if idx is not None else 1
+        self._scatter(node, operand=self_, update=values, index=idx,
+                      bins=bins, updates=updates, row=row,
+                      combiner="add" if accumulate else "overwrite")
+
+    def _cache_write(self, node) -> None:
+        """``buf[..., slot:slot + t, ...] = x`` into a step input: the
+        decode step's KV write (only inside the layer loop, as the
+        reference's scanner takes only loop-carried updates)."""
+        if node.depth < 1:
+            return
+        dst, src = node.args[0], node.args[1]
+        buf = self.inputs.get(dst.storage)
+        if buf is None or buf.numel <= dst.numel:
+            return
+        self._site(node, "kv_cache_write", operand=buf, update=src,
+                   bins=buf.numel // max(1, dst.numel), updates=1,
+                   row=dst.numel, combiner="overwrite")
+
+    def _one_hot(self, node) -> None:
+        """``eq(ids[..., None], arange(n))`` converted: ``F.one_hot``."""
+        src = node.args[0]
+        eq = self.producer.get(src.id)
+        if eq is None or eq.op != "aten.eq":
+            return
+        if not any(self._reaches_arange(r) for r in eq.tensor_args()):
+            return
+        out = node.outputs[0]
+        updates = out.numel // max(1, out.shape[-1]) if out.shape else 1
+        self._site(node, self._one_hot_kind(out), operand=out,
+                   bins=out.shape[-1] if out.shape else 1, updates=updates,
+                   row=1, combiner="add")
+
+
+def scan_graph(capture) -> ScanResult:
+    """Scan a captured step (``launch.capture.Capture``) for the
+    reference's atomic-shaped sites; ``hlo_line`` is the node's line in
+    ``capture.text``."""
+    scanner = _GraphScanner(capture)
+    for node in capture.nodes:
+        scanner.visit(node)
+    return ScanResult(sites=scanner.sites,
+                      num_instructions=capture.num_instructions,
+                      num_computations=1, unresolved_loops=0,
+                      entry=capture.label)

@@ -35,8 +35,9 @@ Eleven subcommands over the ``repro_torch.analysis`` Session API:
 under ``results/torch/cli/audit/`` and a non-suppressed finding at or
 above the gate makes exit code 1; ``--advise`` runs the advisor on every
 gating finding and attaches the top-ranked transform.  ``--config`` and
-``--all`` parse as in the reference and exit 2: lowering a zoo config
-waits for ROADMAP queue 1, "Multi-device and the zoo audit".
+``--all`` capture each step of the zoo configs on meta tensors
+(``repro_torch.audit.zoo``) and audit the captured graphs, which land
+under ``results/torch/cli/audit/graph/`` where the reference writes HLO.
 
 Every command prints its report to stdout (``--format text|json|csv``;
 ``devices`` and ``validate`` render ``text|json`` only, ``audit`` adds
@@ -472,29 +473,59 @@ def cmd_compare(args) -> int:
 
 
 def cmd_audit(args) -> int:
-    """Static contention lint over HLO text — zero kernel executions.
+    """Static contention lint of a step — zero kernel executions.
 
-    ``--hlo-file PATH`` audits an already-dumped module.  ``--config``
-    and ``--all`` (lower zoo configs first) wait for ROADMAP queue 1,
-    "Multi-device and the zoo audit", and exit 2.  ``--fail-on
-    SEVERITY`` turns findings at or above that severity into exit code 1
-    (the CI gate).
+    Targets: ``--config NAME`` captures each applicable step of one zoo
+    config on meta tensors (``launch.lowering.build_captured``), ``--all``
+    audits the whole zoo, ``--hlo-file PATH`` audits an already-dumped
+    HLO module.  The scanned graphs are written under
+    ``results/torch/cli/audit/graph/`` so SARIF result locations point at
+    real, openable artifacts; ``--fail-on SEVERITY`` turns findings at or
+    above that severity into exit code 1 (the CI gate).
     """
     from repro_torch import audit as audit_mod
 
     sess = Session(args.device, cache_dir=args.cache_dir)
-    if not args.hlo_file:
-        if args.all or args.config:
-            raise ValueError(audit_mod.ZOO_AUDIT)
-        raise ValueError(
-            "audit needs a target: --config NAME, --all, or "
-            "--hlo-file PATH")
-    text = Path(args.hlo_file).read_text()
-    label = Path(args.hlo_file).stem
-    report = audit_mod.audit_hlo(
-        text, session=sess, label=label,
-        suppress=args.suppress or (), hlo_uri=args.hlo_file,
-        num_cores=args.num_cores)
+    audit_dir = results_dir() / "cli" / "audit"
+    dump = not args.no_artifact
+
+    def sink_for(config: str):
+        def sink(step: str, text: str) -> str:
+            rel = f"graph/{config.replace('-', '_')}__{step}.graph"
+            if dump:
+                path = audit_dir / rel
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.write_text(text)
+            # SARIF artifact URIs are relative to the report's directory
+            return rel
+        return sink
+
+    if args.hlo_file:
+        text = Path(args.hlo_file).read_text()
+        label = Path(args.hlo_file).stem
+        report = audit_mod.audit_hlo(
+            text, session=sess, label=label,
+            suppress=args.suppress or (), hlo_uri=args.hlo_file,
+            num_cores=args.num_cores)
+    else:
+        from repro_torch.audit import zoo
+        if args.all:
+            configs = sorted(zoo.ARCHS)
+        elif args.config:
+            configs = [zoo.normalize_arch(c) for c in args.config]
+        else:
+            raise ValueError(
+                "audit needs a target: --config NAME, --all, or "
+                "--hlo-file PATH")
+        reports = []
+        for config in configs:
+            reports.append(audit_mod.audit_config(
+                config, session=sess, steps=args.steps,
+                reduced=args.reduced, variant=args.variant,
+                extra_suppress=args.suppress or (),
+                hlo_sink=sink_for(config), num_cores=args.num_cores))
+        report = (reports[0] if len(reports) == 1
+                  else audit_mod.merge(reports))
     return _finish_findings(report, args, sess, tool="audit")
 
 
@@ -839,22 +870,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "audit",
-        help="static HLO contention lint of a dumped module (SARIF, "
+        help="static contention lint over the model zoo (SARIF, "
              "CI gate)")
     _add_common(p, formats=("text", "json", "csv", "sarif"))
     p.add_argument("--config", nargs="+", default=None, metavar="NAME",
-                   help="zoo config(s) to lower and audit (not ported: "
-                        "exits 2)")
+                   help="zoo config(s) to capture and audit (underscore "
+                        "or dash spelling)")
     p.add_argument("--all", action="store_true",
-                   help="audit every zoo config (not ported: exits 2)")
+                   help="audit every zoo config")
     p.add_argument("--hlo-file", default=None, metavar="PATH",
-                   help="audit an already-dumped HLO module text")
+                   help="audit an already-dumped HLO module text instead "
+                        "of capturing a config")
     p.add_argument("--steps", nargs="+", default=None,
                    choices=("train", "prefill", "decode"),
-                   help="steps to lower per config (default: all "
+                   help="steps to capture per config (default: all "
                         "applicable)")
     p.add_argument("--reduced", action="store_true",
-                   help="lower reduced configs on smoke shapes (fast; "
+                   help="capture reduced configs on smoke shapes (fast; "
                         "same scatter idioms)")
     p.add_argument("--variant", default="base",
                    help="optimization variant for shape tuning "

@@ -13,10 +13,13 @@ wire-time estimate that accounts for group size k are reported
 (all-gather moves (k-1)/k of the full buffer through each link;
 all-reduce twice that).
 
-The text is all this module reads: it imports nothing but ``re`` and
-``dataclasses``.  The helpers that read a compiled XLA object instead
-(its ``cost_analysis()`` and ``memory_analysis()``) wait for the port's
-multi-device and zoo-audit slice.
+The text is all the walk reads.  A captured torch step
+(``launch.capture.Capture``) stands for the reference's compiled object:
+``cost_analysis_dict``, ``memory_analysis_dict`` and ``flops_and_bytes``
+read it as the reference reads ``compiled.cost_analysis()`` and
+``memory_analysis()``, and ``capture_collectives`` lists its collectives
+through the same ring model.  This module imports nothing but ``re`` and
+``dataclasses``.
 """
 
 from __future__ import annotations
@@ -598,3 +601,77 @@ def shape_dims(shape_text: str) -> list[tuple[str, list[int]]]:
 
 def find_entry(text: str) -> Optional[str]:
     return HloCostModel._find_entry(text)
+
+
+# ---------------------------------------------------------------------------
+# A captured step: the counterpart of the reference's compiled object
+# ---------------------------------------------------------------------------
+
+
+def cost_analysis_dict(capture) -> dict:
+    """Per-rank ``{"flops", "bytes accessed"}`` of a captured step: each
+    node's FLOPs (``FlopCounterMode``'s formulas) and bytes times its
+    trips (the loops the capture cut to one iteration).  The bytes are
+    the sum over the captured aten operations of their input and output
+    tensor bytes: an upper bound before fusion, where XLA's cost analysis
+    counts after it."""
+    flops = nbytes = 0.0
+    for node in capture.nodes:
+        flops += node.flops * node.trips
+        nbytes += node.bytes * node.trips
+    return {"flops": flops, "bytes accessed": nbytes}
+
+
+def memory_analysis_dict(capture) -> dict:
+    """Per-rank argument, output and temp bytes of a captured step: the
+    step's inputs, its outputs, and the peak of the storages its
+    operations make while they are live (from each storage's first write
+    to its last use), over the captured iteration of each loop."""
+    inputs = {ref.storage: ref.nbytes for _, ref in capture.inputs}
+    outputs = {ref.storage: ref.nbytes for ref in capture.outputs}
+    first: dict[int, int] = {}
+    last: dict[int, int] = {}
+    size: dict[int, int] = {}
+    for node in capture.nodes:
+        for ref in node.outputs:
+            if ref.storage not in inputs:
+                first.setdefault(ref.storage, node.index)
+                size[ref.storage] = max(size.get(ref.storage, 0), ref.nbytes)
+        for ref in node.tensor_args():
+            last[ref.storage] = node.index
+    events: list[tuple[int, int]] = []
+    for st, start in first.items():
+        if st in outputs:
+            continue
+        events.append((start, size[st]))
+        events.append((last.get(st, start) + 1, -size[st]))
+    live = peak = 0
+    for _, delta in sorted(events, key=lambda e: (e[0], e[1])):
+        live += delta
+        peak = max(peak, live)
+    return {"argument_size_in_bytes": int(sum(inputs.values())),
+            "output_size_in_bytes": int(sum(outputs.values())),
+            "temp_size_in_bytes": int(peak),
+            "alias_size_in_bytes": 0}
+
+
+def flops_and_bytes(capture) -> tuple[float, float]:
+    ca = cost_analysis_dict(capture)
+    return float(ca["flops"]), float(ca["bytes accessed"])
+
+
+def capture_collectives(capture) -> CollectiveSummary:
+    """The collectives a captured step issues on each rank, one entry a
+    node with its operand bytes summed over its trips, and its wire bytes
+    through the ring model of ``parse_collectives`` at its group size."""
+    ops = []
+    for node in capture.nodes:
+        if node.collective is None:
+            continue
+        opcode, obytes, k = node.collective
+        ops.append(CollectiveOp(
+            opcode=opcode, name=f"{node.op}.{node.index}",
+            operand_bytes=int(obytes) * node.trips, group_size=int(k),
+            wire_bytes=CollectiveOp.ring_wire_bytes(opcode, obytes, k)
+            * node.trips))
+    return CollectiveSummary(ops=ops)

@@ -347,6 +347,40 @@ def profile_scatter_workload(
                             cache=cache, use_true_n=use_true_n)
 
 
+def profile_compiled_step(
+    capture,
+    *,
+    label: str,
+    chips: int,
+    hlo_text: Optional[str] = None,
+    chip: timing.ChipParams = timing.V5E,
+) -> WorkloadProfile:
+    """Whole-step profile from a captured step (dry-run path): the
+    reference's from its compiled object.
+
+    The scatter unit needs runtime data (it is data-dependent — that is
+    the paper's point), so this path reports the three static units; the
+    scatter report is attached by the caller when an instrumented run (or
+    synthetic trace) is available.  ``hlo_text``, where given, supplies
+    the collectives instead of the capture's own.
+    """
+    from repro_torch.core import hlo as hlo_mod
+    flops, nbytes = hlo_mod.flops_and_bytes(capture)
+    coll = (hlo_mod.parse_collectives(hlo_text, chips) if hlo_text is not None
+            else hlo_mod.capture_collectives(capture))
+    mxu = flops / (chip.peak_bf16_flops / chip.clock_hz)
+    hbm = nbytes / (chip.hbm_bw / chip.clock_hz)
+    ici = coll.total_wire_bytes / (chip.ici_bw_per_link / chip.clock_hz)
+    window = max(mxu, hbm, ici, 1.0)
+    units = [
+        UnitUtilization("mxu", mxu, window),
+        UnitUtilization("hbm", hbm, window),
+        UnitUtilization("ici", ici, window),
+    ]
+    return WorkloadProfile(label=label, per_core=[], units=units,
+                           T_cycles=np.array([window]))
+
+
 def utilization_sweep(
     profiles: Sequence[WorkloadProfile],
 ) -> dict[str, np.ndarray]:

@@ -13,8 +13,13 @@ consumer warpgroups); bf16 at d = 16 and 32 run ``mma.sync``.  Both bf16
 routes sum in f32.  T may be any length: the kernel masks a ragged last
 tile.
 
-The launcher runs the kernel for CUDA tensors and the plain version for
-CPU tensors; it never falls back from one to the other.  Neither has a
+K8 is the ``torch.library`` operator ``repro_torch::flash_attention``:
+its CUDA implementation launches the kernel, its CPU one runs the plain
+version, and its fake implementation gives the result's shape on the
+meta device or under ``FakeTensorMode``; its FLOP formula (for
+``FlopCounterMode``) counts the full products, 4·B·H·T²·d.  The launcher
+runs the kernel for CUDA tensors and the plain version for CPU tensors;
+it never falls back from one to the other.  Neither has a
 backward: an input that requires grad, with grad mode on, is refused, as
 the reference's kernel has no gradient either.
 """
@@ -25,6 +30,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -101,17 +107,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must share one dtype and one device")
 
 
-def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True,
-                           group: int = 1) -> torch.Tensor:
-    """K8: (B, H, T, d) attention of q over (B, H / group, T, d) k and v."""
-    _check(q, k, v, group)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, group=group)
-    if q.device.type == "meta":   # shapes only (launch/specs.py)
-        return torch.empty_like(q)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, group: int) -> torch.Tensor:
+    """K8 as an operator: (B, H, T, d) attention."""
+    return attention_plain(q, k, v, causal=causal, group=group)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, causal, group):
     b, h, t, d = q.shape
     if q.dtype not in DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes f32 or bf16 with head_dim in "
@@ -130,3 +135,25 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention")
     _build.count_launch(LAUNCHES, "flash_attention")
     return out
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, group):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    """The full products, 4·B·H·T²·d (QKᵀ and PV), as PyTorch counts
+    ``scaled_dot_product_attention``: a causal mask does not halve it."""
+    b, h, t, d = q_shape
+    return 4 * b * h * t * k_shape[2] * d
+
+
+def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True,
+                           group: int = 1) -> torch.Tensor:
+    """K8: (B, H, T, d) attention of q over (B, H / group, T, d) k and v
+    (``repro_torch::flash_attention``)."""
+    _check(q, k, v, group)
+    return flash_attention_op(q, k, v, causal, group)

@@ -23,8 +23,13 @@ each the counterpart of a Pallas kernel of
     output that a kernel it overlaps zeroes for a longer one
     (``bincount_route``).
 
-Each launcher runs its kernel for a CUDA tensor and the plain torch
-version for a CPU tensor; it never falls back from one to the other.
+K5 and K7 are ``torch.library`` operators, ``repro_torch::scatter_add``
+and ``repro_torch::bincount``: the CUDA implementation launches the
+kernel, the CPU one runs the plain torch version, and a fake
+implementation gives the result's shape on the meta device or under
+``FakeTensorMode``, so that a captured step holds each as one node.
+Each launcher runs its kernel for a CUDA tensor and the plain version for
+a CPU tensor; it never falls back from one to the other.
 ``scatter_add_autograd`` is K5 under autograd (the MoE combine in
 training): its forward is ``scatter_add_launch``, its backward the
 gather ``scatter_add_grad_plain``, plain torch, as the reference's
@@ -175,7 +180,7 @@ def scatter_add_instrumented_plain(values: torch.Tensor, ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The launchers
+# Checks
 # ---------------------------------------------------------------------------
 
 
@@ -203,20 +208,25 @@ def _check_values(values: torch.Tensor, num_segments: int,
         raise ValueError(f"negative segment count {num_segments}")
 
 
-def _on_card(t: torch.Tensor, kernel: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no {kernel} kernel for device {t.device}")
-    return True
+# ---------------------------------------------------------------------------
+# The operators: ``torch.library`` custom ops, so that the dispatcher (and
+# a tracer: the meta device, ``FakeTensorMode``, ``launch.capture``) sees
+# each kernel as one node.  The CUDA implementation is the launcher, the
+# CPU one the plain version; another device has no implementation and the
+# dispatcher refuses it.  The fake implementation gives the result's shape.
+# ---------------------------------------------------------------------------
 
 
-def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
-    """K5: (S, D) f32 segment sums of (N, D) ``values`` by (N,) ``ids``."""
-    if not _on_card(values, "scatter_add"):
-        return scatter_add_plain(values, ids, num_segments)
+@torch.library.custom_op("repro_torch::scatter_add", mutates_args=(),
+                         device_types="cpu")
+def scatter_add_op(values: torch.Tensor, ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """K5 as an operator: (S, D) f32 segment sums."""
+    return scatter_add_plain(values, ids, num_segments)
+
+
+@scatter_add_op.register_kernel("cuda")
+def _scatter_add_cuda(values, ids, num_segments):
     _check_values(values, num_segments, VALUE_DTYPES)
     _check_ids(ids, values.device)
     n, d = values.shape
@@ -233,6 +243,62 @@ def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
             "scatter_add")
     _build.count_launch(LAUNCHES, "scatter_add")
     return out
+
+
+@scatter_add_op.register_fake
+def _scatter_add_fake(values, ids, num_segments):
+    return values.new_empty((num_segments, values.shape[1]),
+                            dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::bincount", mutates_args=(),
+                         device_types="cpu")
+def bincount_op(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K7 as an operator: (S,) int32 counts."""
+    return bincount_plain(ids, num_segments)
+
+
+@bincount_op.register_kernel("cuda")
+def _bincount_cuda(ids, num_segments):
+    route = bincount_route(ids.numel(), num_segments)
+    _check_ids(ids, ids.device)
+    # the kernel stores every count, or its launcher zeroes out first
+    out = torch.empty(num_segments, dtype=torch.int32, device=ids.device)
+    entry = (_lib().repro_bincount_block if route == "block"
+             else _lib().repro_bincount)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.raise_on_error(entry(ids.data_ptr(), out.data_ptr(),
+                                    ids.numel(), num_segments, stream),
+                              "bincount")
+    _build.count_launch(LAUNCHES, "bincount")
+    return out
+
+
+@bincount_op.register_fake
+def _bincount_fake(ids, num_segments):
+    return ids.new_empty((num_segments,), dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The launchers
+# ---------------------------------------------------------------------------
+
+
+def _on_card(t: torch.Tensor, kernel: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {t.device}")
+    return True
+
+
+def scatter_add_launch(values: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """K5: (S, D) f32 segment sums of (N, D) ``values`` by (N,) ``ids``
+    (``repro_torch::scatter_add``)."""
+    return scatter_add_op(values, ids, num_segments)
 
 
 class _ScatterAdd(torch.autograd.Function):
@@ -255,8 +321,7 @@ class _ScatterAdd(torch.autograd.Function):
 def scatter_add_autograd(values: torch.Tensor, ids: torch.Tensor,
                          num_segments: int) -> torch.Tensor:
     """``scatter_add_launch`` that autograd differentiates with respect to
-    ``values``: the launcher's own result has no ``grad_fn``, since the
-    kernel writes it through ctypes."""
+    ``values``: the operator has no autograd formula of its own."""
     return _ScatterAdd.apply(values, ids, num_segments)
 
 
@@ -295,19 +360,7 @@ def scatter_add_instrumented_launch(values: torch.Tensor, ids: torch.Tensor,
 
 
 def bincount_launch(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """K7: (S,) int32 occurrence counts of (N,) ``ids``, S <= 8192."""
-    route = bincount_route(ids.numel(), num_segments)
-    if not _on_card(ids, "bincount"):
-        return bincount_plain(ids, num_segments)
-    _check_ids(ids, ids.device)
-    # the kernel stores every count, or its launcher zeroes out first
-    out = torch.empty(num_segments, dtype=torch.int32, device=ids.device)
-    entry = (_lib().repro_bincount_block if route == "block"
-             else _lib().repro_bincount)
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.raise_on_error(entry(ids.data_ptr(), out.data_ptr(),
-                                    ids.numel(), num_segments, stream),
-                              "bincount")
-    _build.count_launch(LAUNCHES, "bincount")
-    return out
+    """K7: (S,) int32 occurrence counts of (N,) ``ids``, S <= 8192
+    (``repro_torch::bincount``)."""
+    bincount_route(ids.numel(), num_segments)
+    return bincount_op(ids, num_segments)

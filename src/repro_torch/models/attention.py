@@ -82,8 +82,9 @@ def init(gen: torch.Generator, cfg: AttnConfig) -> dict:
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    b, t, _ = x.shape
-    return x.reshape(b, t, n, hd).transpose(1, 2)  # (B, n, T, hd)
+    # (B, n, T, hd); a DTensor's features gathered where n does not divide
+    # over their shards
+    return pctx.unflatten(x, -1, (n, hd)).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -260,8 +261,9 @@ def attend(
             # the reference's dynamic_update_slice would clamp the start
             raise ValueError(f"writing {t} tokens at slot {slot} overruns the "
                              f"{buf}-slot cache")
-        ck[:, :, slot:slot + t] = k
-        cv[:, :, slot:slot + t] = v
+        # in place; a sharded cache on the ranks that hold the slots
+        coll.write_slice(ck, k, slot, 2)
+        coll.write_slice(cv, v, slot, 2)
         k, v = ck, cv
         slots = torch.arange(buf, device=x.device)
         last_write = pos + t - 1
@@ -317,16 +319,21 @@ def cross_cached(params: dict, x: torch.Tensor, cfg: AttnConfig,
     (B, KV, Tk, hd): the reference's ``_cross_from_cache``
     (``transformer.py``) and ``_cross_cached`` (``whisper.py``), one
     function here.  No mask, softcap or RoPE; f32 scores, as ``_sdpa``."""
-    b, t, _ = x.shape
-    g = cfg.num_heads // cfg.num_kv_heads
+    t = x.shape[1]
     q = _split_heads(layers.dense(params["wq"], x), cfg.num_heads,
                      cfg.head_dim)
-    qg = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
-    scores = torch.einsum("bkgqh,bkth->bkgqt", qg.to(torch.float32),
-                          k.to(torch.float32)) * cfg.head_dim ** -0.5
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqt,bkth->bkgqh", probs.to(v.dtype), v)
-    out = out.reshape(b, cfg.num_heads, t, cfg.head_dim)
+
+    def core(q, k, v):
+        bl, hl = q.shape[:2]
+        qg = q.reshape(bl, k.shape[1], hl // k.shape[1], t, cfg.head_dim)
+        scores = torch.einsum("bkgqh,bkth->bkgqt", qg.to(torch.float32),
+                              k.to(torch.float32)) * cfg.head_dim ** -0.5
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqt,bkth->bkgqh", probs.to(v.dtype), v)
+        return out.reshape(bl, hl, t, cfg.head_dim)
+
+    # under a mesh, on each rank's (batch, heads) shard
+    out = coll.per_head(core, (q, k, v), [("act", 1)] * 3, 1)
     return layers.dense(params["wo"], _merge_heads(out))
 
 

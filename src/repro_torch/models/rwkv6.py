@@ -203,14 +203,21 @@ def time_mix_decode(p: dict, x: torch.Tensor, state: dict, cfg: RWKVConfig):
     b, _, d = x.shape
     h, n = cfg.num_heads, cfg.head_dim
     xw, xk, xv, xr, xg = _ddlerp(p, x, state["last"][:, None, :])
-    logw = _decay(p, xw).reshape(b, h, n)
-    r, k, v = (layers.dense(p[w], xi).reshape(b, h, n).to(torch.float32)
+    tp = pctx.shard_batch_tp
+    logw = pctx.unflatten(tp(_decay(p, xw)), -1, (h, n))[:, 0]
+    r, k, v = (pctx.unflatten(tp(layers.dense(p[w], xi)), -1, (h, n))[:, 0]
+               .to(torch.float32)
                for w, xi in (("wr", xr), ("wk", xk), ("wv", xv)))
-    g = layers.dense(p["wg"], xg)
-    kv = torch.einsum("bhk,bhv->bhkv", k, v)
-    y = torch.einsum("bhk,bhkv->bhv",
-                     r, state["s"] + p["bonus"][None, :, :, None] * kv)
-    s_new = torch.exp(logw)[..., None] * state["s"] + kv
+    g = tp(layers.dense(p["wg"], xg))
+
+    def step(r, k, v, logw, s, u):
+        kv = torch.einsum("bhk,bhv->bhkv", k, v)
+        y = torch.einsum("bhk,bhkv->bhv", r, s + u[None, :, :, None] * kv)
+        return y, torch.exp(logw)[..., None] * s + kv
+
+    # under a mesh, on each rank's (batch, heads) shard
+    y, s_new = coll.per_head(step, (r, k, v, logw, state["s"], p["bonus"]),
+                             [("act", 1)] * 5 + [("param", 0)], (1, 1))
     y = y.reshape(b, 1, d).to(x.dtype)
     y = layers.layernorm(p["ln_x"], y)
     out = layers.dense(p["wo"], y * F.silu(g))

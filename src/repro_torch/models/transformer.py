@@ -42,6 +42,7 @@ state, not keys: ``{"s", "last", "cm_last"}`` and ``{"h", "conv"}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -50,7 +51,8 @@ import torch.utils.checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mamba2, mlp, moe, rwkv6
+from repro_torch.models import (attention, layers, loops, mamba2, mlp,
+                                moe, rwkv6)
 from repro_torch.parallel import ctx as pctx
 
 # the layer kinds whose decode cache is a KV buffer written at a position
@@ -273,8 +275,8 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     acfg = _attn_cfg(cfg, kind)
     if kind == "cross":  # the image K/V, projected once
         def heads(w):
-            return layers.dense(w, image_embeds).reshape(
-                batch, -1, acfg.num_kv_heads, acfg.head_dim).transpose(1, 2)
+            return attention._split_heads(layers.dense(w, image_embeds),
+                                          acfg.num_kv_heads, acfg.head_dim)
         return {"k": heads(p["attn"]["wk"]), "v": heads(p["attn"]["wv"])}
     c = attention.init_cache(acfg, batch, max_len, dt, device)
     return {"k": c["k"], "v": c["v"]}  # pos passed per step
@@ -366,6 +368,14 @@ class CausalLM:
                          for i, p in enumerate(params["layers"])]
         return out
 
+    def _marker(self, i: int):
+        """Layer ``i``'s loop marker: group ``i // k`` of the reference's
+        scan over ``n_groups``; the tail's layers are outside it."""
+        k = len(self.plan.group_kinds)
+        if i >= k * self.plan.n_groups:
+            return contextlib.nullcontext()
+        return loops.iteration("layers", i // k, self.plan.n_groups)
+
     def _layer_params(self, params) -> list:
         """Each layer's parameters, the shared block's where it runs."""
         return [params["shared_attn"] if kind == "shared_attn" else p
@@ -392,11 +402,14 @@ class CausalLM:
         remat = cfg.remat == "block" and torch.is_grad_enabled()
         h = pctx.shard_batch(layers.embed(params["embed"], tokens))
         aux = 0.0
-        for kind, p in zip(self.kinds, self._layer_params(params)):
-            def layer(h, kind=kind, p=p):
-                h, a = _sub_apply(cfg, kind, p, h, cache=None,
-                                  image_embeds=image_embeds,
-                                  kv_block=kv_block, q_block=q_block)[:2]
+        for i, (kind, p) in enumerate(zip(self.kinds,
+                                          self._layer_params(params))):
+            def layer(h, kind=kind, p=p, i=i):
+                with self._marker(i):
+                    h, a = _sub_apply(cfg, kind, p, h, cache=None,
+                                      image_embeds=image_embeds,
+                                      kv_block=kv_block,
+                                      q_block=q_block)[:2]
                 return pctx.shard_batch(h), a
             h, a = remat_layer(layer, h) if remat else layer(h)
             aux = aux + a
@@ -454,12 +467,13 @@ class CausalLM:
         h = pctx.shard_batch(layers.embed(params["embed"], tokens))
         positions = pos + torch.arange(tokens.shape[1], device=h.device)
         new_layers = []
-        for kind, p, c in zip(self.kinds, self._layer_params(params),
-                              cache["layers"]):
+        for i, (kind, p, c) in enumerate(zip(
+                self.kinds, self._layer_params(params), cache["layers"])):
             if kind in ATTN_KINDS:  # a KV cache written at the position
                 c = dict(c, pos=pos)
-            h, _, nc = _sub_apply(self.cfg, kind, p, h, cache=c,
-                                  positions=positions)
+            with self._marker(i):
+                h, _, nc = _sub_apply(self.cfg, kind, p, h, cache=c,
+                                      positions=positions)
             new_layers.append({k: v for k, v in nc.items() if k != "pos"})
         h = _norm(self.cfg, params["final_norm"], h)
         return self.unembed_logits(params, h), {"layers": new_layers}

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, loops, mlp
 from repro_torch.models.transformer import remat_layer
 from repro_torch.parallel import ctx as pctx
 
@@ -114,13 +114,15 @@ class WhisperModel:
         h = pctx.shard_batch(h)
         acfg = _acfg(cfg, causal=False)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for p in params["enc_blocks"]:
-            def body(h, p=p):
-                a, _ = attention.attend(
-                    p["attn"], layers.layernorm(p["norm1"], h), acfg)
-                h = h + a
-                return pctx.shard_batch(h + mlp.apply(
-                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu"))
+        n = len(params["enc_blocks"])
+        for i, p in enumerate(params["enc_blocks"]):
+            def body(h, p=p, i=i):
+                with loops.iteration("enc", i, n):
+                    a, _ = attention.attend(
+                        p["attn"], layers.layernorm(p["norm1"], h), acfg)
+                    h = h + a
+                    return pctx.shard_batch(h + mlp.apply(
+                        p["ffn"], layers.layernorm(p["norm2"], h), "gelu"))
             h = remat_layer(body, h) if remat else body(h)
         return layers.layernorm(params["enc_norm"], h)
 
@@ -147,18 +149,20 @@ class WhisperModel:
         xcfg = _acfg(cfg, causal=False)
         kv_block = cfg.kv_block if cfg.attn_impl == "blockwise" else None
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for p in params["dec_blocks"]:
-            def body(h, p=p):
-                a, _ = attention.attend(
-                    p["attn"], layers.layernorm(p["norm1"], h), acfg,
-                    kv_block=kv_block)
-                h = h + a
-                a, _ = attention.attend(
-                    p["cross"], layers.layernorm(p["norm_c"], h), xcfg,
-                    kv_x=enc)
-                h = h + a
-                return pctx.shard_batch(h + mlp.apply(
-                    p["ffn"], layers.layernorm(p["norm2"], h), "gelu"))
+        n = len(params["dec_blocks"])
+        for i, p in enumerate(params["dec_blocks"]):
+            def body(h, p=p, i=i):
+                with loops.iteration("dec", i, n):
+                    a, _ = attention.attend(
+                        p["attn"], layers.layernorm(p["norm1"], h), acfg,
+                        kv_block=kv_block)
+                    h = h + a
+                    a, _ = attention.attend(
+                        p["cross"], layers.layernorm(p["norm_c"], h), xcfg,
+                        kv_x=enc)
+                    h = h + a
+                    return pctx.shard_batch(h + mlp.apply(
+                        p["ffn"], layers.layernorm(p["norm2"], h), "gelu"))
             h = remat_layer(body, h) if remat else body(h)
         h = layers.layernorm(params["dec_norm"], h)
         return layers.unembed(params["embed"], h), 0.0
@@ -187,8 +191,8 @@ class WhisperModel:
         dt = layers.torch_dtype(cfg.dtype)
 
         def heads(w):
-            return layers.dense(w, enc).reshape(
-                batch, -1, acfg.num_kv_heads, acfg.head_dim).transpose(1, 2)
+            return attention._split_heads(layers.dense(w, enc),
+                                          acfg.num_kv_heads, acfg.head_dim)
 
         out = []
         for p in params["dec_blocks"]:
@@ -211,18 +215,20 @@ class WhisperModel:
         acfg = _acfg(cfg, causal=True)
         positions = pos + torch.arange(1, device=h.device)
         new_layers = []
-        for p, c in zip(params["dec_blocks"], cache["layers"]):
-            a, nc = attention.attend(p["attn"],
-                                     layers.layernorm(p["norm1"], h), acfg,
-                                     positions=positions,
-                                     cache={"k": c["k"], "v": c["v"],
-                                            "pos": pos})
-            h = h + a
-            h = h + attention.cross_cached(
-                p["cross"], layers.layernorm(p["norm_c"], h), acfg,
-                c["xk"], c["xv"])
-            h = h + mlp.apply(p["ffn"], layers.layernorm(p["norm2"], h),
-                              "gelu")
+        n = len(params["dec_blocks"])
+        for i, (p, c) in enumerate(zip(params["dec_blocks"],
+                                       cache["layers"])):
+            with loops.iteration("dec", i, n):
+                a, nc = attention.attend(
+                    p["attn"], layers.layernorm(p["norm1"], h), acfg,
+                    positions=positions,
+                    cache={"k": c["k"], "v": c["v"], "pos": pos})
+                h = h + a
+                h = h + attention.cross_cached(
+                    p["cross"], layers.layernorm(p["norm_c"], h), acfg,
+                    c["xk"], c["xv"])
+                h = h + mlp.apply(p["ffn"],
+                                  layers.layernorm(p["norm2"], h), "gelu")
             new_layers.append({"k": nc["k"], "v": nc["v"], "xk": c["xk"],
                                "xv": c["xv"]})
         h = layers.layernorm(params["dec_norm"], h)

@@ -20,7 +20,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel.sharding import P, to_placements
@@ -163,3 +165,28 @@ def per_head(fn, args, dims, out_dims):
         return from_local(out, mesh, spec(out.ndim, "act", out_dims))
     return tuple(from_local(o, mesh, spec(o.ndim, "act", h))
                  for o, h in zip(out, out_dims))
+
+
+def write_slice(buf, x, start: int, dim: int) -> None:
+    """``buf[start:start + n]`` along ``dim`` = ``x`` (n = its length
+    there), in place.  A DTensor ``buf`` keeps its placements: ``x`` is
+    brought to them with ``dim`` whole on every rank, and each rank
+    writes into its own shard the part of the slice that falls there (the
+    reference's ``dynamic_update_slice`` of a sharded cache)."""
+    if not isinstance(buf, DTensor):
+        buf.narrow(dim, start, x.shape[dim]).copy_(x)
+        return
+    mesh, placements = buf.device_mesh, buf.placements
+    whole = [Replicate() if isinstance(pl, Shard) and pl.dim == dim else pl
+             for pl in placements]
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    x_local = x.redistribute(mesh, whole).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, placements)
+    lo = max(start, offset[dim])
+    hi = min(start + x.shape[dim], offset[dim] + shape[dim])
+    if lo < hi:
+        buf.to_local().narrow(dim, lo - offset[dim], hi - lo).copy_(
+            x_local.narrow(dim, lo - start, hi - lo))

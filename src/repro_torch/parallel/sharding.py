@@ -28,7 +28,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch import tree
 
@@ -100,7 +101,11 @@ def to_placements(spec: P, mesh) -> tuple:
                                  f"mesh's order {names}")
             out[j] = Shard(dim)
             prev = j
-    return tuple(out)
+    # on a mesh dimension of one rank a shard is the whole tensor: the
+    # same layout as Replicate, which DTensor takes through every view
+    # (it refuses to merge a dimension of size 1 sharded there)
+    return tuple(Replicate() if mesh.size(j) == 1 else pl
+                 for j, pl in enumerate(out))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,11 +120,15 @@ class NamedSharding:
 
 
 def distribute(values, shardings):
-    """Each leaf of ``values`` (plain tensors, all of them on every rank)
-    as a DTensor placed by the matching leaf of ``shardings``."""
-    return tree.map(lambda x, sh: distribute_tensor(
-        x.to(sh.mesh.device_type), sh.mesh, sh.placements),
-        values, shardings)
+    """Each leaf of ``values`` (plain tensors, all of them on every rank,
+    or DTensors) as a DTensor placed by the matching leaf of
+    ``shardings``."""
+    def place(x, sh):
+        if isinstance(x, DTensor):
+            return x.redistribute(sh.mesh, sh.placements)
+        return distribute_tensor(x.to(sh.mesh.device_type), sh.mesh,
+                                 sh.placements)
+    return tree.map(place, values, shardings)
 
 
 def param_spec_for_path(path, leaf, cfg) -> P:

@@ -21,6 +21,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.sharding import P
+
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -33,7 +36,10 @@ def make_decode_step(model):
         """tokens (B,1) int32; pos: int -> (next_tokens (B,1), logits,
         new_cache)."""
         logits, new_cache = model.decode_step(params, tokens, cache, pos=pos)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        # under a mesh, over the whole vocabulary (DTensor's argmax of a
+        # vocab-sharded batch of one fails)
+        last = pctx.constrain(logits[:, -1:], P())
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
 
     return serve_step

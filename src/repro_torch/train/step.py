@@ -27,7 +27,7 @@ import dataclasses
 import torch
 
 from repro_torch import tree
-from repro_torch.models import layers
+from repro_torch.models import layers, loops
 from repro_torch.optim import adamw
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
@@ -118,7 +118,7 @@ def make_train_step(model, tcfg: TrainConfig, ocfg: adamw.AdamWConfig,
                                  f"microbatches")
             grads = constrain(tree.map(
                 lambda p: torch.zeros_like(p, dtype=torch.float32), params))
-            for i in range(n):
+            for i in loops.repeat("micro", n):
                 g, metrics = grad_fn(params, _micro(batch, i, n))
                 g = constrain(g)
                 for acc, gi in zip(tree.leaves(grads), tree.leaves(g)):

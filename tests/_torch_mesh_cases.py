@@ -134,6 +134,51 @@ def case_zoo(inp, mesh_shape, axes, data_axes):
         for m in inp["models"]}
 
 
+DECODE_B, DECODE_STEPS, DECODE_LEN = 4, 4, 8
+
+
+def _decode_run(model, params, toks, extras, mesh=None, data_axes=()):
+    """The prefill's logits over ``toks``, then the logits of
+    ``DECODE_STEPS`` decode steps from an empty cache of ``DECODE_LEN``
+    slots, teacher-forced with ``toks``; on ``mesh``, with the cache laid
+    out by ``cache_pspecs``."""
+    from repro_torch.parallel import sharding as shd
+    logits, _ = model.forward(params, toks, **extras)
+    out = {"prefill": _np(logits)}
+    cache = model.init_cache(params, toks.shape[0], DECODE_LEN, **extras)
+    if mesh is not None:
+        cache = shd.distribute(cache, shd.shardings_of(shd.cache_pspecs(
+            cache, model.cfg, data_axes=data_axes, seq_axis="model"), mesh))
+    for i in range(DECODE_STEPS):
+        step_logits, cache = model.decode_step(params, toks[:, i:i + 1],
+                                               cache, pos=i)
+        out[f"step{i}"] = _np(step_logits)
+    return out
+
+
+def case_decode(inp, mesh_shape, axes, data_axes):
+    """For each model of ``inp["models"]``: a prefill, then decode steps
+    against a cache, unsharded and on the mesh (``_decode_run``)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import ctx as pctx
+    mesh = mesh_mod.compat_make_mesh(mesh_shape, axes, "cpu")
+    res = {}
+    for m in inp["models"]:
+        cfg, model, params, batch = _lm(m)
+        toks = batch["tokens"][:DECODE_B, :DECODE_STEPS].contiguous()
+        extras = {k: v[:DECODE_B] for k, v in batch.items()
+                  if k not in ("tokens", "labels")}
+        with torch.no_grad():
+            want = _decode_run(model, params, toks, extras)
+            ps, bs = _on_mesh(cfg, params, dict(extras, tokens=toks), mesh,
+                              data_axes)
+            with pctx.use_mesh(mesh, data_axes=data_axes, tp_axis="model"):
+                got = _decode_run(model, ps, bs.pop("tokens"), bs, mesh,
+                                  data_axes)
+        res[m["name"]] = {"want": want, "got": got}
+    return res
+
+
 def case_train_step(inp, mesh_shape, axes, data_axes):
     """One train step with ``accum_steps`` and ``constrain_grad_sharding``
     on the mesh, and the same step unsharded: the new parameters, the
@@ -168,7 +213,8 @@ def case_train_step(inp, mesh_shape, axes, data_axes):
         specs = shd.param_pspecs(params, cfg)
         want = [shd.to_placements(s, mesh) for s in tree.leaves(specs)]
         got = [tuple(t.placements) for t in tree.leaves(s1["params"])]
-    return {"params": tree.map(_np, s0["params"]),
+    return {"before": tree.map(_np, params),
+            "params": tree.map(_np, s0["params"]),
             "mesh_params": tree.map(_np, s1["params"]),
             "opt": tree.map(_np, s0["opt"]),
             "mesh_opt": tree.map(_np, s1["opt"]),
@@ -231,6 +277,9 @@ def _worker(rank, world, workdir):
             res = case_loss(inp, inp["mesh"], inp["axes"], inp["data_axes"])
         elif kind == "zoo":
             res = case_zoo(inp, inp["mesh"], inp["axes"], inp["data_axes"])
+        elif kind == "decode":
+            res = case_decode(inp, inp["mesh"], inp["axes"],
+                              inp["data_axes"])
         elif kind == "train_step":
             res = case_train_step(inp, inp["mesh"], inp["axes"],
                                   inp["data_axes"])

@@ -63,7 +63,6 @@ CRAFTED = {"hot": HOT_HLO, "cas": CAS_HLO, "unresolved": UNRESOLVED_HLO,
            "plain_dus": PLAIN_DUS_HLO}
 TEXT_NAMES = GOLDENS + ("qwen3_moe_235b_a22b__decode_fresh",) \
     + tuple(CRAFTED)
-ZOO_ITEM = 'ROADMAP queue 1, "Multi-device and the zoo audit"'
 ZERO_STATS = {"collected": 0, "memo_hits": 0, "disk_hits": 0,
               "batch_calls": 0}
 
@@ -362,14 +361,20 @@ def test_session_audit_method(granite_decode):
 
 
 def test_audit_refusals_name_their_roadmap_item():
+    """Sources with no HLO and no capture still raise ``ValueError``,
+    naming what ``audit`` takes, as the reference's do; a zoo config,
+    which waited for ROADMAP queue 1 ("Multi-device and the zoo audit"),
+    is now captured and audited, launching nothing."""
     sess = Session("v5e")
     spec = WorkloadSpec.from_indices(np.zeros(1024, np.int64), 8,
                                      label="ids")
     for source in (spec, object(), None):
-        with pytest.raises(ValueError, match=ZOO_ITEM):
+        with pytest.raises(ValueError, match="captured step"):
             sess.audit(source)
-    with pytest.raises(NotImplementedError, match=ZOO_ITEM):
-        audit_config("qwen3_moe_235b_a22b", session=sess)
+    rep = audit_config("qwen3_moe_235b_a22b", session=sess,
+                       steps=["decode"], reduced=True)
+    assert rep.steps == ["decode"] and rep.findings
+    assert sess.stats == ZERO_STATS
 
 
 # -- the command line (the reference's cases) -----------------------------------
@@ -428,12 +433,15 @@ def test_cli_audit_no_target_is_usage_error(capsys):
      "--steps", "decode", "--variant", "base"],
     ["--all", "--format", "sarif", "--fail-on", "warning"]])
 def test_cli_audit_config_and_all_refuse(argv, capsys):
-    """``--config``/``--all`` parse as in the reference, then exit 2
-    naming the ROADMAP item that lowers a config."""
+    """``--config``/``--all`` parse as in the reference, and now capture
+    and audit the configs at their production shapes (they exited 2 until
+    ROADMAP queue 1, "Multi-device and the zoo audit", was done): a report
+    on stdout, exit 1 where a finding reaches the gate."""
     rc = main(["audit", *argv, "--no-artifact"])
     cap = capsys.readouterr()
-    assert rc == 2 and cap.out == ""
-    assert ZOO_ITEM in cap.err
+    assert rc in (0, 1) and cap.out
+    if "sarif" in argv:
+        assert rc == 1 and json.loads(cap.out)["runs"][0]["results"]
 
 
 def test_cli_audit_subprocess_fail_on(tmp_path):

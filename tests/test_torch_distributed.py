@@ -438,3 +438,127 @@ def test_checkpoint_restores_across_meshes(tmp_path):
         assert len(restored) == len(saved)
         for a, b in zip(restored, saved):
             np.testing.assert_array_equal(a, b)
+
+
+# -- decode on a mesh ---------------------------------------------------------
+
+
+def _no_drop(arch, changes=None):
+    """The config's changes with a capacity factor of E for an MoE model:
+    nothing drops, on the mesh or off it (each data shard reckons its own
+    capacity from its own tokens)."""
+    import dataclasses
+    from repro.configs import get_config as ref_get_config
+    changes = dict(changes or {})
+    cfg = dataclasses.replace(ref_get_config(arch).reduced(), **changes)
+    if cfg.is_moe:
+        changes["moe_capacity_factor"] = float(cfg.num_experts)
+    return changes
+
+
+@pytest.fixture(scope="module")
+def zoo_decode(tmp_path_factory):
+    """Every model of the zoo, reduced, f32: a prefill of 4 x 4 tokens,
+    then 4 decode steps from an empty 8-slot cache, unsharded and on a
+    (2, 4) mesh with the cache laid out by ``cache_pspecs`` (the KV
+    sequence over the model axis), in one run of 8 ranks."""
+    models = [_zoo_model(a, a, _no_drop(a)) for a in ZOO]
+    name, arch, changes = EP_VARIANT
+    models.append(_zoo_model(name, arch, _no_drop(arch, changes)))
+    return run_port({"case": "decode", "models": models, "mesh": (2, 4),
+                     "axes": ("data", "model"), "data_axes": ("data",)},
+                    tmp_path_factory.mktemp("decode"))
+
+
+@pytest.mark.parametrize("name", ZOO + [EP_VARIANT[0]])
+def test_decode_on_a_mesh_matches_unsharded(zoo_decode, name):
+    """The prefill's logits and each decode step's on the mesh within
+    1e-5 x their largest magnitude of the unsharded ones: the KV write
+    lands in the shard that holds the slot, in place."""
+    got = zoo_decode[name]
+    assert set(got["got"]) == {"prefill", "step0", "step1", "step2",
+                               "step3"}
+    for key, want in got["want"].items():
+        _close_rel(got["got"][key], want, 1e-5)
+
+
+REF_MESH_DECODE = """
+import dataclasses
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding
+from repro.configs import get_config
+from repro.launch import mesh as mesh_mod
+from repro.models.registry import build_model
+from repro.parallel import ctx as pctx, sharding as shd
+cfg = dataclasses.replace(get_config(INP["arch"]).reduced(),
+                          **INP["changes"])
+model = build_model(cfg)
+params = jax.tree.map(jnp.asarray, INP["params"])
+toks = jnp.asarray(INP["batch"]["tokens"][:4, :4])
+mesh = mesh_mod.compat_make_mesh((2, 4), ("data", "model"))
+params = jax.device_put(params, shd.param_shardings(params, cfg, mesh))
+cache = model.init_cache(params, 4, 8)
+cache = jax.device_put(cache, jax.tree.map(
+    lambda s: NamedSharding(mesh, s),
+    shd.cache_pspecs(cache, cfg, data_axes=("data",), seq_axis="model"),
+    is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
+OUT = {}
+with pctx.use_mesh(mesh, data_axes=("data",), tp_axis="model"):
+    step = jax.jit(lambda p, t, c, pos: model.decode_step(p, t, c, pos=pos))
+    for i in range(4):
+        logits, cache = step(params, toks[:, i:i + 1], cache, jnp.int32(i))
+        OUT[f"step{i}"] = np.asarray(logits, np.float32)
+"""
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "granite-moe-1b-a400m"])
+def test_decode_on_a_mesh_matches_the_reference_on_its_mesh(
+        zoo_decode, arch, tmp_path):
+    """The port's decode steps on the (2, 4) mesh against the reference's
+    decode under its own (2, 4) mesh of 8 virtual XLA devices, from the
+    same parameters and tokens, within 1e-5 x the largest logit."""
+    ref = run_reference(REF_MESH_DECODE,
+                        _zoo_model(arch, arch, _no_drop(arch)), tmp_path)
+    got = zoo_decode[arch]["got"]
+    for key, want in ref.items():
+        _close_rel(got[key], want, 1e-5)
+
+
+# AdamW's first update is lr x g / (|g| + eps): where |g| is well above
+# eps it is lr x sign(g) whatever the rounding of g; where |g| is near eps
+# the rounding of g moves it by a share of lr itself
+CONDITIONED_G = 1e-6       # |g| below it: eps moves the update by > 1%
+CONDITIONED_BOUND = 0.05   # x the largest |change|, measured 0.0304 max
+
+
+def test_train_step_on_a_mesh_at_the_default_eps():
+    """command-r-plus-104b reduced on a (4, 2) mesh, as
+    ``test_train_step_on_a_mesh_matches_unsharded`` but at AdamW's default
+    eps 1e-8.  Each leaf's change under the step is within 1e-4 x the
+    largest |change| of the unsharded step's on every element whose
+    unsharded gradient is at least ``CONDITIONED_G``.  Below it, where
+    eps conditions the update, the f32 rounding of a sum over shards
+    moves the change by up to 3.04% of the largest (1 to 16 elements a
+    leaf, gradients of 4e-10 to 3.3e-7, measured on the CPU): those are
+    held within ``CONDITIONED_BOUND`` x the largest |change|."""
+    import tempfile
+    inp = _step_inp("command-r-plus-104b", (4, 2))
+    inp["ocfg"] = {"lr": 1e-3, "warmup_steps": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        got = run_port(inp, Path(tmp))
+    assert got["placements_kept"]
+    grads = [np.abs(np.asarray(m, np.float64)) / 0.1   # m = (1 - b1) g
+             for m in _leaves(got["opt"]["m"])]
+    before = _leaves(got["before"])
+    after, want = _leaves(got["mesh_params"]), _leaves(got["params"])
+    n_conditioned = 0
+    for p0, p1, w, g in zip(before, after, want, grads, strict=True):
+        p0, p1, w = (np.asarray(x, np.float64) for x in (p0, p1, w))
+        err = np.abs((p1 - p0) - (w - p0))
+        top = np.abs(w - p0).max()
+        plain = g >= CONDITIONED_G
+        assert (err[plain] <= 1e-4 * top).all(), (err[plain].max(), top)
+        assert (err <= CONDITIONED_BOUND * top).all(), (err.max(), top)
+        n_conditioned += int((err[~plain] > 1e-4 * top).sum())
+    print(f"elements past 1e-4 x the update where |g| < {CONDITIONED_G}: "
+          f"{n_conditioned}")

@@ -45,7 +45,6 @@ from test_audit import CAS_HLO, HOT_HLO, PLAIN_DUS_HLO, UNRESOLVED_HLO
 DATA = pathlib.Path(__file__).parent / "data"
 GOLDENS = ("granite_moe_1b_a400m__decode", "whisper_small__train",
            "qwen3_moe_235b_a22b__decode", "qwen3_moe_235b_a22b__prefill")
-ZOO_ITEM = 'ROADMAP queue 1, "Multi-device and the zoo audit"'
 
 COLLECTIVE_HLO = """
 ENTRY %main (p0: f32[8,8]) -> f32[8,8] {
@@ -256,10 +255,24 @@ def test_collectives_detected_in_sharded_program():
 
 def test_compiled_object_helpers_wait_for_their_item():
     """The reference's helpers that read a compiled XLA object
-    (``test_memory_analysis_dict_tolerant``) are not in the port."""
+    (``test_memory_analysis_dict_tolerant``) read a captured step in the
+    port, which waited for ROADMAP queue 1, "Multi-device and the zoo
+    audit": the same names and keys, positive FLOPs and bytes, and
+    ``flops_and_bytes`` the cost analysis's pair."""
+    from repro_torch.audit import zoo as port_zoo
+    cap = port_zoo.lower_config_steps("granite-moe-1b-a400m",
+                                      steps=["decode"], reduced=True)["decode"]
     for name in ("cost_analysis_dict", "memory_analysis_dict",
                  "flops_and_bytes"):
-        assert hasattr(ref_hlo, name) and not hasattr(hlo, name)
+        assert hasattr(ref_hlo, name) and hasattr(hlo, name)
+    cost = hlo.cost_analysis_dict(cap)
+    assert cost["flops"] > 0 and cost["bytes accessed"] > 0
+    assert hlo.flops_and_bytes(cap) == (cost["flops"],
+                                        cost["bytes accessed"])
+    mem = hlo.memory_analysis_dict(cap)
+    assert {"argument_size_in_bytes", "output_size_in_bytes",
+            "temp_size_in_bytes", "alias_size_in_bytes"} <= set(mem)
+    assert mem["argument_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
 
 
 # -- the same text through both packages ---------------------------------------
@@ -347,7 +360,7 @@ def test_from_compiled_fingerprint_stable_across_relowering():
 def test_from_compiled_refuses_a_compiled_object():
     compiled = jax.jit(lambda x: x + 1).lower(
         jax.ShapeDtypeStruct((4,), jnp.float32)).compile()
-    with pytest.raises(NotImplementedError, match=ZOO_ITEM):
+    with pytest.raises(ValueError, match="captured step"):
         WorkloadSpec.from_compiled(compiled, label="c")
 
 

@@ -41,7 +41,7 @@ def _imported_roots(path):
 def test_port_sources_import_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
-    assert len([f for f in files if f.parent.name == "examples"]) == 8
+    assert len([f for f in files if f.parent.name == "examples"]) == 9
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -66,7 +66,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.train.step, repro_torch.optim.adamw, "
             "repro_torch.checkpoint.store, repro_torch.data.pipeline, "
             "repro_torch.runtime.fault_tolerance, "
-            "repro_torch.runtime.stragglers\n"
+            "repro_torch.runtime.stragglers, repro_torch.launch.capture, "
+            "repro_torch.launch.lowering, repro_torch.launch.dryrun, "
+            "repro_torch.audit.zoo, repro_torch.core.roofline, "
+            "repro_torch.models.loops\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
