@@ -58,6 +58,12 @@ DTensor state.  Phases, each of which must pass:
    it none but by an injected fault), then the static audit (each
    command's host seconds, each text's sites, instructions and findings
    logged; no launch during the audit, K6 once a distinct finding spec),
+   then the zoo audit, then the kernel lint (``python -m repro_torch
+   lint`` as processes with no card visible, ``lint_registry`` in process
+   with no launch, K3's degrees on each static probe bit-equal to the
+   lint's derivation, each KERN005 spec through K6, each declaration's
+   combine classes against its kernel's SASS, and K2's times on the solid
+   probe beside the lint's predicted speedup, printed only),
    then serving, then MoE serving
    (K7 and K5 on each model's live layer-0 tensors held against their
    plain versions there, outside the counts), then the families' serving
@@ -1735,6 +1741,148 @@ def zoo_path(dev, results: Path, cache_dir) -> int:
     log(f"  the zoo phase: {host:.3f} s host (at most {ZOO_HOST_S})")
     _require(host <= ZOO_HOST_S, f"the zoo phase took {host:.1f} s host")
     return len(specs)
+
+
+LINT_HOST_S = 30.0          # the lint phase's host seconds, at most
+# the lint launches nothing; K3 checks its static derivations, K6 its
+# KERN005 specs
+LINT_KERNELS = ("hist_instrumented", "scatter_add_instrumented")
+
+
+def lint_path(dev, results: Path, cache_dir, sass: dict) -> dict:
+    """The kernel lint: ``lint_registry`` in this process, which may
+    neither launch a kernel nor collect a counter, then as a user runs
+    it, ``python -m repro_torch lint`` as processes with no card visible
+    to them, all four at once: text, json and SARIF at the default gate
+    (exit code 1: KERN001 is an error on ``hist``) and ``--kernel hist2
+    --fail-on warning`` (exit code 0).  All read the service-time table
+    from ``cache_dir``, which the first builds if it must.  Then the lint
+    held to the kernels it models (``tests/_lint_card.py``): K3 once on
+    each static probe (``hist``, ``hist2``, ``hist_weighted`` on the
+    solid image), its degrees bit-equal to the static derivation and its
+    counters to the lint's; each KERN005 finding's spec through
+    ``Session.validate(spec, ("trace", kernel))``, K6 once a spec, e
+    relative error exactly 0.0; and each declaration's combine classes
+    against the SASS of the instantiation its launcher runs.  Last, K2's
+    times of ``hist`` and ``hist2`` on the solid probe, beside the lint's
+    ``--advise`` predicted speedup (modeled for the TPU devices; printed,
+    not gated), outside the counts.  The phase's host seconds stay under
+    LINT_HOST_S.
+
+    Returns the launches of the checks, by kernel.
+    """
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _lint_card
+
+    import torch
+
+    from repro_torch import audit as audit_mod
+    from repro_torch.analysis import Session
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.lint import lint_kernel, lint_registry, registry
+
+    def launched() -> dict:
+        return {**hk.LAUNCHES, **sk.LAUNCHES, **fk.LAUNCHES}
+
+    start = time.perf_counter()
+    before = launched()
+    sess = Session("v5e", cache_dir=cache_dir)
+    hosts = []
+    for _ in range(2):                   # cold (imports, table), then warm
+        t0 = time.perf_counter()
+        report = lint_registry(session=sess)
+        hosts.append(time.perf_counter() - t0)
+    by = {}
+    for f in report.findings:
+        key = f"{f.rule_id}/{f.severity}" + ("/suppressed" * f.suppressed)
+        by[key] = by.get(key, 0) + 1
+    _require(launched() == before and not any(sess.stats_snapshot().values()),
+             f"linting launched {launched()} (was {before}), collected "
+             f"{sess.stats_snapshot()}")
+    log(f"  lint_registry in process: {hosts[0]:.3f} s host cold, "
+        f"{hosts[1]:.3f} s warm, "
+        f"{report.sites_scanned} sites, findings {dict(sorted(by.items()))}, "
+        f"no launch, no collection")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               REPRO_TORCH_RESULTS=str(results / "lint"))
+    argvs = {"text": [], "json": ["--format", "json"],
+             "sarif": ["--format", "sarif"],
+             "hist2 --fail-on warning": ["--kernel", "hist2", "--fail-on",
+                                         "warning"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "lint", *argv,
+         "--cache-dir", str(cache_dir)], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, argv in argvs.items()}
+    outs = {}
+    for k, proc in procs.items():
+        out, errs = proc.communicate(timeout=120)
+        outs[k] = (proc.returncode, out, errs)
+    rcs = {k: rc for k, (rc, _, _) in outs.items()}
+    _require(rcs == {"text": 1, "json": 1, "sarif": 1,
+                     "hist2 --fail-on warning": 0},
+             f"python -m repro_torch lint: rc {rcs}\n"
+             + "\n".join(e[-2000:] for _, _, e in outs.values()))
+    payload = json.loads(outs["json"][1])
+    (run,) = json.loads(outs["sarif"][1])["runs"]
+    ids = [r["id"] for r in run["tool"]["driver"]["rules"]]
+    _require(payload["counts"] == {"error": 3, "warning": 0, "note": 2}
+             and any(f["rule"] == "KERN001" and f["severity"] == "error"
+                     and f["label"].startswith("hist-solid")
+                     for f in payload["findings"])
+             and len(run["results"]) == len(payload["findings"])
+             and all(ids[r["ruleIndex"]] == r["ruleId"]
+                     for r in run["results"])
+             and "no findings" in outs["hist2 --fail-on warning"][1],
+             f"lint reports: {payload['counts']}, {len(run['results'])} "
+             f"SARIF results")
+    log(f"  python -m repro_torch lint x4 (text, json, sarif, hist2 "
+        f"--fail-on warning), no card visible: "
+        f"{time.perf_counter() - t0:.3f} s host, rc {rcs}; "
+        f"{payload['sites_scanned']} sites from "
+        f"{payload['instructions_scanned']} operations, findings "
+        f"{payload['counts']}")
+
+    t0 = time.perf_counter()
+    for row in _lint_card.k3_against_derivation(dev):
+        log(f"    K3 {row['name']}-solid: {row['waves']} waves, degrees "
+            f"bit-equal to the static derivation (mean {row['mean_degree']},"
+            f" floor {row['floor_degree']}); N {row['N']!r}, O "
+            f"{row['O']!r}, e {row['e']!r} equal to the lint's")
+    for row in _lint_card.kern005_through_k6(sess, dev):
+        log(f"    K6 {row['label']}: e rel err 0.0, e {row['e']!r}, "
+            f"N {row['N']!r}")
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    log(f"  the lint's static derivations and KERN005 specs on K3 and K6: "
+        f"{time.perf_counter() - t0:.3f} s")
+    for row in _lint_card.declared_combines(sass):
+        log(f"    {row['name']}: {row['kernel']} declares and compiled to "
+            f"{row['combines']}")
+    counted = {k: n for k, n in launched().items() if n}
+
+    # K2 on the solid probe, outside the counts: printed beside the
+    # model's prediction for the v5e, not gated
+    hist = lint_kernel("hist", session=sess)
+    audit_mod.attach_advice(hist, sess)
+    advice = next(f.advice for f in hist.findings if f.rule_id == "KERN001")
+    img = torch.as_tensor(registry.build_target("hist").operands[0],
+                          device=dev)
+    t = {v: time_ms(lambda r=(v == "hist2"): hk.histogram_launch(
+        img, reorder=r), reps=50) for v in ("hist", "hist2")}
+    log(f"  K2 on the solid probe ({img.shape[0]} px x {img.shape[1]}): "
+        f"hist {t['hist']:.4f} ms, hist2 {t['hist2']:.4f} ms, measured "
+        f"hist/hist2 x{t['hist'] / t['hist2']:.3f}; the lint's --advise "
+        f"predicts x{advice['predicted_speedup']:.3f} via "
+        f"{advice['transforms']} on the v5e model (not gated)")
+    host = time.perf_counter() - start
+    log(f"  the lint phase: {host:.3f} s host (at most {LINT_HOST_S})")
+    _require(host <= LINT_HOST_S, f"the lint phase took {host:.1f} s host")
+    return counted
 
 
 def _serve_config(num_layers=None, dtype=None, arch=SERVE_ARCH, **changes):
@@ -4451,6 +4599,22 @@ def main() -> int:
             by_path[k]["zoo"] = zoo[k]
             launches[k] += zoo[k]
         log(f"  ok in {time.perf_counter() - t0:.1f} s; launches {zoo}")
+
+        t0 = phase("main path: the kernel lint (python -m repro_torch "
+                   "lint), K3 and K6 against it, its declarations against "
+                   "the SASS")
+        hk.reset_launches()
+        sk.reset_launches()
+        fk.reset_launches()
+        lint = lint_path(dev, Path(tmp), tables, sass)
+        torch.cuda.synchronize()
+        _require(lint == {"hist_instrumented": 3,
+                          "scatter_add_instrumented": 2},
+                 f"lint path launched {lint}")
+        for k in LINT_KERNELS:
+            by_path[k]["lint"] = lint[k]
+            launches[k] += lint[k]
+        log(f"  ok in {time.perf_counter() - t0:.1f} s; launches {lint}")
 
     t0 = phase(f"main path: serving {SERVE_ARCH} prefill and decode")
     hk.reset_launches()

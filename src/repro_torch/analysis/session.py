@@ -22,9 +22,9 @@ transforms for a predicted fix (``repro_torch.advisor``) and ``heatmap``
 attributes contention to bins and waves (``repro_torch.obs.heatmap``).
 
 ``audit`` is the static contention lint of a compiled step, HLO text or
-a captured torch step (``repro_torch.audit``): it scores every atomic-shaped site with the
-model and launches nothing.  ``lint`` comes with its own slice of the
-port.
+a captured torch step (``repro_torch.audit``): it scores every
+atomic-shaped site with the model and launches nothing.  ``lint`` is the
+same one level down, over the port's CUDA kernels (``repro_torch.lint``).
 """
 
 from __future__ import annotations
@@ -534,6 +534,27 @@ class Session:
         return audit_source(source, session=self, label=label,
                             rules=rules, suppress=suppress,
                             num_cores=num_cores)
+
+    def lint(self, kernels: Optional[Sequence[str]] = None, *,
+             suppress: Sequence[str] = (),
+             num_cores: Optional[int] = None):
+        """Static lint of the port's registered CUDA kernels.
+
+        One level below ``audit``: models each kernel (or a
+        ``WorkloadSpec`` passed in place of a name list) from the launch
+        its launcher declares and its index stream traced from torch on
+        meta tensors, finds its atomic accumulate sites, and — where the
+        index stream is statically derivable — proves the exact degree
+        distribution with zero kernel launches, scoring findings through
+        the same columnar model pass the audit uses.  Returns an
+        ``AuditReport`` carrying KERN001–KERN005 findings.
+        """
+        from repro_torch.lint import lint_registry, lint_spec  # lazy layer
+        if kernels is not None and not isinstance(kernels, (list, tuple)):
+            return lint_spec(kernels, session=self, suppress=suppress,
+                             num_cores=num_cores)
+        return lint_registry(kernels, session=self, suppress=suppress,
+                             num_cores=num_cores)
 
     def heatmap(self, spec: WorkloadSpec, *,
                 hot_degree: float = DEFAULT_HOT_DEGREE) -> Heatmap:

@@ -1,6 +1,6 @@
 """``python -m repro_torch`` — the paper's tool as a command line.
 
-Eleven subcommands over the ``repro_torch.analysis`` Session API:
+Twelve subcommands over the ``repro_torch.analysis`` Session API:
 
     devices    list registered devices and their table-cache state
     profile    one workload -> utilization report + verdict
@@ -15,8 +15,13 @@ Eleven subcommands over the ``repro_torch.analysis`` Session API:
     advise     search workload transforms, rank model-predicted fixes
     validate   multi-provider counter comparison (paper §5)
     compare    the §5 hist-vs-hist2 case study with a shift verdict
-    audit      static HLO contention lint of a dumped module
-               (--hlo-file), can gate CI via --fail-on and emit SARIF
+    audit      static contention lint of a step: a zoo config captured
+               on meta tensors (--config, --all) or a dumped HLO module
+               (--hlo-file); can gate CI via --fail-on and emit SARIF
+    lint       static atomic-contention and race lint of the port's CUDA
+               kernels (KERN rules): each launch as declared beside its
+               launcher, its index stream traced from torch; the same
+               gate, formats and SARIF as audit
     cache      persistent counter-cache maintenance: stats (entries,
                bytes, quarantined corrupt files, per-provider
                breakdown), clear, and prune --max-bytes
@@ -30,19 +35,21 @@ Eleven subcommands over the ``repro_torch.analysis`` Session API:
     client     stdlib HTTP client for a running daemon: health,
                status, schema, and job submission (loads no torch)
 
-``audit`` gates like the reference's (``--fail-on``, ``--suppress``,
-``--advise``, ``--num-cores``, ``--no-artifact``): the report lands
-under ``results/torch/cli/audit/`` and a non-suppressed finding at or
-above the gate makes exit code 1; ``--advise`` runs the advisor on every
-gating finding and attaches the top-ranked transform.  ``--config`` and
-``--all`` capture each step of the zoo configs on meta tensors
-(``repro_torch.audit.zoo``) and audit the captured graphs, which land
-under ``results/torch/cli/audit/graph/`` where the reference writes HLO.
+``audit`` and ``lint`` gate like the reference's (``--fail-on``,
+``--suppress``, ``--advise``, ``--num-cores``, ``--no-artifact``): the
+report lands under ``results/torch/cli/audit/`` or ``.../lint/`` and a
+non-suppressed finding at or above the gate makes exit code 1;
+``--advise`` runs the advisor on every gating finding and attaches the
+top-ranked transform.  Neither launches a kernel or needs a card.
+``--config`` and ``--all`` capture each step of the zoo configs on meta
+tensors (``repro_torch.audit.zoo``) and audit the captured graphs, which
+land under ``results/torch/cli/audit/graph/`` where the reference writes
+HLO.
 
 Every command prints its report to stdout (``--format text|json|csv``;
-``devices`` and ``validate`` render ``text|json`` only, ``audit`` adds
-``sarif`` — unsupported values are rejected by argparse ``choices``
-before any work happens)
+``devices`` and ``validate`` render ``text|json`` only, ``audit`` and
+``lint`` add ``sarif`` — unsupported values are rejected by argparse
+``choices`` before any work happens)
 and can persist it with ``--output PATH``; ``heatmap``, ``sweep``,
 ``advise`` and ``compare`` additionally drop an artifact under
 ``results/torch/cli/`` unless told not to, and ``sweep``, ``advise`` and
@@ -529,8 +536,38 @@ def cmd_audit(args) -> int:
     return _finish_findings(report, args, sess, tool="audit")
 
 
+def cmd_lint(args) -> int:
+    """Static lint of the port's CUDA kernels — zero kernel launches.
+
+    Models each registered kernel (``--kernel`` selects a subset; default
+    all) from the launch its launcher declares and the index stream
+    traced from torch on meta tensors, and rates its atomic sites.
+    Affine index streams get exact static degree counters (bit-for-bit
+    the trace provider's); data-dependent ones emit KERN005 findings
+    carrying a ``WorkloadSpec`` for dynamic audit.  Shares the audit's
+    gate/artifact/SARIF tail, so ``lint --format sarif`` merges cleanly
+    with audit logs.
+    """
+    from repro_torch import lint as lint_mod
+
+    if getattr(args, "list", False):
+        _emit("\n".join(lint_mod.kernel_names()), args)
+        return 0
+    sess = Session(args.device, cache_dir=args.cache_dir)
+    names = args.kernel or None
+    if names and len(names) == 1:
+        report = lint_mod.lint_kernel(
+            names[0], session=sess, suppress=args.suppress or (),
+            num_cores=args.num_cores)
+    else:
+        report = lint_mod.lint_registry(
+            names, session=sess, suppress=args.suppress or (),
+            num_cores=args.num_cores)
+    return _finish_findings(report, args, sess, tool="lint")
+
+
 def _finish_findings(report, args, sess, *, tool: str) -> int:
-    """The ``audit`` report tail (``lint`` shares it in the reference).
+    """The ``audit``/``lint`` report tail (one implementation).
 
     Optionally attaches advisor picks (``--advise``), renders and
     persists the report under ``results/torch/cli/<tool>/``, then
@@ -676,8 +713,7 @@ def _add_common(p: argparse.ArgumentParser, *, formats=("text", "json",
 
 
 def _add_gate(p: argparse.ArgumentParser, *, tool: str) -> None:
-    """The gating + artifact surface of ``audit`` (and, in the
-    reference, ``lint``)."""
+    """The gating + artifact surface of ``audit`` and ``lint``."""
     p.add_argument("--fail-on", default="error",
                    choices=("never", "note", "warning", "error"),
                    help="exit 1 when any non-suppressed finding is at or "
@@ -895,6 +931,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=cmd_audit)
 
     p = sub.add_parser(
+        "lint",
+        help="static lint of the port's CUDA kernels (KERN rules, "
+             "SARIF, CI gate)")
+    _add_common(p, formats=("text", "json", "csv", "sarif"))
+    p.add_argument("--kernel", nargs="+", default=None, metavar="NAME",
+                   help="registered kernel(s) to lint (default: all; "
+                        "see --list)")
+    p.add_argument("--list", action="store_true",
+                   help="print the registered kernel names and exit")
+    _add_gate(p, tool="lint")
+    p.set_defaults(func=cmd_lint)
+
+    p = sub.add_parser(
         "cache",
         help="persistent counter-cache maintenance (stats/clear/prune)")
     p.add_argument("action", choices=("stats", "clear", "prune"),
@@ -1024,7 +1073,7 @@ def _needs_kernel(args) -> bool:
         return "kernel" in args.providers
     if args.command == "advise" and args.validate_top > 0:
         return True
-    return args.command not in ("heatmap", "audit") \
+    return args.command not in ("heatmap", "audit", "lint") \
         and getattr(args, "provider", None) == "kernel"
 
 

@@ -65,6 +65,40 @@ def shared_memory_bytes(head_dim: int) -> int:
     return _lib().repro_flash_attention_smem(head_dim)
 
 
+# query rows a block of each route takes (csrc/flash_attention.cu:
+# kF32Rows, kMmaRows, kSm90Rows)
+ROUTE_ROWS = {"flash_f32_kernel": 16, "flash_bf16_kernel": 64,
+              "flash_bf16_sm90_kernel": 128}
+
+
+def lint_declaration(b: int, h: int, t: int, d: int, *,
+                     dtype: torch.dtype = torch.float32):
+    """What ``flash_attention_launch`` runs on (B, H, T, d) q, declared for
+    the kernel lint (``repro_torch.lint.tracing.LaunchDecl``): a block to
+    each (batch, head, tile of query rows), reading its q rows and the
+    whole of its head's k and v (head ``h // group``), and storing its own
+    rows of the output.  No atomic, so no scatter site.  The C launcher
+    picks the kernel: f32 on the CUDA cores, bf16 at d = 64 and 128 on
+    ``wgmma``, at d = 16 and 32 on ``mma.sync``."""
+    from repro_torch.lint.tracing import LaunchDecl, Operand, Store
+
+    if dtype == torch.float32:
+        kernel = "flash_f32_kernel"
+    else:
+        kernel = ("flash_bf16_sm90_kernel" if d in (64, 128)
+                  else "flash_bf16_kernel")
+    rows = ROUTE_ROWS[kernel]
+    q = (1, 1, rows, d)
+    kv = (1, 1, t, d)
+    return LaunchDecl(
+        kernel=f"{kernel}<{d}>", source="csrc/flash_attention.cu",
+        grid=(b, h, -(-t // rows)),
+        inputs=(Operand("q", q, (0, 1, 2, None)),
+                Operand("k", kv, (0, 1, None, None)),
+                Operand("v", kv, (0, 1, None, None))),
+        stores=(Store("out", q, (0, 1, 2, None)),))
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, group: int = 1) -> torch.Tensor:
     """(B, H, T, d) q, (B, H / group, T, d) k/v -> (B, H, T, d).

@@ -141,6 +141,49 @@ def histogram_instrumented_plain(img: torch.Tensor, num_bins: int,
 
 
 # ---------------------------------------------------------------------------
+# The launch as the kernel lint models it
+# ---------------------------------------------------------------------------
+
+
+def lint_declaration(n: int, c: int, *, num_bins: int = 256,
+                     reorder: bool = False, weighted: bool = False,
+                     tile: int = DEFAULT_TILE):
+    """What ``histogram_launch`` runs on an (n, C) int32 image, declared
+    for the kernel lint (``repro_torch.lint.tracing.LaunchDecl``).
+
+    K2 (``hist_kernel`` in ``csrc/histogram.cu``) and K4
+    (``hist_weighted_kernel``) each keep a block's copy of the (C,
+    num_bins) result in shared memory, zeroed before ``__syncthreads``,
+    and add each pixel and channel step into it: K2 an ``atomicAdd(int)``
+    of 1 whose result it never reads (the POPC increment), K4 an
+    ``atomicAdd(float)``, a CAS loop on Hopper, into a copy padded a word
+    each 32 (``padded_slot``).  Each block then adds its copy's non-zero
+    entries into the result.  The grid is the image's tiles of ``tile``
+    pixels (the channel rotation of ``hist2`` restarts at each), and one
+    tile's committed stream is ``issue_ordered_bins_plain``'s, the
+    function K3's degrees are held to.
+    """
+    from repro_torch.lint.tracing import Accumulator, LaunchDecl, Operand
+
+    inputs = [Operand("img", (tile, c), (0, None))]
+    if weighted:
+        inputs.append(Operand("weights", (tile,), (0,)))
+    acc = Accumulator(
+        name="sums" if weighted else "counts", shape=(c, num_bins),
+        bins=c * num_bins, memory="shared", padded=weighted, init="block",
+        combine="cas" if weighted else "popc", flush="add")
+    kernel = "hist_weighted_kernel" if weighted else "hist_kernel"
+    return LaunchDecl(
+        kernel=f"{kernel}<{'reorder' if reorder else ''}>",
+        source="csrc/histogram.cu", grid=(padded_length(n, tile) // tile,),
+        inputs=tuple(inputs), accumulators=(acc,),
+        stream=functools.partial(issue_ordered_bins_plain,
+                                 num_bins=num_bins, reorder=reorder,
+                                 tile=tile),
+        stream_refs=((0, torch.int32),))
+
+
+# ---------------------------------------------------------------------------
 # The launcher
 # ---------------------------------------------------------------------------
 

@@ -103,11 +103,16 @@ def scatter_add_route(values: torch.Tensor, num_segments: int) -> str:
     ``"global-owned"`` for rows of ``OWNED_MIN_COLUMNS`` values or more
     (each output row summed by one block, no atomics) and
     ``"global-vector"`` (f32 vector adds) for narrower ones."""
-    d = values.shape[1]
+    return _scatter_add_route(num_segments, values.shape[1],
+                              values.element_size(),
+                              values.data_ptr() % 16 == 0)
+
+
+def _scatter_add_route(num_segments: int, d: int, element_size: int,
+                       aligned: bool) -> str:
     route = scatter_route(num_segments, d)
-    row_bytes = d * values.element_size()
-    if (route == "global" and d % 4 == 0 and row_bytes % 16 == 0
-            and values.data_ptr() % 16 == 0):
+    if (route == "global" and d % 4 == 0 and d * element_size % 16 == 0
+            and aligned):
         return ("global-owned" if d >= OWNED_MIN_COLUMNS
                 else "global-vector")
     return route
@@ -171,12 +176,117 @@ def bincount_plain(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.bincount(kept, minlength=num_segments).to(torch.int32)
 
 
+def committed_ids_plain(ids: torch.Tensor) -> torch.Tensor:
+    """The ids K5-K7 add at, in the order their warps commit them: as
+    given, 32 consecutive ids a warp."""
+    return ids.reshape(-1)
+
+
 def scatter_add_instrumented_plain(values: torch.Tensor, ids: torch.Tensor,
                                    num_segments: int):
     """Plain K6: sums of the rows ``values`` has, degrees of the whole
     committed stream ``ids``."""
     return (scatter_add_plain(values, ids[:values.shape[0]], num_segments),
-            instr.wave_degrees_plain(ids))
+            instr.wave_degrees_plain(committed_ids_plain(ids)))
+
+
+# ---------------------------------------------------------------------------
+# The launches as the kernel lint models them
+# ---------------------------------------------------------------------------
+
+_TYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
+# csrc/scatter_add.cu: the segments an owned-route block sorts its rows
+# into at a time
+OWNED_SEGMENTS = 1024
+
+
+def _id_stream(n: int, tile: int):
+    """The grid (tiles of ``tile`` ids) and the ids' operand."""
+    from repro_torch.lint.tracing import Operand
+
+    return (-(-n // tile),), Operand("ids", (tile,), (0,))
+
+
+def scatter_add_lint_declaration(n: int, d: int, num_segments: int,
+                                 dtype: torch.dtype = torch.float32,
+                                 tile: int = DEFAULT_TILE):
+    """What ``scatter_add_launch`` runs on n ids and (n, d) ``dtype``
+    values, declared for the kernel lint
+    (``repro_torch.lint.tracing.LaunchDecl``), on the route the launcher
+    takes (``scatter_add_route``, for values as the card allocates them,
+    16-byte aligned).
+
+    The shared route adds each value into a block's shared copy of the
+    (S, d) result, zeroed before ``__syncthreads`` (an
+    ``atomicAdd(float)``: a CAS loop on Hopper), and adds the copy's
+    non-zero entries into the result; the global routes add into the
+    result, zeroed by the launcher, at L2 (``RED``: a native f32 add,
+    four values at once on the vector route); the owned route counts and
+    places each block's rows by segment in shared memory (the POPC
+    increment, then an ``atomicAdd(int)`` whose result it reads) and
+    stores each segment's sum.  The grid is the ids' tiles; the committed
+    stream is the ids (``committed_ids_plain``, the function K6's degrees
+    are held to).  Refs are numbered as the reference's: ids, values.
+    """
+    from repro_torch.lint.tracing import (Accumulator, LaunchDecl, Operand,
+                                          Store)
+
+    route = _scatter_add_route(num_segments, d,
+                               torch.empty((), dtype=dtype).element_size(),
+                               aligned=True)
+    grid, ids = _id_stream(n, tile)
+    values = Operand("values", (tile, d), (0, None))
+    rows = dict(name="sums", shape=(num_segments, d), bins=num_segments,
+                row_elems=d, kind="one_hot_matmul")
+    kernel, stores = "scatter_tiles_kernel", ()
+    if route == "shared":
+        accs = (Accumulator(**rows, memory="shared", init="block",
+                            combine="cas", flush="add"),)
+    elif route in ("global", "global-vector"):
+        accs = (Accumulator(**rows, memory="global", init="caller",
+                            combine="fao", flush="",
+                            vector=4 if route == "global-vector" else 1),)
+    else:
+        kernel = "scatter_owned_kernel"
+        bins = min(num_segments, OWNED_SEGMENTS)
+        accs = tuple(Accumulator(
+            name=name, shape=(OWNED_SEGMENTS + 1,), bins=bins,
+            memory="shared", init="block", combine=combine, flush="")
+            for name, combine in (("segment_rows", "popc"),
+                                  ("placements", "fao")))
+        stores = (Store("sums", (num_segments, d), (None, None)),)
+    if d == 1 and kernel == "scatter_tiles_kernel":
+        kernel = "scatter_rows_kernel"
+    flags = {"shared": ",shared", "global-vector": ",vector"}.get(route, "")
+    return LaunchDecl(
+        kernel=f"{kernel}<{_TYPE_NAMES[dtype]}{flags}>",
+        source="csrc/scatter_add.cu", grid=grid, inputs=(ids, values),
+        accumulators=accs, stores=stores, stream=committed_ids_plain,
+        stream_refs=((0, torch.int32),))
+
+
+def bincount_lint_declaration(n: int, num_segments: int,
+                              tile: int = DEFAULT_TILE):
+    """What ``bincount_launch`` runs on n ids, declared for the kernel
+    lint, on its route (``bincount_route``): a block's shared copy of the
+    S counts, zeroed before ``__syncthreads``, incremented by the POPC
+    ``atomicAdd(int)`` of 1; the one-block route stores the copy, the
+    grid route adds each count into the result (zeroed by a kernel of its
+    own) at L2.  The committed stream is the ids."""
+    from repro_torch.lint.tracing import Accumulator, LaunchDecl
+
+    route = bincount_route(n, num_segments)
+    grid, ids = _id_stream(n, tile)
+    acc = Accumulator(name="counts", shape=(num_segments,),
+                      bins=num_segments, memory="shared", init="block",
+                      combine="popc",
+                      flush="store" if route == "block" else "add")
+    return LaunchDecl(
+        kernel=f"bincount_kernel<{'store' if route == 'block' else ''}>",
+        source="csrc/scatter_add.cu", grid=grid, inputs=(ids,),
+        accumulators=(acc,), stream=committed_ids_plain,
+        stream_refs=((0, torch.int32),))
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ from repro_torch.core.profiler import CacheModel
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CPU = ["--torch-device", "cpu"]
 ANALYSIS = ("devices", "profile", "heatmap", "sweep", "advise", "validate",
-            "compare", "audit")
+            "compare", "audit", "lint")
 SERVICE = ("cache", "serve", "client")
 PORTED = ANALYSIS + SERVICE
 

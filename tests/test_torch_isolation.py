@@ -69,7 +69,12 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.runtime.stragglers, repro_torch.launch.capture, "
             "repro_torch.launch.lowering, repro_torch.launch.dryrun, "
             "repro_torch.audit.zoo, repro_torch.core.roofline, "
-            "repro_torch.models.loops\n"
+            "repro_torch.models.loops, repro_torch.lint, "
+            "repro_torch.lint.symbolic, repro_torch.lint.tracing, "
+            "repro_torch.lint.analysis, repro_torch.lint.registry\n"
+            "from repro_torch.lint import analysis, registry\n"
+            "models = [analysis.analyze_target(registry.build_target(n)) "
+            "for n in registry.names()]\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -842,3 +842,28 @@ def test_every_model_on_a_one_rank_mesh(cuda, one_rank_meshes, arch):
         if b is not None:
             assert float((a - b).abs().max()) <= 1e-4 * float(
                 b.abs().max()) + 1e-7
+
+
+# -- the kernel lint held to the kernels it models (tests/_lint_card.py) ----
+
+
+@pytest.mark.cuda
+def test_lint_k3_degrees_equal_the_static_derivation(cuda):
+    import _lint_card
+
+    hk.reset_launches()
+    rows = _lint_card.k3_against_derivation("cuda")
+    torch.cuda.synchronize()
+    assert [r["name"] for r in rows] == list(_lint_card.STATIC_PROBES)
+    assert hk.LAUNCHES["hist_instrumented"] == len(rows)
+
+
+@pytest.mark.cuda
+def test_lint_kern005_specs_through_k6(cuda):
+    import _lint_card
+
+    sk.reset_launches()
+    rows = _lint_card.kern005_through_k6(Session("v5e"), "cuda")
+    torch.cuda.synchronize()
+    assert len(rows) == 2
+    assert sk.LAUNCHES["scatter_add_instrumented"] == len(rows)
