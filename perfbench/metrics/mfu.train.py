@@ -1,0 +1,8 @@
+"""mfu.train: the window's model FLOPs (``counts.py``) over its time and
+the card's dense bf16 peak (%)."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.mfu_percent(run, "train")
