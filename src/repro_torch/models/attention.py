@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models import layers
+from repro_torch.obs import telemetry
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 
@@ -190,6 +191,7 @@ def flash_route(cfg: AttnConfig, *, positions=None, kv_x=None,
             and not grad)
 
 
+@telemetry.span("attention")
 def attend(
     params: dict,
     x: torch.Tensor,

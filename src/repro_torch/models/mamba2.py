@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.obs import telemetry
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 
@@ -121,7 +122,7 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     s_chunk = torch.einsum("bclh,bclhp,bcln->bchpn", k_tail, xdt, bs)
     # inter-chunk recurrence; chunk c reads the state entering it (named
     # for the profiler)
-    with torch.profiler.record_function(CHUNK_LOOP):
+    with telemetry.span(CHUNK_LOOP):
         hprev = torch.zeros((bsz, h, p, n), dtype=torch.float32,
                             device=x.device)
         h_in = []

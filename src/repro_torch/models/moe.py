@@ -34,6 +34,14 @@ place, to keep its memory.
 Every launcher runs its plain version for CPU tensors, so the layer runs
 on the device its inputs lie on.
 
+The layer's stages are ``telemetry`` spans, profiler ranges while the
+profiler records: ``moe.route`` (step 1), ``moe.dispatch`` (the sort,
+the gather of x, K7 and the buffer's writes), ``moe.experts`` (the
+products) and ``moe.combine`` (the gather of the expert rows and K5).
+While the profiler records, ``repro_moe_rows_total`` counts the rows
+routed to an expert and those kept within capacity, as 0-d device
+tensors that nothing reads inside the layer.
+
 Under a mesh (``parallel/ctx.py``) the layer takes the reference's
 distributed paths, each a body that runs on every rank over its local
 shards (the reference's ``shard_map``): ``apply_ep`` for 64 experts or
@@ -66,9 +74,16 @@ import torch.nn.functional as F
 from repro_torch import tree
 from repro_torch.kernels.scatter_add import kernel as sk
 from repro_torch.models import layers, mlp
+from repro_torch.obs import telemetry
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel.sharding import P
+
+ROWS = telemetry.counter(
+    "repro_moe_rows_total", "MoE rows with an expert id (routed) and "
+    "within their expert's capacity (kept), counted while profiling",
+    ("outcome",))
+
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -117,6 +132,7 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+@telemetry.span("moe.route")
 def route(p: dict, x: torch.Tensor, cfg: MoEConfig):
     """Router: (gates (T, k) f32, ids (T, k) int32, aux loss scalar)."""
     logits = x.to(torch.float32) @ p["router"]["w"].to(torch.float32)
@@ -166,29 +182,35 @@ def _expert_ffn_grouped(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
     are summed over the group.
     """
     tk, d = xs.shape
-    counts = sk.bincount_launch(sorted_ids, num_experts)        # K7
-    start = torch.cumsum(counts, 0) - counts
-    sid = sorted_ids.to(torch.int64)
-    valid = sid < num_experts
-    pos = torch.arange(tk, device=xs.device) - start[
-        sid.clamp(max=num_experts - 1)]
-    keep = (pos < capacity) & valid
-    slots = num_experts * capacity
-    slot = torch.where(keep, sid * capacity + pos, slots)
-    buf = xs.new_zeros((slots + 1, d))
-    buf.index_put_((slot,), xs)   # under grad: d xs = d buf[slot]
-    buf = buf[:slots].view(num_experts, capacity, d)
-    if tp_group is not None:
-        buf = coll.grad_sum_over(buf, tp_group)
-    act = mlp._ACT[cfg.activation]
-    h = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    del buf
-    y = torch.bmm(h.to(xs.dtype), p["w_down"]).view(slots, d)
-    del h
-    if tp_group is not None:
-        y = coll.sum_over(y, tp_group)
-    rows = y[slot.clamp(max=slots - 1)]
-    return torch.where(keep[:, None], rows, 0.0)
+    with telemetry.span("moe.dispatch"):
+        counts = sk.bincount_launch(sorted_ids, num_experts)    # K7
+        start = torch.cumsum(counts, 0) - counts
+        sid = sorted_ids.to(torch.int64)
+        valid = sid < num_experts
+        pos = torch.arange(tk, device=xs.device) - start[
+            sid.clamp(max=num_experts - 1)]
+        keep = (pos < capacity) & valid
+        if telemetry.tracing():
+            ROWS.inc(valid.sum(), outcome="routed")
+            ROWS.inc(keep.sum(), outcome="kept")
+        slots = num_experts * capacity
+        slot = torch.where(keep, sid * capacity + pos, slots)
+        buf = xs.new_zeros((slots + 1, d))
+        buf.index_put_((slot,), xs)   # under grad: d xs = d buf[slot]
+        buf = buf[:slots].view(num_experts, capacity, d)
+    with telemetry.span("moe.experts"):
+        if tp_group is not None:
+            buf = coll.grad_sum_over(buf, tp_group)
+        act = mlp._ACT[cfg.activation]
+        h = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+        del buf
+        y = torch.bmm(h.to(xs.dtype), p["w_down"]).view(slots, d)
+        del h
+        if tp_group is not None:
+            y = coll.sum_over(y, tp_group)
+    with telemetry.span("moe.combine"):
+        rows = y[slot.clamp(max=slots - 1)]
+        return torch.where(keep[:, None], rows, 0.0)
 
 
 def combine_inputs(y_sorted: torch.Tensor, gates: torch.Tensor,
@@ -208,6 +230,7 @@ def combine_inputs(y_sorted: torch.Tensor, gates: torch.Tensor,
     return vals, ids
 
 
+@telemetry.span("moe.dispatch")
 def dispatch(x: torch.Tensor, ids: torch.Tensor, cfg: MoEConfig):
     """The expert-sorted stream of the router's ``ids`` (T, k): (flat
     ids (T·k,) int32 in issue order, the stable sort's order, the sorted
@@ -254,10 +277,11 @@ def apply_local(p: dict, x: torch.Tensor, cfg: MoEConfig,
     y_sorted = _expert_ffn_grouped(p, xs, sorted_ids, cfg.num_experts,
                                    capacity, cfg, tp_group)
     del xs
-    # K5: each token's gate-weighted expert rows summed in f32
-    vals, tok = combine_inputs(y_sorted, gates, order, cfg.top_k)
-    del y_sorted
-    out = sk.scatter_add_autograd(vals, tok, t).to(x.dtype)
+    with telemetry.span("moe.combine"):
+        # K5: each token's gate-weighted expert rows summed in f32
+        vals, tok = combine_inputs(y_sorted, gates, order, cfg.top_k)
+        del y_sorted
+        out = sk.scatter_add_autograd(vals, tok, t).to(x.dtype)
     if cfg.num_shared_experts:
         out = out + _shared(p, x, cfg, tp_group)
     return out, aux, flat_ids

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.obs import telemetry
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 
@@ -160,7 +161,7 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int = 64):
     s_chunk = torch.einsum("bclhk,bclhv->bchkv", k_tail, vs)
     # inter-chunk recurrence: H_c = exp(w_total_c) H_{c-1} + S_c; chunk c
     # reads the state entering it, H_{c-1} (named for the profiler)
-    with torch.profiler.record_function(CHUNK_LOOP):
+    with telemetry.span(CHUNK_LOOP):
         hprev = torch.zeros((b, h, n, n), dtype=torch.float32,
                             device=r.device)
         h_in = []

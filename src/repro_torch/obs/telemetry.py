@@ -14,12 +14,15 @@ reference's do.  Two halves:
 
 * **Spans** — ``trace_scope()`` opens a trace (with a propagated or
   freshly minted trace id) in a ``contextvars`` context, and ``span()``
-  records named, timed sections into it.  Outside a scope a span records
-  nothing.
+  records named, timed sections into it.  While torch's profiler is
+  recording (``tracing()``), a span also opens a profiler range of its
+  name, so that it lands in the device trace beside the kernels it
+  launched, on the same clock.  Outside a scope and without the
+  profiler a span records nothing.
 
 Everything here is stdlib-only and imports nothing from the rest of
 ``repro_torch`` — the analysis layer imports *us*, never the other way
-around.
+around.  torch is looked up in ``sys.modules``, never imported.
 
 A global enable switch (``set_enabled``) turns every write into a no-op,
 so an instrumented pipeline can be measured with telemetry off.
@@ -30,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import re
+import sys
 import threading
 import time
 import uuid
@@ -39,8 +43,7 @@ __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "REGISTRY", "counter", "gauge", "histogram", "render", "reset",
     "set_enabled", "enabled", "disabled",
-    "new_trace_id", "trace_scope", "span", "current_trace_id",
-    "span_summaries", "OVERFLOW",
+    "new_trace_id", "trace_scope", "span", "tracing", "OVERFLOW",
 ]
 
 # ---------------------------------------------------------------------------
@@ -148,27 +151,47 @@ class _Metric:
 
 
 class Counter(_Metric):
+    """A count that only goes up.  ``inc`` also takes an amount that is
+    not a Python number, such as a 0-d device tensor: it is kept pending,
+    summed with ``+``, and turned into a float only when the counter is
+    read (``value``, ``render``), so that counting never waits for the
+    device."""
+
     kind = "counter"
 
-    def _zero(self) -> List[float]:
-        return [0.0]
+    def _zero(self) -> list:
+        return [0.0, None]          # the count, and the pending amount
 
-    def inc(self, amount: float = 1.0, **labels: object) -> None:
+    def inc(self, amount: object = 1.0, **labels: object) -> None:
         if not _ENABLED:
             return
-        if amount < 0:
+        number = isinstance(amount, (int, float))
+        if number and amount < 0:
             raise ValueError("counters only go up")
         with self._lock:
-            self._slot(labels)[0] += amount
+            slot = self._slot(labels)
+            if number:
+                slot[0] += amount
+            else:
+                slot[1] = amount if slot[1] is None else slot[1] + amount
+
+    @staticmethod
+    def _settle(slot: list) -> float:
+        """The slot's count with its pending amount folded in.  Caller
+        must hold the lock."""
+        if slot[1] is not None:
+            slot[0] += float(slot[1])
+            slot[1] = None
+        return slot[0]
 
     def value(self, **labels: object) -> float:
         with self._lock:
             key = tuple(str(labels[ln]) for ln in self.labelnames)
             slot = self._series.get(key)
-            return float(slot[0]) if slot else 0.0
+            return float(self._settle(slot)) if slot else 0.0
 
     def _render_lines(self) -> List[str]:
-        return [f"{self.name}{self._fmt(k)} {_num(v[0])}"
+        return [f"{self.name}{self._fmt(k)} {_num(self._settle(v))}"
                 for k, v in sorted(self._series.items())]
 
 
@@ -369,32 +392,36 @@ def trace_scope(trace_id: Optional[str] = None) -> Iterator[dict]:
         _TRACE.reset(token)
 
 
-def current_trace_id() -> Optional[str]:
-    rec = _TRACE.get()
-    return rec["id"] if rec is not None else None
-
-
-def span_summaries() -> List[dict]:
-    """Spans recorded so far in the enclosing trace (empty outside one)."""
-    rec = _TRACE.get()
-    return list(rec["spans"]) if rec is not None else []
+def tracing() -> bool:
+    """True only while torch's profiler is recording.  With torch not
+    loaded, or the profiler off, it costs a dictionary lookup and an
+    attribute read, and no call into torch."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and profiler._is_profiler_enabled
 
 
 @contextlib.contextmanager
 def span(name: str, **attrs: object) -> Iterator[None]:
-    """Record a named, timed section into the enclosing trace scope.
+    """Record a named, timed section into the enclosing trace scope, and,
+    while the profiler is recording, open a profiler range of the same
+    name around it (inside a scope or not).
 
-    Cheap no-op when telemetry is disabled or no scope is open.
+    Cheap no-op when telemetry is disabled, or when no scope is open and
+    the profiler is off.
     """
-    rec = _TRACE.get()
-    if not _ENABLED or rec is None:
+    rec = _TRACE.get() if _ENABLED else None
+    profiled = _ENABLED and tracing()
+    if rec is None and not profiled:
         yield
         return
+    rng = (sys.modules["torch.autograd.profiler"].record_function(str(name))
+           if profiled else contextlib.nullcontext())
     t0 = time.perf_counter()
     try:
-        yield
+        with rng:
+            yield
     finally:
-        if len(rec["spans"]) < MAX_SPANS:
+        if rec is not None and len(rec["spans"]) < MAX_SPANS:
             entry = {
                 "name": str(name),
                 "start_ms": round((t0 - rec["t0"]) * 1e3, 3),

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import layers, loops
+from repro_torch.obs import telemetry
 from repro_torch.optim import adamw
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
@@ -130,8 +131,9 @@ def make_train_step(model, tcfg: TrainConfig, ocfg: adamw.AdamWConfig,
             # the gradients were summed in f32; only the update's input
             # is quantized
             grads = tree.map(lambda g: g.to(wire_dt), grads)
-        new_params, new_opt, opt_metrics = adamw.update(
-            grads, state["opt"], ocfg, params, decay_mask(model, params))
+        with telemetry.span("train.optimizer"):
+            new_params, new_opt, opt_metrics = adamw.update(
+                grads, state["opt"], ocfg, params, decay_mask(model, params))
         del grads
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, dict(metrics, **opt_metrics))
