@@ -2402,10 +2402,10 @@ def live_moe_layer(p, x, mcfg, err: dict) -> dict:
         torch.cuda.synchronize()
         _require(torch.equal(counts, sk.bincount_plain(sorted_ids, e)),
                  f"K7 counts on the live dispatch, {t * k} -> {e}")
-        y_sorted = moe._expert_ffn_grouped(p, xs, sorted_ids, e, capacity,
-                                           mcfg)
+        y, slot, keep = moe._expert_ffn_slots(p, xs, sorted_ids, e, capacity,
+                                              mcfg)
         del xs
-        vals, tok = moe.combine_inputs(y_sorted, gates, order, k)
+        vals, tok = moe.combine_slots(y, slot, gates, order, k, t)
         got = sk.scatter_add_launch(vals, tok, t)
         torch.cuda.synchronize()
         case = f"{tuple(vals.shape)} f32 -> {t}"
@@ -2414,8 +2414,11 @@ def live_moe_layer(p, x, mcfg, err: dict) -> dict:
                                    msg=f"K5 vs plain, live combine {case}")
         err_plain = _abs_err(got, plain)
         del plain
-        y = y_sorted[torch.argsort(order, stable=True)]
-        del y_sorted
+        rows = torch.where(keep[:, None], y[slot.clamp(max=y.shape[0] - 1)],
+                           0.0)
+        del y
+        y = rows[torch.argsort(order, stable=True)]
+        del rows
         want = torch.einsum("tkd,tk->td", y.reshape(t, k, d).float(), gates)
         del y
         torch.testing.assert_close(got, want, **F32_TOL,
@@ -2534,8 +2537,10 @@ def moe_serving_model(dev, arch: str, n, sess, err: dict):
     del p0, x0
     tag = f"{MOE_SHORT[arch]} {PREFILL_B * PREFILL_T * k // 1024}Ki"
     live[f"{tag} -> {e} (live dispatch)"] = ("bincount", *rows["dispatch"])
-    live[f"{tag} x {cfg.d_model} f32 -> {PREFILL_B * PREFILL_T} (live "
-         f"combine)"] = ("scatter_add", *rows["combine"])
+    slots = rows["combine"][0].shape[0]
+    live[f"{MOE_SHORT[arch]} {slots // 1024}Ki slots x {cfg.d_model} f32 -> "
+         f"{PREFILL_B * PREFILL_T} (live combine)"] = ("scatter_add",
+                                                       *rows["combine"])
     step("layer 0")
 
     # the live dispatch through the paper's tool: layer 0's stream, its
@@ -2619,8 +2624,9 @@ def moe_serving_model(dev, arch: str, n, sess, err: dict):
     ids = PREFILL_B * k
     live[f"{MOE_SHORT[arch]} decode {ids} -> {e} (live dispatch)"] = (
         "bincount", *rows["dispatch"])
-    live[f"{MOE_SHORT[arch]} decode {ids} x {cfg.d_model} f32 -> "
-         f"{PREFILL_B} (live combine)"] = ("scatter_add", *rows["combine"])
+    live[f"{MOE_SHORT[arch]} decode {rows['combine'][0].shape[0]} slots x "
+         f"{cfg.d_model} f32 -> {PREFILL_B} (live combine)"] = (
+        "scatter_add", *rows["combine"])
     with torch.no_grad():
         out["profile_prefill"] = device_profile(
             lambda: prefill(params, tokens),
@@ -4242,10 +4248,13 @@ def time_scatter_kernels(dev, live=None) -> dict:
     path's), and of K5 and K7 on the MoE serving path's live inputs (``live``: case -> ("bincount",
     ids, S) or ("scatter_add", f32 values, ids, S)).
 
-    Bytes: each value and id read once, each output written once.
-    Operations: one f32 add per (row, d) update that lands.  The library
-    yardsticks: ``Tensor.index_add_`` on f32 values (cast outside the
-    timed call; every id here is in range, which it needs) for K5,
+    Bytes: each value and id read once, each output written once; of
+    a live combine, whose empty slots carry the id S, only the values of
+    the rows that land.  Operations: one f32 add per (row, d) update
+    that lands.  The library yardsticks: ``Tensor.index_add_`` on f32
+    values (cast outside the timed call; it needs every id in range, so
+    on a live combine it takes the rows that land, selected in the timed
+    call) for K5,
     ``torch.bincount`` for K7, none for K6.  K7's rows are also timed
     cold (``cold_ms``: its ids in device memory, not in L2).
     """
@@ -4336,13 +4345,15 @@ def time_scatter_kernels(dev, live=None) -> dict:
             continue
         vals, ids, segments = args
         ids64 = ids.to(torch.int64)
+        kept = (ids64 >= 0) & (ids64 < segments)   # an empty slot's id: S
         rows, d = vals.shape
+        lands = int(kept.sum())
         record("scatter_add", case,
                lambda: sk.scatter_add_launch(vals, ids, segments),
                lambda: sk.scatter_add_plain(vals, ids, segments),
                lambda: torch.zeros((segments, d), device=dev).index_add_(
-                   0, ids64, vals),
-               rows * d * 4 + rows * 4 + segments * d * 4, rows * d)
+                   0, ids64[kept], vals[kept]),
+               lands * d * 4 + rows * 4 + segments * d * 4, lands * d)
     vals, ids = combine_case(dev)
     vals32, ids64 = vals.float(), ids.to(torch.int64)
     rows, d = vals.shape

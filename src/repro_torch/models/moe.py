@@ -21,15 +21,18 @@ The reference's ``apply_local`` (``repro/models/moe.py``), the layer its
      nothing to their token;
   5. sums each token's gate-weighted expert rows with K5
      (``scatter_add_autograd``: ``scatter_add_launch`` with a gather for
-     its backward): the reference's unsort and ``einsum("tkd,tk->td")``
-     as one segment sum of f32 values.
+     its backward) straight from the (E·C, d) slots the products leave,
+     an empty slot's token id one past the end, which K5 drops: the
+     reference's unsort and ``einsum("tkd,tk->td")`` as one segment sum
+     of f32 values.
 
 Under autograd (training) every step is differentiable, as the
 reference's ``jax.grad`` through ``apply_local``: K7's counts are
 integers and need no gradient, the buffer of step 4 is a fresh one whose
-zeros autograd never reads, and the gates are applied out of place where
-autograd needs the rows they scale.  Serving (no grad) scales them in
-place, to keep its memory.
+zeros autograd never reads, and the combine indexes no expert row: the
+gates reach their slots by a write whose backward is a gather, so no
+backward adds many rows into one (a gather of the dropped rows from one
+clamped slot would, one row after another).
 
 Every launcher runs its plain version for CPU tensors, so the layer runs
 on the device its inputs lie on.
@@ -37,10 +40,11 @@ on the device its inputs lie on.
 The layer's stages are ``telemetry`` spans, profiler ranges while the
 profiler records: ``moe.route`` (step 1), ``moe.dispatch`` (the sort,
 the gather of x, K7 and the buffer's writes), ``moe.experts`` (the
-products) and ``moe.combine`` (the gather of the expert rows and K5).
-While the profiler records, ``repro_moe_rows_total`` counts the rows
-routed to an expert and those kept within capacity, as 0-d device
-tensors that nothing reads inside the layer.
+products) and ``moe.combine`` (each slot's token and gate, the gate
+product, K5 and the cast).  While the profiler records,
+``repro_moe_rows_total`` counts the rows routed to an expert, those kept
+within capacity (0-d device tensors that nothing reads inside the layer)
+and the slots K5 reads.
 
 Under a mesh (``parallel/ctx.py``) the layer takes the reference's
 distributed paths, each a body that runs on every rank over its local
@@ -80,9 +84,9 @@ from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel.sharding import P
 
 ROWS = telemetry.counter(
-    "repro_moe_rows_total", "MoE rows with an expert id (routed) and "
-    "within their expert's capacity (kept), counted while profiling",
-    ("outcome",))
+    "repro_moe_rows_total", "MoE rows with an expert id (routed), "
+    "within their expert's capacity (kept), and the (E, C) slots the "
+    "combine reads (slot), counted while profiling", ("outcome",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,14 +169,19 @@ def _expert_ffn_sorted(p: dict, xs: torch.Tensor, group_sizes,
     return out
 
 
-def _expert_ffn_grouped(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
-                        num_experts: int, capacity: int, cfg: MoEConfig,
-                        tp_group=None) -> torch.Tensor:
+def _expert_ffn_slots(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
+                      num_experts: int, capacity: int, cfg: MoEConfig,
+                      tp_group=None):
     """Capacity-grouped expert FFN over expert-sorted rows ``xs`` (T·k, d)
     with int32 ``sorted_ids``: each expert's first ``capacity`` rows go
-    through one batched product per projection; the rest come back zero.
+    through one batched product per projection; the rest are dropped.
     Rows whose id is ``num_experts`` or more (the EP body's empty slots,
-    sorted last) count nowhere and come back zero.
+    sorted last) count nowhere and are dropped too.
+
+    Returns the products where they leave them, ``y`` (E·C, d) in xs's
+    dtype with slot e·C + c for expert e's c-th row (zero where no row
+    came), and for each sorted row its slot (int64, E·C where it was
+    dropped) and whether it was kept.
 
     The dispatch count is K7, which drops those ids.  The kept rows are
     written into their (E, C) slots, and the dropped ones into one spare
@@ -208,26 +217,42 @@ def _expert_ffn_grouped(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
         del h
         if tp_group is not None:
             y = coll.sum_over(y, tp_group)
+    return y, slot, keep
+
+
+def _expert_ffn_grouped(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
+                        num_experts: int, capacity: int, cfg: MoEConfig,
+                        tp_group=None) -> torch.Tensor:
+    """``_expert_ffn_slots`` with its products gathered back to the sorted
+    rows: (T·k, d), zero for a dropped row.  The EP body needs the rows in
+    sorted order for its unsort and its all-to-all back; under autograd
+    the gather's backward adds every dropped row's zero into one slot."""
+    y, slot, keep = _expert_ffn_slots(p, xs, sorted_ids, num_experts,
+                                      capacity, cfg, tp_group)
     with telemetry.span("moe.combine"):
-        rows = y[slot.clamp(max=slots - 1)]
+        rows = y[slot.clamp(max=y.shape[0] - 1)]
         return torch.where(keep[:, None], rows, 0.0)
 
 
-def combine_inputs(y_sorted: torch.Tensor, gates: torch.Tensor,
-                   order: torch.Tensor, top_k: int):
-    """K5's inputs: the expert rows times their gates, (T·k, d) f32, and
-    the token of each, int32.  Row i of ``y_sorted`` is slot ``order[i]``
-    of the token-major (T, k) stream, so it belongs to token
-    ``order[i] // k``."""
-    g = gates.reshape(-1)[order][:, None]
-    if torch.is_grad_enabled() and (y_sorted.requires_grad
-                                    or gates.requires_grad):
-        vals = y_sorted.to(torch.float32) * g   # autograd keeps both
-    else:
-        vals = y_sorted.to(torch.float32, copy=True)
-        vals.mul_(g)
-    ids = torch.div(order, top_k, rounding_mode="floor").to(torch.int32)
-    return vals, ids
+def combine_slots(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+                  order: torch.Tensor, top_k: int, num_tokens: int):
+    """K5's inputs in the slot layout of ``_expert_ffn_slots``: each slot's
+    product times its gate, (E·C, d) f32, and each slot's token, int32,
+    ``num_tokens`` (one past the end, which K5 drops) for an empty slot.
+
+    Sorted row i sits in slot ``slot[i]`` and is entry ``order[i]`` of
+    the token-major (T, k) stream, so its token is ``order[i] // k``.
+    Both maps are written through ``slot`` without accumulating, the
+    dropped rows into a spare entry that is cut off: the gates' gradient
+    is then a gather (the backward of ``scatter``), zero for a dropped
+    row, and nothing indexes ``y``.
+    """
+    slots = y.shape[0]
+    tok = torch.full((slots + 1,), num_tokens, dtype=torch.int32,
+                     device=y.device)
+    tok[slot] = torch.div(order, top_k, rounding_mode="floor").to(torch.int32)
+    g = gates.new_zeros(slots + 1).scatter(0, slot, gates.reshape(-1)[order])
+    return y * g[:slots, None], tok[:slots]
 
 
 @telemetry.span("moe.dispatch")
@@ -274,13 +299,15 @@ def apply_local(p: dict, x: torch.Tensor, cfg: MoEConfig,
     t, _ = x.shape
     gates, ids, aux = route(p, x, cfg)
     flat_ids, order, sorted_ids, xs, capacity = dispatch(x, ids, cfg)
-    y_sorted = _expert_ffn_grouped(p, xs, sorted_ids, cfg.num_experts,
+    y, slot, _ = _expert_ffn_slots(p, xs, sorted_ids, cfg.num_experts,
                                    capacity, cfg, tp_group)
     del xs
     with telemetry.span("moe.combine"):
+        if telemetry.tracing():
+            ROWS.inc(y.shape[0], outcome="slot")
         # K5: each token's gate-weighted expert rows summed in f32
-        vals, tok = combine_inputs(y_sorted, gates, order, cfg.top_k)
-        del y_sorted
+        vals, tok = combine_slots(y, slot, gates, order, cfg.top_k, t)
+        del y
         out = sk.scatter_add_autograd(vals, tok, t).to(x.dtype)
     if cfg.num_shared_experts:
         out = out + _shared(p, x, cfg, tp_group)

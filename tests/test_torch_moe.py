@@ -212,7 +212,8 @@ def test_apply_local_matches_the_reference(capacity_factor, shared):
 
 def test_apply_local_counts_with_k7_and_combines_with_k5(monkeypatch):
     """One K7 launch on the sorted dispatch stream (int32, its counts the
-    stream's histogram) and one K5 launch on T segments."""
+    stream's histogram) and one K5 launch on T segments over the (E, C)
+    slots: each token's k rows in kept slots, T (dropped) in the rest."""
     rcfg, cfg, rp, p = _layer()
     calls = _count_launchers(monkeypatch)
     x = _t(_x(24, cfg.d_model, seed=4))
@@ -224,10 +225,50 @@ def test_apply_local_counts_with_k7_and_combines_with_k5(monkeypatch):
     np.testing.assert_array_equal(
         _np(counts), np.bincount(_np(disp), minlength=cfg.num_experts))
     values, ids, segments, _ = calls["scatter_add"][0]
-    assert values.shape == (24 * cfg.top_k, cfg.d_model) and segments == 24
+    capacity = int(24 * cfg.top_k / cfg.num_experts * cfg.capacity_factor)
+    slots = cfg.num_experts * capacity
+    assert values.shape == (slots, cfg.d_model) and segments == 24
     assert values.dtype == torch.float32 and ids.dtype == torch.int32
     assert sorted(_np(ids).tolist()) == sorted(
-        list(range(24)) * cfg.top_k)
+        list(range(24)) * cfg.top_k + [24] * (slots - 24 * cfg.top_k))
+    assert not values[ids == 24].any()
+
+
+def _collapsed(rp, x, experts=2, bias=4.0):
+    """A router collapsed onto its first ``experts`` experts: a constant
+    feature 0 in x and router weights on it that favour them, so that
+    past a capacity most rows drop."""
+    w = np.array(rp["router"]["w"])
+    w[0, :experts], w[0, experts:] = bias, -bias
+    x = x.copy()
+    x[:, 0] = 3.0
+    return dict(rp, router={"w": jnp.asarray(w)}), x
+
+
+@pytest.mark.parametrize("capacity_factor", [1.0, 1.25])
+def test_apply_local_drops_equal_the_sorted_row_combine(capacity_factor):
+    """With most rows dropped, the slot-layout combine is bit for bit the
+    sorted-row one: ``_expert_ffn_grouped``'s rows (zero where dropped)
+    times their gates by ``order``, summed by token with the plain segment
+    sum.  Both add the same kept products in the same order in f64; the
+    dropped rows add only zeros."""
+    rcfg, cfg, rp, _ = _layer(capacity_factor)
+    rp, x = _collapsed(rp, _x(48, cfg.d_model, seed=6))
+    p, tx = _params(rp), _t(x)
+    got, _, _ = moe.apply_local(p, tx, cfg)
+    gates, ids, _ = moe.route(p, tx, cfg)
+    _, order, sorted_ids, xs, capacity = moe.dispatch(tx, ids, cfg)
+    rows = moe._expert_ffn_grouped(p, xs, sorted_ids, cfg.num_experts,
+                                   capacity, cfg)
+    vals = rows.to(torch.float32) * gates.reshape(-1)[order][:, None]
+    tok = torch.div(order, cfg.top_k, rounding_mode="floor").to(torch.int32)
+    want = sk.scatter_add_plain(vals, tok, 48).to(tx.dtype)
+    kept = int(torch.clamp(sk.bincount_plain(sorted_ids, cfg.num_experts),
+                           max=capacity).sum())
+    assert kept < 0.5 * sorted_ids.numel()      # most rows drop
+    assert torch.equal(got, want)
+    want_ref, _, _ = ref_moe.apply_local(rp, jnp.asarray(x), rcfg)
+    np.testing.assert_allclose(_np(got), want_ref, **LAYER)
 
 
 # -- the model ---------------------------------------------------------------

@@ -159,9 +159,9 @@ def test_every_span_appears_under_the_profiler(run, want):
 
 def test_each_gather_backward_points_into_its_moe_stage():
     """Per layer and step: the backward of ``x[order // k]`` maps to
-    ``moe.dispatch``; those of ``y[slot.clamp(...)]`` and of the gates'
-    gather to ``moe.combine``, each by its forward thread and sequence
-    number, under remat."""
+    ``moe.dispatch`` and that of the gates' gather to ``moe.combine``,
+    each by its forward thread and sequence number, under remat; no
+    gather of the expert output is left to map."""
     (_, _), events = _train(True)
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     forward = {}
@@ -180,14 +180,15 @@ def test_each_gather_backward_points_into_its_moe_stage():
             assert stage in found, stage
             found[stage] += 1
     layers = SMALL["num_layers"]
-    assert found == {"moe.dispatch": layers, "moe.combine": 2 * layers}
+    assert found == {"moe.dispatch": layers, "moe.combine": layers}
 
 
 def test_rows_counter_matches_k7_in_every_layer(monkeypatch):
     """``kept`` is, per layer, the sum over experts of min(count, C)
-    from K7's counts; ``routed`` is T·k."""
+    from K7's counts; ``routed`` is T·k; ``slot`` is E·C, the rows K5
+    reads."""
     counts, deltas = [], []
-    bincount, grouped = sk.bincount_launch, moe._expert_ffn_grouped
+    bincount, grouped = sk.bincount_launch, moe._expert_ffn_slots
 
     def spy_bincount(ids, n):
         out = bincount(ids, n)
@@ -204,12 +205,14 @@ def test_rows_counter_matches_k7_in_every_layer(monkeypatch):
         return out
 
     monkeypatch.setattr(sk, "bincount_launch", spy_bincount)
-    monkeypatch.setattr(moe, "_expert_ffn_grouped", spy_grouped)
+    monkeypatch.setattr(moe, "_expert_ffn_slots", spy_grouped)
     cfg, model, params = _model("prefill")
     tokens = _tokens(cfg, (2, 32))
     fn = serve_step.make_prefill(model, serve_step.ServeConfig(max_len=32))
+    slots = moe.ROWS.value(outcome="slot")
     fn(params, tokens)              # without the profiler nothing counts
     assert deltas and all(d[:2] == (0.0, 0.0) for d in deltas)
+    assert moe.ROWS.value(outcome="slot") == slots
     counts.clear()
     deltas.clear()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -219,6 +222,8 @@ def test_rows_counter_matches_k7_in_every_layer(monkeypatch):
         assert routed == tokens.numel() * SMALL["top_k"] == int(c.sum())
         assert kept == int(torch.clamp(c, max=capacity).sum())
         assert 0 < kept < routed          # these layers drop rows
+    assert moe.ROWS.value(outcome="slot") - slots == sum(
+        cfg.num_experts * capacity for _, _, capacity in deltas)
 
 
 class _Pending:

@@ -19,6 +19,7 @@ for an element that the update's subtraction brings near 0.  Remat
 changes nothing: losses and gradients equal.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -252,6 +253,13 @@ def test_scatter_add_autograd_forward_and_backward(num_segments):
     np.testing.assert_array_equal(_np(a.grad)[kept], w[ids[kept]])
 
 
+def _leaves(rp):
+    """The reference's MoE parameters as torch leaves that take a grad."""
+    return {k: ({kk: _t(vv).requires_grad_() for kk, vv in v.items()}
+                if isinstance(v, dict) else _t(v).requires_grad_())
+            for k, v in rp.items()}
+
+
 def test_moe_layer_grads_match_the_reference():
     """One MoE layer's output and the gradients of its input, router and
     expert weights against ``jax.grad`` through the reference's
@@ -269,10 +277,7 @@ def test_moe_layer_grads_match_the_reference():
 
     want, (want_gp, want_gx) = jax.jit(jax.value_and_grad(
         ref_loss, argnums=(0, 1)))(rp, jnp.asarray(x))
-    p = {k: ({kk: _t(np.asarray(vv)).requires_grad_() for kk, vv in v.items()}
-             if isinstance(v, dict) else _t(np.asarray(v)).requires_grad_())
-         for k, v in rp.items()}
-    tx = _t(x).requires_grad_()
+    p, tx = _leaves(rp), _t(x).requires_grad_()
     out, aux, _ = moe.apply_local(p, tx, cfg)
     got = (out * _t(w)).sum() + aux
     got.backward()
@@ -285,20 +290,136 @@ def test_moe_layer_grads_match_the_reference():
                                want_gp["router"]["w"], **MODULE)
 
 
-def test_moe_serving_scales_in_place_and_training_does_not():
-    """``combine_inputs`` scales by the gates in place without grad (the
-    serving path's memory) and out of place under it; both give the same
-    values."""
+def _collapsed_layer(capacity_factor, t=48):
+    """An 8-expert top-2 layer whose router is collapsed onto experts 0
+    and 1 (a constant feature 0 in x, router weights on it that favour
+    them), so that past the capacity most rows drop: (reference config,
+    the port's, reference params, x)."""
+    kw = dict(d_model=16, d_expert=8, num_experts=8, top_k=2,
+              capacity_factor=capacity_factor, dtype="float32")
+    rp = jax.tree.map(np.array, ref_moe.init(jax.random.PRNGKey(3),
+                                             ref_moe.MoEConfig(**kw)))
+    rp["router"]["w"][0, :2], rp["router"]["w"][0, 2:] = 4.0, -4.0
+    x = np.random.default_rng(4).standard_normal((t, 16)).astype(np.float32)
+    x[:, 0] = 3.0
+    return ref_moe.MoEConfig(**kw), moe.MoEConfig(**kw), rp, x
+
+
+@pytest.mark.parametrize("capacity_factor", [1.0, 1.25])
+def test_moe_layer_grads_under_drops_match_the_reference(capacity_factor):
+    """A collapsed router drops most rows: the gradients of x, the router
+    and every expert weight against ``jax.grad`` through the reference's
+    ``apply_local``; the gates of dropped rows get a zero gradient
+    through the slot-layout combine, those of kept rows not."""
+    rcfg, cfg, rp, x = _collapsed_layer(capacity_factor)
+    t, k = x.shape[0], cfg.top_k
+    w = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+
+    def ref_loss(rp, x):
+        out, aux, _ = ref_moe.apply_local(rp, x, rcfg)
+        return (out * w).sum() + aux
+
+    want, (want_gp, want_gx) = jax.jit(jax.value_and_grad(
+        ref_loss, argnums=(0, 1)))(jax.tree.map(jnp.asarray, rp),
+                                   jnp.asarray(x))
+    p, tx = _leaves(rp), _t(x).requires_grad_()
+    out, aux, _ = moe.apply_local(p, tx, cfg)
+    got = (out * _t(w)).sum() + aux
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(_np(tx.grad), want_gx, **MODULE)
+    for name in ("w_gate", "w_up", "w_down"):
+        np.testing.assert_allclose(_np(p[name].grad), want_gp[name], **MODULE)
+    np.testing.assert_allclose(_np(p["router"]["w"].grad),
+                               want_gp["router"]["w"], **MODULE)
+
+    with torch.no_grad():
+        gates, ids, _ = moe.route(p, tx, cfg)
+        _, order, sorted_ids, xs, capacity = moe.dispatch(tx, ids, cfg)
+    gates = gates.requires_grad_()
+    y, slot, keep = moe._expert_ffn_slots(p, xs, sorted_ids,
+                                          cfg.num_experts, capacity, cfg)
+    vals, tok = moe.combine_slots(y, slot, gates, order, k, t)
+    (sk.scatter_add_autograd(vals, tok, t) * _t(w)).sum().backward()
+    dropped = torch.zeros(t * k, dtype=torch.bool)
+    dropped[order[~keep]] = True
+    assert int(dropped.sum()) > t * k // 2          # most rows drop
+    g = gates.grad.reshape(-1)
+    assert not g[dropped].any() and g[~dropped].ne(0).all()
+
+
+def test_moe_combine_indexes_no_expert_row():
+    """Walking ``apply_local``'s graph from its output under grad, with
+    most rows dropped: the only gathers left are ``x[order // k]`` and
+    the gates' permutation ``gates.reshape(-1)[order]``; every index write
+    is without accumulate (its backward a gather), the gates' one writing
+    each slot once but for the spare entry, and no node indexes the
+    expert output, so no backward adds many rows into one."""
+    _, cfg, rp, x = _collapsed_layer(1.25)
+    t, d = x.shape
+    p, tx = _leaves(rp), _t(x).requires_grad_()
+    out, _, _ = moe.apply_local(p, tx, cfg)
+    with torch.no_grad():
+        _, ids, _ = moe.route(p, tx, cfg)
+        _, order, _, _, _ = moe.dispatch(tx, ids, cfg)
+    indexing = ("Index", "Gather", "Scatter", "Take", "Embedding")
+    seen, stack, found = set(), [out.grad_fn], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if any(word in node.name() for word in indexing):
+            found.append(node)
+        stack.extend(f for f, _ in node.next_functions)
+    names = collections.Counter(n.name() for n in found)
+    assert names == {"IndexBackward0": 2, "IndexPutBackward0": 1,
+                     "ScatterBackward0": 1, "_ScatterAddBackward": 1}, names
+    for node in found:
+        if node.name() == "IndexPutBackward0":
+            assert node._saved_accumulate is False
+        if node.name() == "ScatterBackward0":    # no reduce: a gather back
+            idx = node._saved_index                 # each slot once, but
+            kept = idx[idx != idx.max()]            # the spare, cut off
+            assert kept.unique().numel() == kept.numel() < idx.numel()
+    gathers = {tuple(n._saved_self_sym_sizes): n._saved_indices
+               for n in found if n.name() == "IndexBackward0"}
+    assert set(gathers) == {(t, d), (t * cfg.top_k,)}
+    assert torch.equal(gathers[(t, d)][0],
+                       torch.div(order, cfg.top_k, rounding_mode="floor"))
+    assert torch.equal(gathers[(t * cfg.top_k,)][0], order)
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(t * cfg.top_k))
+
+
+def test_slot_combine_serves_and_trains_alike():
+    """``combine_slots`` gives the same products and token ids without
+    grad (serving) and under it (training), and leaves the expert output
+    unmodified in both: the gate product is a fresh f32 tensor, each
+    slot's bf16 row times its gate, bit for bit; an empty slot's id is
+    T, one past the end, and its value 0."""
     rng = np.random.default_rng(5)
-    y = _t(rng.standard_normal((12, 4)).astype(np.float32))
+    y = _t(rng.standard_normal((16, 4)).astype(np.float32)).to(
+        torch.bfloat16)
     gates = _t(rng.random((6, 2)).astype(np.float32))
     order = torch.randperm(12, generator=torch.Generator().manual_seed(0))
+    slot = torch.tensor([3, 16, 0, 7, 16, 9, 15, 1, 16, 4, 12, 16])
     with torch.no_grad():
-        served, ids = moe.combine_inputs(y, gates, order, 2)
-    yg = y.clone().requires_grad_()
-    trained, ids2 = moe.combine_inputs(yg, gates, order, 2)
+        served, ids = moe.combine_slots(y, slot, gates, order, 2, 6)
+    yg, gg = y.clone().requires_grad_(), gates.clone().requires_grad_()
+    trained, ids2 = moe.combine_slots(yg, slot, gg, order, 2, 6)
     assert trained.grad_fn is not None and yg._version == 0
+    assert torch.equal(yg.detach(), y)
     assert torch.equal(served, trained.detach()) and torch.equal(ids, ids2)
+    assert served.dtype == torch.float32 and ids.dtype == torch.int32
+    kept = slot < 16
+    want = y.to(torch.float32)[slot[kept]] * gates.reshape(-1)[
+        order[kept]][:, None]
+    assert torch.equal(served[slot[kept]], want)
+    assert torch.equal(ids[slot[kept]], (order[kept] // 2).to(torch.int32))
+    empty = torch.ones(16, dtype=torch.bool)
+    empty[slot[kept]] = False
+    assert (ids[empty] == 6).all() and not served[empty].any()
 
 
 # -- attention under grad -----------------------------------------------------

@@ -45,6 +45,11 @@ MOE = ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b")
 ZERO_STATS = {"collected": 0, "memo_hits": 0, "disk_hits": 0,
               "batch_calls": 0}
 
+# the geometry note on K5's combine over the (E, C) slots: the one
+# MoE combine site (a d-wide add, so a "dispatch_scatter") the table names
+K5_SLOTS = (MOE, "prefill", "port",
+            ("GEOM001", "note", "dispatch_scatter", 1))
+
 # (configs, step, side, (rule, severity, kind, depth)) -> reason
 DIVERGENCES = {
     (("rwkv6-7b",), "train", "reference",
@@ -67,12 +72,21 @@ DIVERGENCES = {
         "one_hot inside its layer (the depth-2 site both sides have)",
     (MOE, "train", "port",
      ("ATOM003", "note", "histogram_scatter", 2)):
-        "the port's combine is K5, a segment sum over the expert-sorted "
-        "rows, with each row's gate gathered by the sort order "
-        "(moe.combine_inputs); the gather's backward accumulates T*k "
-        "scalars into T*k bins.  The reference unsorts the rows and "
+        "the port's combine is K5, a segment sum over the (E, C) slots "
+        "the expert products leave, with each row's gate gathered by the "
+        "sort order and written to its slot (moe.combine_slots); the "
+        "gather's backward accumulates T*k scalars into T*k bins (the "
+        "sort's permutation).  The reference unsorts the rows and "
         "combines them with an einsum against the (T, k) gates: no "
         "gather, so no such scatter",
+    K5_SLOTS:
+        "the port's combine is K5 over the (E, C) slots the expert "
+        "products leave: E*C rows of d a layer, at the reduced configs' "
+        "capacity factor 8 eight times T*k, most of them empty slots "
+        "whose ids lie one past the end; over that stream GEOM001's "
+        "waves-past-the-pipeline note fires on K5's site (over the T*k "
+        "sorted rows it did not).  The reference combines by an unsort "
+        "and an einsum: no scatter",
     (MOE, "prefill", "port",
      ("ATOM001", "warning", "one_hot_histogram", 1)):
         "the port's eager serving step computes the router's aux loss "
@@ -143,12 +157,13 @@ def test_zoo_findings_equal_the_reference(reports, arch):
 
 def test_divergences_spare_the_sites_that_must_match():
     """The table names no decode K/V write, no MoE histogram or dispatch
-    site, no embedding gradient and no label-gather backward."""
-    for (archs, step, side, (rule, sev, kind, depth)), why in \
-            DIVERGENCES.items():
+    site, no embedding gradient and no label-gather backward; of the
+    combine, only K5's geometry note over the (E, C) slots."""
+    for key, why in DIVERGENCES.items():
+        archs, step, side, (rule, sev, kind, depth) = key
         assert why
         assert not (step == "decode" and kind == "kv_cache_write")
-        assert not (kind == "dispatch_scatter")
+        assert not (kind == "dispatch_scatter") or key == K5_SLOTS
         assert not (kind == "histogram_scatter" and side == "reference")
         assert not (step == "train" and depth == 1 and kind in (
             "dispatch_scatter", "histogram_scatter"))
