@@ -7,6 +7,7 @@ import importlib
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
+    PortConfig,
     ShapeConfig,
     shape_applicable,
 )
@@ -24,9 +25,16 @@ ARCHS = {
     "llama-3.2-vision-11b": "llama32_vision_11b",
 }
 
+# architectures of the port alone: the reference has none of them, so
+# ``ARCHS`` (the reference's table, one for one) leaves them out
+PORT_ARCHS = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; options: {sorted(ARCHS)}")
-    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+    table = {**ARCHS, **PORT_ARCHS}
+    if arch not in table:
+        raise KeyError(f"unknown arch {arch!r}; options: {sorted(table)}")
+    mod = importlib.import_module(f"repro_torch.configs.{table[arch]}")
     return mod.CONFIG

@@ -64,6 +64,19 @@ class ModelConfig:
     scan_layers: bool = True
     collect_dispatch: bool = False  # emit MoE dispatch ids for profiling
 
+    # The fields of the port's own architectures (``PortConfig``), at the
+    # values that add no operation.  Class attributes here, not fields, so
+    # that the ten configurations shared with the reference keep its
+    # fields one for one.
+    layer_types = ()            # the published per-layer mixers, if any
+    d_shared = 0                # shared-expert width (0: d_expert x count)
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    attention_multiplier = 0.0  # the softmax scale (0: 1 / sqrt(head_dim))
+    logits_scaling = 1.0        # logits divided by it
+    norm_eps = 1e-6
+    nope = False                # attention without position embeddings
+
     # -- derived -----------------------------------------------------------
 
     @property
@@ -171,6 +184,72 @@ class ModelConfig:
             kv_block=64,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """An architecture the port has and the reference lacks, given by
+    its published ``layer_types``: the fields ``ModelConfig`` holds at
+    their defaults, settable.  Granite 4.0-H (``granitemoehybrid``) sets
+    them all: ``layer_types`` of "mamba" and
+    "attention" mixers, each followed by the MoE FFN beside a shared
+    expert of width ``d_shared``; the embedding times
+    ``embedding_multiplier``, each mixer's and FFN's output times
+    ``residual_multiplier`` before its residual add, attention without
+    position embeddings (``nope``) at the softmax scale
+    ``attention_multiplier``, and the logits over ``logits_scaling``."""
+    layer_types: tuple = ModelConfig.layer_types
+    d_shared: int = ModelConfig.d_shared
+    embedding_multiplier: float = ModelConfig.embedding_multiplier
+    residual_multiplier: float = ModelConfig.residual_multiplier
+    attention_multiplier: float = ModelConfig.attention_multiplier
+    logits_scaling: float = ModelConfig.logits_scaling
+    norm_eps: float = ModelConfig.norm_eps
+    nope: bool = ModelConfig.nope
+
+    def __post_init__(self):
+        # a configuration file gives a list
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+
+    def _layer_params(self, experts: int) -> list:
+        """Each layer's parameters with ``experts`` routed experts a
+        token (all of them: the layer's weights)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        q, kv = self.num_heads * hd, self.num_kv_heads * hd
+        d_inner = 2 * d
+        heads = d_inner // self.ssm_head_dim
+        conv = d_inner + 2 * self.ssm_state
+        mamba = (d * (d_inner + conv + heads) + 5 * conv + 3 * heads
+                 + d_inner + d_inner * d)
+        attn = d * (q + 2 * kv) + q * d
+        ffn = (d * self.num_experts + 3 * d * self.d_expert * experts
+               + 3 * d * self.d_shared)
+        return [(mamba if kind == "mamba" else attn) + ffn + 2 * d
+                for kind in self.layer_types]
+
+    def param_count(self) -> float:
+        """Every parameter: the conv's taps and bias, the norms and the
+        heads' vectors included."""
+        emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings
+                                                else 2)
+        return sum(self._layer_params(self.num_experts)) + emb + self.d_model
+
+    def active_param_count(self) -> float:
+        """A token's: its ``top_k`` experts, the shared expert and the
+        router."""
+        emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings
+                                                else 2)
+        return sum(self._layer_params(self.top_k)) + emb + self.d_model
+
+    def reduced(self) -> "PortConfig":
+        """``ModelConfig.reduced``, with two periods of a pattern of one
+        layer of each published kind and a shared expert twice as wide as
+        an expert, as the published one is."""
+        small = super().reduced()
+        kinds = tuple(dict.fromkeys(self.layer_types)) * 2
+        return dataclasses.replace(
+            small, num_layers=len(kinds), layer_types=kinds,
+            d_shared=2 * small.d_expert if self.d_shared else 0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -100,18 +101,20 @@ def lint_declaration(b: int, h: int, t: int, d: int, *,
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, group: int = 1) -> torch.Tensor:
+                    causal: bool = True, group: int = 1,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """(B, H, T, d) q, (B, H / group, T, d) k/v -> (B, H, T, d).
 
-    The whole (T, T) score matrix in f32, a ``NEG_INF`` mask, and the
-    result in q's dtype: ``ref.attention_ref`` with a batch axis and
-    grouped KV heads, updating its scores in place to hold the memory to
-    one f32 copy of them.
+    The whole (T, T) score matrix in f32, times ``scale`` (default
+    d ** -0.5), a ``NEG_INF`` mask, and the result in q's dtype:
+    ``ref.attention_ref`` with a batch axis and grouped KV heads,
+    updating its scores in place to hold the memory to one f32 copy of
+    them.
     """
     b, h, t, d = q.shape
     qg = q.to(torch.float32).reshape(b, h // group, group, t, d)
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.to(torch.float32))
-    s.mul_(d ** -0.5)
+    s.mul_(d ** -0.5 if scale is None else scale)
     if causal:
         above = torch.ones((t, t), dtype=torch.bool, device=q.device).triu_(1)
         s.masked_fill_(above, NEG_INF)
@@ -144,13 +147,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, group: int) -> torch.Tensor:
+                       causal: bool, group: int,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """K8 as an operator: (B, H, T, d) attention."""
-    return attention_plain(q, k, v, causal=causal, group=group)
+    scaled = {} if scale is None else {"scale": scale}
+    return attention_plain(q, k, v, causal=causal, group=group, **scaled)
 
 
 @flash_attention_op.register_kernel("cuda")
-def _flash_attention_cuda(q, k, v, causal, group):
+def _flash_attention_cuda(q, k, v, causal, group, scale=None):
     b, h, t, d = q.shape
     if q.dtype not in DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes f32 or bf16 with head_dim in "
@@ -165,14 +170,15 @@ def _flash_attention_cuda(q, k, v, causal, group):
         stream = torch.cuda.current_stream().cuda_stream
         _build.raise_on_error(_lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            group, t, d, DTYPES[q.dtype], int(causal), d ** -0.5, stream),
+            group, t, d, DTYPES[q.dtype], int(causal),
+            d ** -0.5 if scale is None else scale, stream),
             "flash_attention")
     _build.count_launch(LAUNCHES, "flash_attention")
     return out
 
 
 @flash_attention_op.register_fake
-def _flash_attention_fake(q, k, v, causal, group):
+def _flash_attention_fake(q, k, v, causal, group, scale=None):
     return torch.empty_like(q)
 
 
@@ -185,9 +191,12 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
 
 
 def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True,
-                           group: int = 1) -> torch.Tensor:
+                           *, causal: bool = True, group: int = 1,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """K8: (B, H, T, d) attention of q over (B, H / group, T, d) k and v
-    (``repro_torch::flash_attention``)."""
+    (``repro_torch::flash_attention``), the scores times ``scale``
+    (default d ** -0.5)."""
     _check(q, k, v, group)
-    return flash_attention_op(q, k, v, causal, group)
+    # where there is no ``scale``, the call as it was before it
+    scaled = () if scale is None else (scale,)
+    return flash_attention_op(q, k, v, causal, group, *scaled)

@@ -2,7 +2,8 @@
 
 Flags: QKV bias (qwen), attention-logit softcap (gemma2), sliding window
 (gemma2 local layers / zamba2 long-context), cross-attention
-(whisper/llama-vision), bidirectional (whisper encoder), KV-cache
+(whisper/llama-vision), bidirectional (whisper encoder), no position
+embeddings and a score scale of the config's (Granite 4.0-H), KV-cache
 decode, and the reference's blockwise path (``kv_block``, ``q_block``:
 an online softmax over key blocks, and over query blocks too) for long
 prefill and training.
@@ -52,6 +53,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     use_rope: bool = True
     dtype: str = "bfloat16"
+    scale: Optional[float] = None       # of the scores (None: hd ** -0.5)
     # Megatron-style GQA TP: under a mesh, repeat the KV heads across the
     # query groups so that K/V shard over the model axis with the query
     # heads.  It changes no result; without a mesh there is nothing to
@@ -214,7 +216,7 @@ def attend(
     """
     b, t, _ = x.shape
     g = cfg.num_heads // cfg.num_kv_heads
-    scale = cfg.head_dim ** -0.5
+    scale = cfg.head_dim ** -0.5 if cfg.scale is None else cfg.scale
     src = x if kv_x is None else kv_x
     # autograd differentiates through q, k and v where any of their
     # sources requires grad: then K8, forward-only, is not the route
@@ -286,9 +288,11 @@ def attend(
     def core(q, k, v):
         if use_flash:
             # K8 at the real T: the kernel masks a ragged last tile itself
+            # the launch as it was before ``scale``, where it has none
+            scaled = {} if cfg.scale is None else {"scale": cfg.scale}
             return flash_kernel.flash_attention_launch(
                 q.contiguous(), k.contiguous(), v.contiguous(),
-                causal=cfg.causal, group=g)
+                causal=cfg.causal, group=g, **scaled)
         bl, hl = q.shape[:2]
         qg = q.reshape(bl, hl // g, g, t, cfg.head_dim)
         causal = cfg.causal and kv_x is None

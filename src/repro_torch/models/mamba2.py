@@ -1,12 +1,22 @@
-"""Mamba-2 block (SSD, arXiv:2405.21060), zamba2's backbone.
+"""Mamba-2 block (SSD, arXiv:2405.21060), zamba2's and Granite 4.0-H's
+mixer.
 
 Selective state-space with scalar-per-head decay, evaluated with the
 chunked state-space-duality algorithm: the intra-chunk quadratic (matmul)
 term and the inter-chunk state recurrence (a Python loop over chunks),
 as the reference's ``models/mamba2.py`` computes them, in f32 with
 ``torch.einsum``; no kernel of its own (the reference computes SSD
-outside any Pallas kernel too).  Decode carries the (H, P, N) state and
-a small causal-conv ring, O(1) in sequence length.
+outside any Pallas kernel too).  The intra-chunk decay is the SSD
+paper's segment sum, ``exp(cum_i - cum_j)`` over ``j <= i``, whose
+exponent is never positive: the reference's ``exp(cum_i) * exp(-cum_j)``
+overflows f32 once a chunk's summed log decay passes about 88 (chunk 256
+at dt 0.05 and A -8 does).  Decode carries the (H, P, N) state and a
+small causal-conv ring, O(1) in sequence length.
+
+The block is the ``telemetry`` span ``ssm`` (in_proj, conv, SSD, gated
+norm, out_proj) with the SSD inside it as ``ssm.scan``; while the
+profiler records, ``repro_ssm_chunks_total`` (``CHUNKS``) counts the
+chunks the SSD processes, batch x chunks a call, as a host integer.
 """
 
 from __future__ import annotations
@@ -22,6 +32,11 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 
 CHUNK_LOOP = "mamba2 SSD chunk loop"  # the profiler's name for it
+# in a registry of its own: the process's (``telemetry.REGISTRY``) holds
+# the reference's metric names, and the MoE's rows counter, alone
+CHUNKS = telemetry.MetricsRegistry().counter(
+    "repro_ssm_chunks_total", "Mamba-2 SSD chunks processed (batch x "
+    "chunks a call), counted while profiling")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +48,7 @@ class Mamba2Config:
     conv_width: int = 4
     chunk: int = 64
     dtype: str = "bfloat16"
+    norm_eps: float = 1e-6      # the gated norm's
 
     @property
     def d_inner(self) -> int:
@@ -89,8 +105,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     """SSD: x (B,T,H,P), dt (B,T,H) f32, a (H,) f32 (negative),
     b/c (B,T,N).  Returns y (B,T,H,P) f32 and the final state
-    (B,H,P,N).  The pairwise decay is ``exp(cum_i) * exp(-cum_j)``, as in
-    the reference: it overflows f32 where the reference's does."""
+    (B,H,P,N).  The pairwise decay is the segment sum ``exp(cum_i -
+    cum_j)`` for j <= i and 0 above the diagonal; where autograd will not
+    differentiate through it, it is made in place, one (B, chunks, H, L,
+    L) f32 tensor at a time."""
     bsz, t0, h, p = x.shape
     n = b_mat.shape[-1]
     pad = (-t0) % chunk
@@ -100,6 +118,10 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
                             for a_ in (dt, b_mat, c_mat))
     t = t0 + pad
     nc = t // chunk
+    if telemetry.tracing():
+        CHUNKS.inc(bsz * nc)
+    grad = torch.is_grad_enabled() and any(
+        v.requires_grad for v in (x, dt, a, b_mat, c_mat))
     da = (dt * a).reshape(bsz, nc, chunk, h)             # log decay per step
     xdt = (x.to(torch.float32) * dt[..., None]).reshape(
         bsz, nc, chunk, h, p)
@@ -107,15 +129,20 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     cs = c_mat.to(torch.float32).reshape(bsz, nc, chunk, n)
     cum = torch.cumsum(da, dim=2)                        # inclusive
     # intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) (c_i.b_j) dtx_j
-    decay_i = torch.exp(cum)                             # (b,c,l,h)
-    decay_j = torch.exp(-cum)
     scores = torch.einsum("bcln,bcmn->bclm", cs, bs)     # (b,c,l,m)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
-                                device=x.device))
-    pair = scores[:, :, None] * (decay_i.permute(0, 1, 3, 2)[..., None]
-                                 * decay_j.permute(0, 1, 3, 2)[:, :, :, None]
-                                 * tri[None, None, None])
+    cum_h = cum.permute(0, 1, 3, 2)                      # (b,c,h,l)
+    seg = cum_h[..., :, None] - cum_h[..., None, :]      # (b,c,h,l,m)
+    above = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=x.device).triu_(1)
+    if grad:
+        pair = torch.exp(seg.masked_fill(above, float("-inf"))) \
+            * scores[:, :, None]
+    else:
+        pair = seg.masked_fill_(above, float("-inf")).exp_().mul_(
+            scores[:, :, None])
+    del seg
     y_intra = torch.einsum("bchlm,bcmhp->bclhp", pair, xdt)
+    del pair
     # chunk summary state: S_c = sum_j exp(cum_L - cum_j) dtx_j b_j^T
     w_total = cum[:, :, -1]                              # (b,c,h)
     k_tail = torch.exp(w_total[:, :, None] - cum)        # (b,c,l,h)
@@ -131,11 +158,13 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
             hprev = (torch.exp(w_total[:, i])[..., None, None] * hprev
                      + s_chunk[:, i])
         h_in = torch.stack(h_in, dim=1)                  # (b,c,h,p,n)
-    y_inter = torch.einsum("bclh,bcln,bchpn->bclhp", decay_i, cs, h_in)
+    y_inter = torch.einsum("bclh,bcln,bchpn->bclhp", torch.exp(cum), cs,
+                           h_in)
     y = (y_intra + y_inter).reshape(bsz, t, h, p)
     return y[:, :t0], hprev
 
 
+@telemetry.span("ssm")
 def apply(p: dict, x: torch.Tensor, cfg: Mamba2Config) -> torch.Tensor:
     bsz, t, _ = x.shape
     proj = layers.dense(p["in_proj"], x)
@@ -149,13 +178,14 @@ def apply(p: dict, x: torch.Tensor, cfg: Mamba2Config) -> torch.Tensor:
     a = -torch.exp(p["a_log"])
     xh = pctx.unflatten(xin, -1, (cfg.num_heads, cfg.head_dim))
     # under a mesh, on each rank's (batch, heads) shard
-    y = coll.per_head(lambda *xs: _ssd_chunked(*xs, cfg.chunk)[0],
-                      (xh, dt, a, b_mat, c_mat),
-                      [("act", 2), ("act", 2), ("param", 0), ("act", None),
-                       ("act", None)], 2)
+    with telemetry.span("ssm.scan"):
+        y = coll.per_head(lambda *xs: _ssd_chunked(*xs, cfg.chunk)[0],
+                          (xh, dt, a, b_mat, c_mat),
+                          [("act", 2), ("act", 2), ("param", 0),
+                           ("act", None), ("act", None)], 2)
     y = y + xh.to(torch.float32) * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, t, cfg.d_inner).to(x.dtype)
-    y = layers.rmsnorm(p["norm"], y * F.silu(z))
+    y = layers.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
     return layers.dense(p["out_proj"], y)
 
 
@@ -183,7 +213,7 @@ def decode_step(p: dict, x: torch.Tensor, state: dict, cfg: Mamba2Config):
     y = torch.einsum("bhpn,bn->bhp", h_new, c_mat.to(torch.float32))
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, cfg.d_inner).to(x.dtype)
-    y = layers.rmsnorm(p["norm"], y * F.silu(z[:, None]))
+    y = layers.rmsnorm(p["norm"], y * F.silu(z[:, None]), cfg.norm_eps)
     out = layers.dense(p["out_proj"], y)
     return out, {"h": h_new, "conv": window[:, 1:]}
 

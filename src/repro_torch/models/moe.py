@@ -40,8 +40,9 @@ on the device its inputs lie on.
 The layer's stages are ``telemetry`` spans, profiler ranges while the
 profiler records: ``moe.route`` (step 1), ``moe.dispatch`` (the sort,
 the gather of x, K7 and the buffer's writes), ``moe.experts`` (the
-products) and ``moe.combine`` (each slot's token and gate, the gate
-product, K5 and the cast).  While the profiler records,
+products), ``moe.combine`` (each slot's token and gate, the gate
+product, K5 and the cast) and ``moe.shared`` (the shared experts' MLP,
+where the layer has one).  While the profiler records,
 ``repro_moe_rows_total`` counts the rows routed to an expert, those kept
 within capacity (0-d device tensors that nothing reads inside the layer)
 and the slots K5 reads.
@@ -112,9 +113,11 @@ class MoEConfig:
         return self.num_experts >= 64
 
 
-def init(gen: torch.Generator, cfg: MoEConfig) -> dict:
+def init(gen: torch.Generator, cfg: MoEConfig, d_shared: int = 0) -> dict:
     """Router (d, E) and expert weights (E, d, f), (E, f, d), drawn from
-    ``gen`` on its device with the reference's fan-in scales."""
+    ``gen`` on its device with the reference's fan-in scales; with shared
+    experts, their MLP of width ``d_shared`` (default: ``d_expert`` a
+    shared expert)."""
     dt = layers.torch_dtype(cfg.dtype)
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_expert
     scale_in, scale_out = d ** -0.5, f ** -0.5
@@ -125,7 +128,8 @@ def init(gen: torch.Generator, cfg: MoEConfig) -> dict:
         "w_down": layers.truncated_normal_init(gen, (e, f, d), scale_out, dt),
     }
     if cfg.num_shared_experts:
-        p["shared"] = mlp.init(gen, d, f * cfg.num_shared_experts, dt)
+        p["shared"] = mlp.init(gen, d, d_shared or f * cfg.num_shared_experts,
+                               dt)
     return p
 
 
@@ -270,13 +274,15 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, cfg: MoEConfig):
     return flat_ids, order, sorted_ids, xs, capacity
 
 
+@telemetry.span("moe.shared")
 def _shared(p: dict, x: torch.Tensor, cfg: MoEConfig, tp_group):
     """The shared experts' MLP; with ``tp_group`` its weights are this
     rank's slice of the hidden and its output is summed over the group
     (the reference's mesh bodies leave out that sum, and with a model
     axis of more than one rank and shared experts their out-spec, which
-    says the output is the same on every model rank, would not hold; no
-    config of the repo has shared experts)."""
+    says the output is the same on every model rank, would not hold; of
+    the configurations only the port's Granite 4.0-H has a shared
+    expert, which the reference lacks)."""
     if tp_group is None:
         return mlp.apply(p["shared"], x, cfg.activation)
     x = coll.grad_sum_over(x, tp_group)

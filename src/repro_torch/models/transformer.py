@@ -1,5 +1,5 @@
-"""The causal LM for the dense, MoE, gemma2, VLM, RWKV-6 and zamba2
-families: the reference's ``CausalLM`` on one card.
+"""The causal LM for the dense, MoE, gemma2, VLM, RWKV-6, zamba2 and
+Granite 4.0-H families: the reference's ``CausalLM`` on one card.
 
 The reference expresses every architecture as ``n_groups`` repetitions of
 a small group of sub-blocks (and an optional ragged tail) and scans over
@@ -17,12 +17,23 @@ them):
   rwkv6            ("rwkv",) x L                           ported
   zamba2           ("mamba",)*k + ("shared_attn",) x L//k, ported
                    tail ("mamba",) x L%k
+  granite-4.0-h    a period of ``layer_types``, e.g.        the port's own
+                   ("mamba_ffn",)*5 + ("attn",)
+                   + ("mamba_ffn",)*4, x L // 10
 
 zamba2's ``shared_attn`` weights are held once, in
 ``params["shared_attn"]``, as in the reference; its entries in
 ``params["layers"]`` are empty dicts, so that a walk over the tree
 counts those weights once.  Each invocation has its own KV cache (a
 window ring).  The Whisper family is ``models/whisper.py``.
+
+Granite 4.0-H (``configs.base.PortConfig``, which the reference lacks)
+follows each mixer, Mamba-2 (``mamba_ffn``) or NoPE attention (``attn``),
+with the MoE FFN and its shared expert: ``h += r * mixer(norm(h))``,
+then ``h += r * (moe(norm(h)) + shared(norm(h)))``, r the
+``residual_multiplier``; its embedding is times ``embedding_multiplier``
+and its logits over ``logits_scaling``.  Each scalar at its default (1)
+adds no operation, so the other configurations run as they did.
 
 A plain ``attn`` layer's prefill attention runs K8
 (``attention.flash_route``), and so does zamba2's shared attention while
@@ -37,7 +48,8 @@ rows than the prefill of the same tokens does, and their logits differ
 by design unless the capacity factor is large enough that nothing drops.
 RWKV-6's WKV and Mamba-2's SSD and causal convolution are plain torch
 (``models/rwkv6.py``, ``models/mamba2.py``); their decode caches carry
-state, not keys: ``{"s", "last", "cm_last"}`` and ``{"h", "conv"}``.
+state, not keys: ``{"s", "last", "cm_last"}`` and ``{"h", "conv"}`` (a
+``mamba_ffn`` layer's FFN holds none).
 """
 
 from __future__ import annotations
@@ -71,7 +83,29 @@ class LayerPlan:
     tail_kinds: tuple[str, ...] = ()
 
 
+# a published layer type's sub-block
+LAYER_KINDS = {"mamba": "mamba_ffn", "attention": "attn"}
+
+
+def _pattern_plan(cfg: ModelConfig) -> LayerPlan:
+    """The shortest period that repeats to the whole of ``layer_types``
+    as the group."""
+    kinds = tuple(LAYER_KINDS[t] for t in cfg.layer_types)
+    n = len(kinds)
+    if n != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {n} layer types for "
+                         f"{cfg.num_layers} layers")
+    k = next(k for k in range(1, n + 1)
+             if n % k == 0 and kinds == kinds[:k] * (n // k))
+    return LayerPlan(kinds[:k], n // k)
+
+
 def layer_plan(cfg: ModelConfig) -> LayerPlan:
+    """The layers of ``cfg``, a configuration of the port's or of the
+    reference's (``convert`` lays the reference's parameters out by it),
+    which has no ``layer_types``."""
+    if getattr(cfg, "layer_types", ()):
+        return _pattern_plan(cfg)
     if cfg.rwkv:
         return LayerPlan(("rwkv",), cfg.num_layers)
     if cfg.family in ("ssm", "hybrid") and cfg.ssm_state:
@@ -107,7 +141,8 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> attention.AttnConfig:
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         qkv_bias=cfg.qkv_bias, logit_softcap=cfg.attn_softcap,
         window=window, causal=True, rope_theta=cfg.rope_theta,
-        use_rope=kind != "cross", dtype=cfg.dtype,
+        use_rope=kind != "cross" and not cfg.nope, dtype=cfg.dtype,
+        scale=cfg.attention_multiplier or None,
         tp_expand_heads=cfg.attn_tp_expand,
         bf16_score_grad=cfg.attn_bf16_score_grad)
 
@@ -130,7 +165,7 @@ def _rwkv_cfg(cfg: ModelConfig) -> rwkv6.RWKVConfig:
 def _mamba_cfg(cfg: ModelConfig) -> mamba2.Mamba2Config:
     return mamba2.Mamba2Config(d_model=cfg.d_model, state_dim=cfg.ssm_state,
                                head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
-                               dtype=cfg.dtype)
+                               dtype=cfg.dtype, norm_eps=cfg.norm_eps)
 
 
 def _norm_init(cfg: ModelConfig, device, d=None) -> dict:
@@ -141,8 +176,13 @@ def _norm_init(cfg: ModelConfig, device, d=None) -> dict:
 
 
 def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (layers.rmsnorm(p, x) if cfg.norm == "rmsnorm"
+    return (layers.rmsnorm(p, x, cfg.norm_eps) if cfg.norm == "rmsnorm"
             else layers.layernorm(p, x))
+
+
+def _scaled(x: torch.Tensor, m: float) -> torch.Tensor:
+    """x times m; x itself, no operation, where m is 1."""
+    return x if m == 1.0 else x * m
 
 
 # ---------------------------------------------------------------------------
@@ -160,11 +200,16 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     if kind == "mamba":
         return {"norm": _norm_init(cfg, gen.device),
                 "ssm": mamba2.init(gen, _mamba_cfg(cfg))}
+    if kind == "mamba_ffn":
+        return {"norm1": _norm_init(cfg, gen.device),
+                "ssm": mamba2.init(gen, _mamba_cfg(cfg)),
+                "norm2": _norm_init(cfg, gen.device),
+                "ffn": moe.init(gen, _moe_cfg(cfg), cfg.d_shared)}
     p = {"norm1": _norm_init(cfg, gen.device),
          "attn": attention.init(gen, _attn_cfg(cfg, kind)),
          "norm2": _norm_init(cfg, gen.device)}
     if cfg.is_moe and kind not in ("cross", "shared_attn"):
-        p["ffn"] = moe.init(gen, _moe_cfg(cfg))
+        p["ffn"] = moe.init(gen, _moe_cfg(cfg), cfg.d_shared)
     else:
         p["ffn"] = mlp.init(gen, cfg.d_model, cfg.d_ff, dt, cfg.activation)
     if kind == "cross":  # tanh gates, closed at init as in the reference
@@ -217,6 +262,15 @@ def _rwkv_apply(cfg: ModelConfig, p: dict, h: torch.Tensor,
     return h, {"s": st["s"], "last": st["last"], "cm_last": x2[:, 0, :]}
 
 
+def _mamba_mix(cfg: ModelConfig, p: dict, xn: torch.Tensor,
+               cache: Optional[dict]):
+    """A Mamba-2 mixer over the normed xn: (out, None) in the prefill,
+    (out, the stepped state) in decode."""
+    if cache is None:
+        return mamba2.apply(p, xn, _mamba_cfg(cfg)), None
+    return mamba2.decode_step(p, xn, cache, _mamba_cfg(cfg))
+
+
 def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
                cache: Optional[dict], positions=None, image_embeds=None,
                kv_block=None, q_block=None):
@@ -225,19 +279,23 @@ def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
 
     A cross layer attends to ``image_embeds`` (its cache: their K/V,
     projected once) and adds both branches through tanh gates; its cache
-    comes back as it went in.  ``rwkv`` and ``mamba`` layers return their
-    stepped state in decode.  ``kv_block``/``q_block`` (the blockwise
+    comes back as it went in.  ``rwkv``, ``mamba`` and ``mamba_ffn``
+    layers return their stepped state in decode.  ``kv_block``/``q_block`` (the blockwise
     path) reach every self-attention, not the cross layers', as in the
     reference."""
     if kind == "rwkv":
         h, new_cache = _rwkv_apply(cfg, p, h, cache)
         return h, 0.0, new_cache
     if kind == "mamba":
-        xn = _norm(cfg, p["norm"], h)
-        if cache is None:
-            return h + mamba2.apply(p["ssm"], xn, _mamba_cfg(cfg)), 0.0, None
-        out, st = mamba2.decode_step(p["ssm"], xn, cache, _mamba_cfg(cfg))
+        out, st = _mamba_mix(cfg, p["ssm"], _norm(cfg, p["norm"], h), cache)
         return h + out, 0.0, st
+    r = cfg.residual_multiplier
+    if kind == "mamba_ffn":
+        out, st = _mamba_mix(cfg, p["ssm"], _norm(cfg, p["norm1"], h), cache)
+        h = h + _scaled(out, r)
+        ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
+                                     _norm(cfg, p["norm2"], h))
+        return h + _scaled(ffn_out, r), aux, st
     acfg = _attn_cfg(cfg, kind)
     xn = _norm(cfg, p["norm1"], h)
     if kind == "cross":
@@ -256,10 +314,10 @@ def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
     attn_out, new_cache = attention.attend(p["attn"], xn, acfg,
                                            positions=positions, cache=cache,
                                            kv_block=kv_block, q_block=q_block)
-    h = h + attn_out
+    h = h + _scaled(attn_out, r)
     ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
                                  _norm(cfg, p["norm2"], h))
-    return h + ffn_out, aux, new_cache
+    return h + _scaled(ffn_out, r), aux, new_cache
 
 
 def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -269,7 +327,7 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         st = rwkv6.init_state(_rwkv_cfg(cfg), batch, device)
         return {"s": st["s"], "last": st["last"].to(dt),
                 "cm_last": st["cm_last"].to(dt)}
-    if kind == "mamba":
+    if kind in ("mamba", "mamba_ffn"):
         st = mamba2.init_state(_mamba_cfg(cfg), batch, device)
         return {"h": st["h"], "conv": st["conv"].to(dt)}
     acfg = _attn_cfg(cfg, kind)
@@ -321,8 +379,8 @@ def _chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor,
 
 
 class CausalLM:
-    """Dense, MoE, gemma2, VLM, RWKV-6 or zamba2 causal LM on ``device``
-    (default the card)."""
+    """Dense, MoE, gemma2, VLM, RWKV-6, zamba2 or Granite 4.0-H causal LM
+    on ``device`` (default the card)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         check_served(cfg)
@@ -400,7 +458,7 @@ class CausalLM:
         kv_block = cfg.kv_block if cfg.attn_impl == "blockwise" else None
         q_block = cfg.q_block or None
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        h = pctx.shard_batch(layers.embed(params["embed"], tokens))
+        h = pctx.shard_batch(self._embed(params, tokens))
         aux = 0.0
         for i, (kind, p) in enumerate(zip(self.kinds,
                                           self._layer_params(params))):
@@ -415,12 +473,19 @@ class CausalLM:
             aux = aux + a
         return _norm(cfg, params["final_norm"], h), aux
 
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return _scaled(layers.embed(params["embed"], tokens),
+                       self.cfg.embedding_multiplier)
+
     def unembed_logits(self, params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         logits = (layers.unembed(params["embed"], h) if cfg.tie_embeddings
                   else layers.dense(params["lm_head"], h))
         logits = pctx.shard_batch_tp(logits)  # vocab TP-sharded
         logits = logits.to(torch.float32)  # frees the bf16 logits
+        if cfg.logits_scaling != 1.0:   # in place on the f32 copy serving
+            logits = (logits / cfg.logits_scaling if logits.requires_grad
+                      else logits.div_(cfg.logits_scaling))
         cap = cfg.final_softcap
         if cap is None or logits.requires_grad:
             return layers.softcap(logits, cap)
@@ -464,7 +529,7 @@ class CausalLM:
         as they are; the RWKV and Mamba layers' states come back stepped.
         """
         pos = int(pos)
-        h = pctx.shard_batch(layers.embed(params["embed"], tokens))
+        h = pctx.shard_batch(self._embed(params, tokens))
         positions = pos + torch.arange(tokens.shape[1], device=h.device)
         new_layers = []
         for i, (kind, p, c) in enumerate(zip(
