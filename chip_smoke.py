@@ -28,8 +28,9 @@ prefill in K8), then rwkv6-7b (attention-free: no kernel launches) and
 zamba2-1.2b (Mamba-2 layers; its shared attention block in K8 while the
 prompt fits its window).  Last it trains: granite-moe-1b-a400m whole
 through ``repro_torch.launch.train`` (each MoE layer's dispatch count in
-K7 and its combine in K5 under autograd; attention on the plain path,
-since K8 has no backward), its restart from a checkpoint, one step each
+K7 and its combine in K5 under autograd; attention in K8's forward that
+keeps each row's log-sum-exp and in its backward kernels), its restart
+from a checkpoint, one step each
 of whisper-small and zamba2-1.2b, and the training batch's tokens as the
 embedding gradient's scatter through K6.  Last the multi-device paths
 run on one-rank meshes: the MoE layers' expert-parallel and
@@ -47,7 +48,8 @@ DTensor state.  Phases, each of which must pass:
    its routes; K8 also at the reference test's shapes, blocks and bounds,
    on its Hopper route at ragged T, and at every serving path's shapes,
    Whisper's non-causal encoder at T = 1500 among them, before any model
-   is on the card);
+   is on the card; K8's backward against autograd through the f32
+   attention, and twice bit-equal);
 3. drive each main path with every launch count set to 0 just before it
    and read just after: the histogram path as
    ``examples/torch_quickstart.py`` and the port's command line run it
@@ -73,8 +75,10 @@ DTensor state.  Phases, each of which must pass:
    then training (outside the counts first: K5 under autograd against
    its plain version forward and backward, every gradient leaf with K5
    against the plain combine, blockwise attention against dense; then
-   granite's steps, K5 and K7 held to twice a layer a step and K8 to 0,
-   the loss falling, one step profiled, the restart's replayed steps
+   granite's steps, K5, K7 and K8's forward held to twice a layer a step,
+   K8's backward to once and K8 without one to 0, the loss falling, one
+   step profiled (in it ``repro_attention_calls_total`` reads ``k8_grad``
+   twice a layer and ``sdpa`` 0), the restart's replayed steps
    against their first pass, whisper-small's and zamba2's step moving
    every leaf, and the Zipf and uniform token streams through
    ``Session.validate``), then the mesh: a one-rank NCCL group on the
@@ -87,11 +91,14 @@ DTensor state.  Phases, each of which must pass:
    granite whole with its train state as DTensors on the mesh: a step
    against the same step without one (xent within the spread that K5's
    atomic order gives repeated runs, and equal with a deterministic
-   combine; K5 = K7 = 48 and K8 0 a step; the seconds of each), and a
+   combine; K5 = K7 = K8's forward = 48 and its backward 24 a step; the
+   seconds of each), and a
    prefill (K8's launches equal, the argmax agreeing);
 4. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes, beside the least time the card could take
-   (K5 and K7 also on the MoE layers' live inputs).
+   (K5 and K7 also on the MoE layers' live inputs; K8's forward with the
+   LSE and its backward on the live train shapes of granite-moe and
+   qwen3-moe).
 
 The last line is the contract line ``{"ok": true, "device": {...}}``; the
 line before it lists every kernel with its launches and times.  Without
@@ -228,7 +235,20 @@ BLOCKWISE_TOL = 1e-5                 # blockwise against dense, f32
 # the embedding gradient's rows: the 49,155 ids of granite's vocab into
 # whole 4096-segment blocks, the scatter-add ops' rule
 EMBED_SEGMENTS = 13 * 4096
-TRAIN_KERNELS = ("scatter_add", "bincount", "scatter_add_instrumented")
+TRAIN_KERNELS = ("scatter_add", "bincount", "scatter_add_instrumented",
+                 "flash_attention_fwd", "flash_attention_bwd")
+# K8's backward against autograd through the f32 attention on the same
+# bf16 inputs: each gradient's relative Frobenius error within
+# FLASH_GRAD_TOL (four bf16 roundings of 2^-9: the gradient's own, P's and
+# dS's as product operands, and the output that D reads); (B, H, KV, T, d,
+# causal): ragged T, GQA groups 1 to 8, both head sizes, causal and not
+FLASH_GRAD_TOL = 2.0 ** -7
+FLASH_GRAD_SHAPES = ((2, 4, 2, 200, 64, True), (2, 4, 4, 129, 128, True),
+                     (1, 8, 1, 300, 64, False), (1, 8, 2, 2000, 128, True))
+# the backward's live train shapes: granite-moe's train cell (8 x 2048) and
+# qwen3-moe's attention at the prefill's 4 x 2048; (label, arch, B)
+FLASH_GRAD_LIVE = (("granite-moe train", TRAIN_ARCH, TRAIN_B),
+                   ("qwen3-moe", "qwen3-moe-235b-a22b", PREFILL_B))
 FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
 FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
 # bf16 beyond the reference test's T = 64, where a typical output is small
@@ -265,6 +285,11 @@ KERNELS = {
                  "src/repro/kernels/scatter_add/kernel.py:60"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:27"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:27"),
+    # the reference's kernel has no gradient: no TPU counterpart
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            None),
 }
 HIST_KERNELS = ("hist", "hist_instrumented", "hist_weighted")
 SCATTER_KERNELS = ("scatter_add", "scatter_add_instrumented", "bincount")
@@ -344,10 +369,11 @@ def _template_args(mangled: str) -> str:
                   r"scatter_rows_kernel|scatter_tiles_kernel|"
                   r"scatter_owned_kernel|scatter_instrumented_kernel|"
                   r"bincount_kernel|bincount_zero_kernel)(I?)", mangled)
-    flash = re.search(r"(flash_(?:f32|bf16|bf16_sm90)_kernel)ILi(\d+)E",
-                      mangled)
-    if flash:
-        return f"{flash.group(1)}<{flash.group(2)}>"
+    flash = re.search(r"(flash_(?:f32|bf16|bf16_sm90|bwd_prep|bwd_dq|bwd_dkdv)"
+                      r"_kernel)ILi(\d+)E(Lb1E)?", mangled)
+    if flash:   # the Hopper forward's instantiation that stores the LSE
+        return (f"{flash.group(1)}<{flash.group(2)}"
+                f"{',lse' if flash.group(3) else ''}>")
     if m is None:
         return mangled
     name, rest = m.group(1), mangled[m.end():]
@@ -831,6 +857,83 @@ def check_flash_kernel(dev) -> dict[str, float]:
                                                   seed=8), causal, None, None)
         torch.cuda.empty_cache()
     return {"flash_attention": worst}
+
+
+def _flash_grad_reference(q, k, v, dout, causal, group):
+    """(dq, dk, dv) by autograd through the f32 attention on the bf16
+    inputs, TF32 off (einsum in true f32)."""
+    import torch
+    b, h, t, d = q.shape
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    qg = leaves[0].reshape(b, h // group, group, t, d)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, leaves[1]) * d ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones((t, t), dtype=torch.bool,
+                                     device=q.device).triu(1), -2.0e38)
+    out = torch.einsum("bkgqt,bktd->bkgqd", torch.softmax(s, dim=-1),
+                       leaves[2]).reshape(b, h, t, d)
+    out.backward(dout.float())
+    return [x.grad for x in leaves]
+
+
+def check_flash_backward(dev) -> dict[str, float]:
+    """K8 under autograd at FLASH_GRAD_SHAPES and the live train shapes
+    (FLASH_GRAD_LIVE): ``flash_attention_fwd``'s output bit-equal to the
+    prefill's K8 (the same kernel without the LSE store) and its LSE
+    within 1e-4 of the plain version's; ``flash_attention_bwd``'s dq, dk
+    and dv within FLASH_GRAD_TOL relative Frobenius error of autograd
+    through the f32 attention, and a second run bit-equal (no atomics).
+    Returns the worst LSE error and the worst relative gradient error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = list(FLASH_GRAD_SHAPES)
+    for _, arch, b in FLASH_GRAD_LIVE:
+        cfg = _serve_config(arch=arch)
+        shapes.append((b, cfg.num_heads, cfg.num_kv_heads, TRAIN_T,
+                       cfg.resolved_head_dim, True))
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    for i, (b, h, kv, t, d, causal) in enumerate(shapes):
+        q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=20 + i)
+        dout = flash_case(b, h, h, t, d, torch.bfloat16, dev, seed=40 + i)[0]
+        group, scale = h // kv, d ** -0.5
+        with torch.no_grad():
+            prefill = fk.flash_attention_launch(q, k, v, causal=causal,
+                                                group=group)
+        out, lse = fk.flash_attention_fwd_op(q, k, v, causal, group, scale)
+        grads = fk.flash_attention_bwd_op(dout, q, k, v, out, lse, causal,
+                                          group, scale)
+        again = fk.flash_attention_bwd_op(dout, q, k, v, out, lse, causal,
+                                          group, scale)
+        torch.cuda.synchronize()
+        case = f"({b}, {h}/{kv}, {t}, {d}) causal={causal}"
+        _require(torch.equal(out, prefill),
+                 f"K8 with the LSE store differs from K8, {case}")
+        _require(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                 f"K8 backward not bit-equal across two runs, {case}")
+        want_lse = fk.attention_fwd_plain(q.float(), k.float(), v.float(),
+                                          causal=causal, group=group)[1]
+        lse_err = float((lse - want_lse).abs().max())
+        _require(lse_err <= 1e-4, f"K8 LSE vs plain, {case}: {lse_err}")
+        want = _flash_grad_reference(q, k, v, dout, causal, group)
+        rel = [float((g.float() - w).norm() / w.norm())
+               for g, w in zip(grads, want)]
+        _require(max(rel) <= FLASH_GRAD_TOL,
+                 f"K8 backward vs f32 autograd, {case}: dq, dk, dv "
+                 f"relative errors {rel} > {FLASH_GRAD_TOL}")
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"],
+                                           lse_err)
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           max(rel))
+        log(f"  K8 backward {case}: output bit-equal to K8's, LSE max |err| "
+            f"{lse_err:.3g}; dq, dk, dv relative errors "
+            f"{', '.join(f'{r:.4g}' for r in rel)} (bound "
+            f"{FLASH_GRAD_TOL}); two runs bit-equal")
+        del q, k, v, dout, prefill, out, lse, grads, again, want
+        torch.cuda.empty_cache()
+    return worst
 
 
 def scaled_bf16_check(got, want, q, k, v, causal, group, case) -> str:
@@ -2208,16 +2311,18 @@ MOE_PROFILE_PARTS = {
 }
 
 
-# a train step's device time by part, by the kernels' names: K5, K7, K8;
-# the backward of the MoE's bf16 row gathers (PyTorch's sort-based index
-# backward); cuBLAS's bf16 GEMMs; the f32 GEMMs of ``_sdpa``'s einsums
-# (TF32 off); the softmax forward and backward
+# a train step's device time by part, by the kernels' names: K5, K7, K8
+# and its backward; the backward of the MoE's bf16 row gathers (PyTorch's
+# sort-based index backward); cuBLAS's bf16 GEMMs; f32 GEMMs (TF32 off:
+# the router's, and ``_sdpa``'s einsums where attention takes that route);
+# the softmax forward and backward
 TRAIN_PROFILE_PARTS = {
     **{k: MOE_PROFILE_PARTS[k] for k in ("K5 combine", "K7 dispatch count",
                                          "K8 attention")},
+    "K8 backward": ("kernel", ("flash_bwd_",)),
     "index backward": ("kernel", ("indexing_backward_kernel",)),
     "bf16 GEMMs": ("kernel", ("nvjet", "gemm_bf16")),
-    "f32 GEMMs (attention)": ("kernel", ("gemm_f32f32",)),
+    "f32 GEMMs": ("kernel", ("gemm_f32f32",)),
     "softmax": ("kernel", ("softmax", "SoftMax")),
 }
 
@@ -3347,9 +3452,9 @@ def train_reckoning(cfg, state_bytes: dict) -> dict:
     each layer's bf16 input, kept for the recompute; one layer's
     recompute, the MoE's (the expert-sorted rows and the (E, C, d) buffer,
     bf16; the three (E, C, f) products and the expert output; the f32
-    combine values) or the attention's f32 scores three at a time
-    (scores, probabilities and their gradient), whichever is larger; and
-    the head's logits (bf16, their f32 copy and its gradient).
+    combine values; attention keeps no scores: K8's backward recomputes
+    them a tile at a time); and the head's logits (bf16, their f32 copy
+    and its gradient).
     ``state_bytes``: the parameters' and the optimizer state's bytes."""
     n_tok = TRAIN_B * TRAIN_T
     p_bytes, opt_bytes = state_bytes["params"], state_bytes["opt"]
@@ -3359,8 +3464,7 @@ def train_reckoning(cfg, state_bytes: dict) -> dict:
     moe = (rows * cfg.d_model * 2 + slots * cfg.d_model * 2
            + 3 * slots * cfg.d_expert * 2 + slots * cfg.d_model * 2
            + rows * cfg.d_model * 4)
-    scores = 3 * TRAIN_B * cfg.num_heads * TRAIN_T * TRAIN_T * 4
-    act = (cfg.num_layers * n_tok * cfg.d_model * 2 + max(moe, scores)
+    act = (cfg.num_layers * n_tok * cfg.d_model * 2 + moe
            + n_tok * cfg.padded_vocab * (2 + 4 + 4))
     return {"state": p_bytes + opt_bytes, "transients": 2 * p_bytes,
             "activations": act,
@@ -3371,19 +3475,25 @@ def train_whole(dev, tmp: Path) -> dict:
     """granite-moe-1b-a400m whole at every published width: bf16
     parameters with an f32 master, TRAIN_STEPS steps of TRAIN_B x TRAIN_T
     tokens through ``launch.train.main`` in-process, no checkpoints.  Each
-    step's launches (K5 and K7 twice a layer: forward and recompute; K8
-    never), seconds and xent; one step profiled; the peak memory beside
-    the reckoning; K7's counts of the first step against
-    ``bincount_plain`` (``check_train_dispatch``).  ``launch.train``
-    raises where the loss did not fall."""
+    step's launches (K5, K7 and K8's forward twice a layer: forward and
+    recompute; K8's backward once; K8 without a gradient never), seconds
+    and xent; one step profiled, in which ``repro_attention_calls_total``
+    counts ``k8_grad`` twice a layer and microbatch and ``sdpa`` and
+    ``k8`` never; the peak memory beside the reckoning; K7's counts of the
+    first step against ``bincount_plain`` (``check_train_dispatch``).
+    ``launch.train`` raises where the loss did not fall."""
     import torch
 
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention
+    from repro_torch.train import step as train_mod
 
     cfg = _serve_config(arch=TRAIN_ARCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    routes = ("k8", "k8_grad", "sdpa")
+    calls_before = {r: attention.CALLS.value(route=r) for r in routes}
     with recording_train(TRAIN_PROFILE_STEP, TRAIN_PROFILE_PARTS) as rec, \
             recording_dispatch(2 * cfg.num_layers) as dispatched:
         hist = launch_train.main([
@@ -3397,10 +3507,21 @@ def train_whole(dev, tmp: Path) -> dict:
     reckoned = train_reckoning(cfg, rec["bytes"])
     xent = [h["xent"] for h in hist]
     per_layer = 2 * cfg.num_layers
-    want = {"bincount": per_layer, "scatter_add": per_layer}
+    want = {"bincount": per_layer, "scatter_add": per_layer,
+            "flash_attention_fwd": per_layer,
+            "flash_attention_bwd": cfg.num_layers}
     _require(all(n == want for n in rec["launches"]),
              f"train step launches {rec['launches']}, expected {want} "
-             f"each (K8 0)")
+             f"each (K8 without a gradient 0)")
+    # the profiled step alone counts calls (``telemetry.tracing``)
+    calls = {r: attention.CALLS.value(route=r) - calls_before[r]
+             for r in routes}
+    micro = train_mod.TrainConfig().accum_steps   # launch.train's --accum 1
+    _require(calls == {"k8": 0, "k8_grad": 2 * cfg.num_layers * micro,
+                       "sdpa": 0},
+             f"attention calls by route in the profiled step {calls}, "
+             f"expected k8_grad {2 * cfg.num_layers * micro} (forward and "
+             f"recompute, {cfg.num_layers} layers, {micro} microbatches)")
     _require(all(np.isfinite(xent)) and xent[-1] < xent[0],
              f"xent {xent}")
     # the first step warms up, the profiled one carries the profiler
@@ -3411,6 +3532,7 @@ def train_whole(dev, tmp: Path) -> dict:
            "step_seconds": rec["seconds"], "median_step_s": steady,
            "tokens_per_s": TRAIN_B * TRAIN_T / steady,
            "launches_per_step": rec["launches"][0],
+           "attention_calls_profiled_step": calls,
            "peak_memory_bytes": peak, "reckoning": reckoned,
            "profile": rec["profile"]}
     log(f"  {TRAIN_ARCH} whole: {cfg.num_layers} layers, d_model "
@@ -3419,7 +3541,9 @@ def train_whole(dev, tmp: Path) -> dict:
         f"{TRAIN_B} x {TRAIN_T} tokens a step, remat {cfg.remat}")
     log(f"  memory: reckoned (bytes) {reckoned}; peak {peak} "
         f"({peak / 1e9:.2f} GB)")
-    log(f"  launches a step (every step): {rec['launches'][0]} (K8 0)")
+    log(f"  launches a step (every step): {rec['launches'][0]} (K8 without "
+        f"a gradient 0); attention calls by route in the profiled step "
+        f"{calls}")
     log(f"  {k7}")
     log(f"  xent by step: {', '.join(f'{x:.4f}' for x in xent)}")
     log(f"  step seconds: {', '.join(f'{s:.3f}' for s in rec['seconds'])}; "
@@ -3486,9 +3610,10 @@ def train_one_step(dev, arch: str, b: int, t: int) -> dict:
     """One train step of ``arch`` whole at every published width, bf16
     with an f32 master, on ``make_batch``'s b x t tokens (and stub): the
     xent and grad norm finite, every leaf moved (its f32 master no longer
-    the bf16 parameter it started from), K8 never launched.  The
-    constant SSM leaves take their SSM_LEAVES ramps first, as in
-    serving."""
+    the bf16 parameter it started from), K8 without a gradient never
+    launched (the self-attention that fits its route takes K8's forward
+    and backward).  The constant SSM leaves take their SSM_LEAVES ramps
+    first, as in serving."""
     import torch
 
     from repro_torch import tree
@@ -3645,7 +3770,8 @@ MESH_XENT_DET = 1e-6
 # MESH_XENT_DET of the mean |logit|
 MESH_TOP1 = 0.9
 MESH_STEPS = 2                       # each way: the second is timed warm
-MESH_KERNELS = ("flash_attention", "bincount", "scatter_add")
+MESH_KERNELS = ("flash_attention", "bincount", "scatter_add",
+                "flash_attention_fwd", "flash_attention_bwd")
 
 
 def _bf16_close(got, want, what: str) -> dict:
@@ -3829,7 +3955,8 @@ def mesh_train_and_prefill(dev, mesh) -> dict:
     PREFILL_B x PREFILL_T unmeshed and on the mesh.  The first step's
     xent within MESH_XENT_SPREAD (and, outside the counts, the forward
     loss with the plain combine in deterministic mode within
-    MESH_XENT_DET), K5 = K7 = 2 a layer and K8 0 a step on both, each
+    MESH_XENT_DET), K5 = K7 = K8's forward = 2 a layer and K8's backward
+    1 a layer a step on both, each
     step's seconds (the second of each: DTensor's host cost),
     the peak memory beside the reckoning; the prefill's K8 launches equal
     and its logits' argmax agreeing at MESH_TOP1 of the positions (with
@@ -3856,7 +3983,9 @@ def mesh_train_and_prefill(dev, mesh) -> dict:
     ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
     step = train_mod.make_train_step(model, train_mod.TrainConfig(), ocfg)
     per_layer = {"bincount": 2 * cfg.num_layers,
-                 "scatter_add": 2 * cfg.num_layers}
+                 "scatter_add": 2 * cfg.num_layers,
+                 "flash_attention_fwd": 2 * cfg.num_layers,
+                 "flash_attention_bwd": cfg.num_layers}
     out = {}
     for name in ("unmeshed", "meshed"):
         torch.cuda.empty_cache()
@@ -3896,7 +4025,7 @@ def mesh_train_and_prefill(dev, mesh) -> dict:
         del state, metrics
         _require(all(r["launches"] == per_layer for r in rows),
                  f"{name} step launches {[r['launches'] for r in rows]}, "
-                 f"expected {per_layer} (K8 0)")
+                 f"expected {per_layer}")
         out[name] = {"steps": rows, "peak_memory_bytes": peak,
                      "reckoning": train_reckoning(cfg, state_bytes)}
         xents = ", ".join(repr(r["xent"]) for r in rows)
@@ -3906,7 +4035,7 @@ def mesh_train_and_prefill(dev, mesh) -> dict:
                if name == "meshed" else "")
             + f": {TRAIN_B} x {TRAIN_T} tokens a step; xent {xents}; "
             f"seconds {secs}; launches a "
-            f"step {rows[0]['launches']} (K8 0); peak {peak} bytes against "
+            f"step {rows[0]['launches']}; peak {peak} bytes against "
             f"{out[name]['reckoning']['total']} reckoned")
     gap = abs(out["meshed"]["steps"][0]["xent"]
               - out["unmeshed"]["steps"][0]["xent"])
@@ -4428,6 +4557,64 @@ def time_flash_kernel(dev) -> dict:
     return {"flash_attention": out}
 
 
+def time_flash_backward(dev) -> dict:
+    """K8 under autograd at its live train shapes (FLASH_GRAD_LIVE, causal
+    at T = TRAIN_T): the forward with the LSE store beside the prefill's
+    K8, and the backward's three launches as one call.  Bounds: the
+    useful products over the causal half, 4 B H T (T + 1) / 2 d flop
+    forward and 8 B H T (T + 1) / 2 d backward (dV, dP, dQ, dK; the
+    scores' recompute is not counted), at the dense bf16 rate; bytes: q,
+    k, v, the output (and its gradient) read once, the gradients written
+    once.  The plain version is ``attention_bwd_plain``'s f32 math."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+    for label, arch, b in FLASH_GRAD_LIVE:
+        cfg = _serve_config(arch=arch)
+        h, kv, d, t = (cfg.num_heads, cfg.num_kv_heads,
+                       cfg.resolved_head_dim, TRAIN_T)
+        q, k, v = flash_case(b, h, kv, t, d, torch.bfloat16, dev, seed=6)
+        dout = flash_case(b, h, h, t, d, torch.bfloat16, dev, seed=7)[0]
+        group, scale = h // kv, d ** -0.5
+        o, lse = fk.flash_attention_fwd_op(q, k, v, True, group, scale)
+        pairs = t * (t + 1) / 2
+        io = (q.numel() * 2 + k.numel() * 2) * 2     # q, o; k, v
+        case = f"{label} {b}x{h}/{kv}x{t}x{d} bf16 causal"
+        fwd_bound, fwd_by = bound(io, 4.0 * b * h * d * pairs,
+                                  BF16_OPS_PER_S)
+        fwd = {
+            "ms": time_ms(lambda: fk.flash_attention_fwd_op(
+                q, k, v, True, group, scale), reps=25),
+            "plain_ms": time_ms(lambda: fk.attention_fwd_plain(
+                q, k, v, group=group), reps=3, warmup=1),
+            "library_ms": time_ms(lambda: fk.flash_attention_launch(
+                q, k, v, group=group), reps=25),
+            "bound_ms": fwd_bound, "bound_by": fwd_by}
+        bwd_bound, bwd_by = bound(io * 2 + q.numel() * 2,
+                                  8.0 * b * h * d * pairs, BF16_OPS_PER_S)
+        bwd = {
+            "ms": time_ms(lambda: fk.flash_attention_bwd_op(
+                dout, q, k, v, o, lse, True, group, scale), reps=25),
+            "plain_ms": time_ms(lambda: fk.attention_bwd_plain(
+                dout, q, k, v, o, lse, group=group), reps=3, warmup=1),
+            "library_ms": None,
+            "bound_ms": bwd_bound, "bound_by": bwd_by}
+        _log_row("flash_attention_fwd", case, fwd)
+        _log_row("flash_attention_bwd", case, bwd)
+        log(f"  K8 under autograd ({cfg.name}): forward with the LSE "
+            f"{fwd['ms']:.4f} ms against K8's {fwd['library_ms']:.4f} (the "
+            f"library column), {fwd_bound / fwd['ms']:.3f} of its bound; "
+            f"backward {bwd['ms']:.4f} ms, {bwd_bound / bwd['ms']:.3f} of "
+            f"its bound {bwd_bound:.4f} ms")
+        out["flash_attention_fwd"][case] = fwd
+        out["flash_attention_bwd"][case] = bwd
+        del q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -4478,7 +4665,8 @@ def main() -> int:
                          f"{func} spills registers: {line.strip()}")
     for d in (64, 128):
         log(f"  flash_bf16_sm90_kernel<{d}>: {fk.shared_memory_bytes(d)} "
-            f"bytes of dynamic shared memory a block")
+            f"bytes of dynamic shared memory a block; the backward's dK/dV "
+            f"and dQ kernels {fk.backward_shared_memory_bytes(d)}")
     sass = {}
     for lib in sorted(logs):
         sass.update(sass_atomics(_build.library_path(lib)))
@@ -4520,15 +4708,23 @@ def main() -> int:
                      f"{func} compiled to tensor-core ops {ops}")
         elif name == "flash_bf16_kernel":
             _require("HMMA.16816.F32.BF16" in ops, f"{func}: SASS {ops}")
-        elif name == "flash_bf16_sm90_kernel":
+        elif name in ("flash_bf16_sm90_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkdv_kernel"):
             _require(any(op.startswith("HGMMA") and "F32.BF16" in op
                          for op in ops)
                      and any(op.startswith("UTMALDG") for op in ops),
                      f"{func}: SASS {ops}")
+        # the backward adds no float atomics: its gradients are stored once
+        if name.startswith("flash_bwd_"):
+            _require(not any(op.startswith(("ATOM", "RED")) for op in ops),
+                     f"{func}: atomics in {ops}")
         routes[name] = routes.get(name, 0) + 1
-    _require(all(routes[r] == n for r, n in (
+    # the Hopper forward twice a head size: without and with the LSE store
+    _require(all(routes.get(r) == n for r, n in (
         ("flash_f32_kernel", 4), ("flash_bf16_kernel", 2),
-        ("flash_bf16_sm90_kernel", 2))), f"K8 instantiations {routes}")
+        ("flash_bf16_sm90_kernel", 4), ("flash_bwd_prep_kernel", 2),
+        ("flash_bwd_dq_kernel", 2), ("flash_bwd_dkdv_kernel", 2))),
+             f"K8 instantiations {routes}")
 
     t0 = phase("kernels against their plain versions")
     err = check_kernels(dev, [(MAIN_PX, 4)] + [(n, 4) for n in PAD_PX]
@@ -4536,9 +4732,10 @@ def main() -> int:
     err.update(check_scatter_kernels(dev))
     check_adversarial(dev, err)
     err.update(check_flash_kernel(dev))
+    err.update(check_flash_backward(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s; max |err| {err}")
 
-    launches = {}
+    launches = {k: 0 for k in KERNELS}
     by_path = {k: {} for k in KERNELS}   # each path's own launches
     with tempfile.TemporaryDirectory() as tmp:
         tables = Path(tmp) / "tables"
@@ -4731,6 +4928,7 @@ def main() -> int:
     times.update(time_scatter_kernels(dev, live))
     del live
     times.update(time_flash_kernel(dev))
+    times.update(time_flash_backward(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s")
 
     heads = {
@@ -4751,6 +4949,13 @@ def main() -> int:
         f"bf16, causal; launches over {serving['layers']}-layer prefills "
         f"(bf16 T={PREFILL_T} and T={RAGGED_T}) and the f32 "
         f"{F32_CHECK_LAYERS}-layer check")
+    tcfg = _serve_config(arch=TRAIN_ARCH)
+    grad_case = (f"granite-moe train {TRAIN_B}x{tcfg.num_heads}/"
+                 f"{tcfg.num_kv_heads}x{TRAIN_T}x{tcfg.resolved_head_dim} "
+                 f"bf16 causal")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        heads[name] = (grad_case, f"{grad_case}; launches over the training "
+                                  f"and mesh paths' steps")
     heads["hist_instrumented"] = heads["hist_weighted"] = heads["hist"]
     heads["scatter_add_instrumented"] = heads["scatter_add"]
     # K1 has no launch of its own: it is a device function that K3 and K6

@@ -20,6 +20,11 @@
 //     and a ragged last tile masks its out-of-range keys like causal ones,
 //     so T need not be a whole number of tiles.
 //
+// The bf16 Hopper route also has a backward, further down, with no TPU
+// counterpart: its forward instantiation with kLse stores each row's
+// log-sum-exp (repro_flash_attention_lse), and three launches give dq, dk
+// and dv from it (repro_flash_attention_bwd).
+//
 // Three routes, picked by dtype and head size, none a fallback of another:
 //   * f32 inputs: CUDA-core FMA in true f32 (no TF32), q scaled by d^-0.5
 //     in f32 before QK^T as in the reference.  A block takes 16 query rows
@@ -653,12 +658,15 @@ __device__ __forceinline__ void to_a_fragments(const float (&sc)[N], uint32_t (&
 // q, o: (B, H, T, D); k, v: (B, H / group, T, D); tq, tk, tv map q, k and v
 // as (B H, T, D) and (B H / group, T, D) in boxes of 64 columns by 128 rows
 // (q) and by a tile's keys (k, v).
-template <int D>
+// kLse: also store each row's log-sum-exp of its scaled scores, f32 (B, H, T)
+// at lse, for the backward; the prefill's instantiation has no such store.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     flash_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                           int heads, int group, int t, int causal, float scale) {
+                           float* __restrict__ lse, int heads, int group, int t, int causal,
+                           float scale) {
   using L = Sm90Layout<D>;
   constexpr int kKeys = L::kKeys;
   constexpr int kPV = kKeys / 16;                // k-steps of P V
@@ -807,6 +815,432 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         *reinterpret_cast<uint32_t*>(oh + (size_t)row1 * D + col) =
             pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
     }
+    if constexpr (kLse) {
+      // m is the raw max and l the sum of exp(scale (s - m)): the log of
+      // the row's sum of exp(scale s) is scale m + log l (l >= 1)
+      if (tig == 0) {
+        float* lh = lse + (size_t)q_head * t;
+        if (row0 < t) lh[row0] = fmaf(sm.m0, scale, logf(sm.l0));
+        if (row1 < t) lh[row1] = fmaf(sm.m1, scale, logf(sm.l1));
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------------------
+// The backward of the bf16 route at d = 64 and 128.  It has no TPU
+// counterpart: the reference's kernel has no gradient.  FlashAttention-2's
+// deterministic design, on this file's TMA loads and wgmma helpers, in three
+// launches:
+//   * flash_bwd_prep_kernel: each query row's D = rowsum(dO o O) in f32 and
+//     its LSE times log2(e), into a scratch whose rows are padded to kBwdPad
+//     with zeros, so that the kernels below copy whole aligned runs of them;
+//   * flash_bwd_dkdv_kernel: a block to each (batch, KV head, 128 keys), a
+//     warpgroup to 64 keys.  It loops over the group's query heads and the
+//     64-query tiles the causal mask leaves it, and for each recomputes
+//     S^T = K Q^T, P^T = exp(scale S^T - LSE), dP^T = V dO^T and
+//     dS^T = P^T o (dP^T - D), and adds dV += P^T dO and dK += dS^T Q in
+//     registers.  The GQA sum stays inside the block; dK and dV are stored
+//     once;
+//   * flash_bwd_dq_kernel: a block to each (batch, query head, 128 queries),
+//     a warpgroup to 64, looping over the 64-key tiles: S = Q K^T,
+//     dP = dO V^T, dS as above, dQ += dS K, stored once.
+// No atomics: two runs give equal gradients.  With the keys (dK/dV) or the
+// queries (dQ) as wgmma's M, every product has one of the forward's two
+// forms: S-like, both operands K-major in shared memory; or O-like, the bf16
+// A operand packed from an f32 accumulator in registers and B MN-major in
+// shared memory.  Products take bf16 operands and sum in f32; dP and dS stay
+// f32 until dS is packed to bf16 as an A operand, as P is for P V.
+// Bound on an H100: operations.  The products are 8 B H T^2 d flop (half of
+// it causal) against about 12 B H T d bytes read and written, far above the
+// card's 295 flop a byte.  The first design reaches 0.16 of that bound at
+// granite-moe's train shape (8 x 16/8 x 2048 x 64) and 0.18 at qwen3-moe's
+// (4 x 64/4 x 2048 x 128): a warpgroup's products wait for its own
+// elementwise work between them, and only the other warpgroup fills the
+// tensor cores meanwhile.  Issuing the next tile's S and dP before this
+// tile's dV and dK (FA3's pipelining) is the next step.
+// A block is 256 threads, both warpgroups computing, and its thread 0 also
+// issues the TMA loads into a ring of stages: the 255 registers a thread of
+// a 256-thread block may hold fit dK and dV at d = 128 beside S^T and dP^T,
+// where a producer warpgroup would leave the consumers 168.
+// -------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;                 // two warpgroups
+constexpr int kBwdKeys = 128;                    // dK/dV: keys a block, 64 a warpgroup
+constexpr int kBwdQ = 64;                        // dK/dV: queries a tile
+constexpr int kBwdRows = 128;                    // dQ: queries a block, 64 a warpgroup
+constexpr int kBwdKV = 64;                       // dQ: keys a tile
+constexpr int kBwdPad = 128;                     // scratch rows padded to this
+
+template <int D>
+struct BwdLayout {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  // dK/dV: K and V of the block (128 rows); each stage's Q and dO tiles (64
+  // rows each); each stage's 64 LSE and 64 D values
+  static constexpr int kKVTile = kBwdKeys * D * 2;
+  static constexpr int kQTile = kBwdQ * D * 2;
+  static constexpr int kQAux = 2 * kBwdQ * 4;
+  static constexpr int kDkdvSmem =
+      1024 + 2 * kKVTile + kStages * (2 * kQTile + kQAux) + 8 * (1 + 2 * kStages);
+  // dQ: Q and dO of the block (128 rows) and their 128 LSE and D values;
+  // each stage's K and V tiles (64 rows each)
+  static constexpr int kRowTile = kBwdRows * D * 2;
+  static constexpr int kRowAux = 2 * kBwdRows * 4;
+  static constexpr int kKTile = kBwdKV * D * 2;
+  static constexpr int kDqSmem =
+      1024 + 2 * kRowTile + kRowAux + kStages * 2 * kKTile + 8 * (1 + 2 * kStages);
+};
+
+// `bytes` of global memory at src into shared memory at dst, a 1-D bulk copy
+// (both 16-byte aligned, bytes a multiple of 16) reporting to bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// acc (64 x N) = A B^T over d = D, both K-major: A 64 rows of a tile at a
+// whose boxes are a_rows rows, B a tile at b whose boxes are b_rows rows
+template <int D, int N>
+__device__ __forceinline__ void ss_product(float (&acc)[N], uint32_t a, int a_rows, uint32_t b,
+                                           int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {           // a box per 4 steps, 32 bytes a step
+    const uint32_t step = (kk % 4) * 32;
+    wgmma_ss(acc, sw128_desc(a + (kk / 4) * a_rows * 128 + step, 16),
+             sw128_desc(b + (kk / 4) * b_rows * 128 + step, 16), kk > 0);
+  }
+}
+
+// acc (64 x D) += A (64 x 64, bf16 fragments) B, B the first 64 rows of a
+// tile at b, MN-major, whose 64-column boxes are b_rows rows
+template <int N>
+__device__ __forceinline__ void rs_product(float (&acc)[N], const uint32_t (&a)[4][4], uint32_t b,
+                                           int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], sw128_desc(b + kk * 2048, b_rows * 128));
+}
+
+// o, dout: (B H, t, D) bf16; lse: (B H, t).  lse2 = lse log2(e) and dsum = D,
+// each (B H, t_pad) with zeros past t; a warp to a row.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          float* __restrict__ lse2, float* __restrict__ dsum, int t, int t_pad,
+                          int rows) {
+  const int row = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32);
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int bh = row / t_pad, r = row % t_pad;
+  float acc = 0.0f, l2 = 0.0f;
+  if (r < t) {
+    const size_t off = ((size_t)bh * t + r) * D;
+#pragma unroll
+    for (int c = 2 * lane; c < D; c += 64) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off + c));
+      const float2 b =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off + c));
+      acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+    }
+    acc = warp_sum(acc);
+    l2 = lse[(size_t)bh * t + r] * 1.4426950408889634f;
+  }
+  if (lane == 0) {
+    lse2[row] = l2;
+    dsum[row] = acc;
+  }
+}
+
+// dk, dv: (B, H / group, T, D).  tq, tdo map q and dO as (B H, T, D) in
+// boxes of 64 columns by kBwdQ rows; tk, tv map k and v as (B H / group, T,
+// D) by kBwdKeys rows.  lse2, dsum: flash_bwd_prep_kernel's.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse2,
+                          const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int heads, int group, int t, int t_pad,
+                          int causal, float scale) {
+  using L = BwdLayout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + L::kKVTile;
+  const uint32_t st_s = v_s + L::kKVTile;        // stage s: Q at st_s + 2 s tile, then dO
+  const uint32_t aux_s = st_s + 2 * kStages * L::kQTile;  // stage s: 64 LSE, then 64 D
+  const uint32_t kv_full = aux_s + kStages * L::kQAux;
+  const uint32_t full = kv_full + 8, empty = full + 8 * kStages;
+  const float* aux = reinterpret_cast<const float*>(smem_raw + (aux_s - raw));
+
+  const int kv_heads = heads / group;
+  const int k0 = blockIdx.x * kBwdKeys;          // causal: the longest blocks first
+  const int kv_head = blockIdx.z * kv_heads + blockIdx.y;
+  const int j0 = causal ? k0 / kBwdQ : 0;        // the first query tile that sees a key
+  const int per_head = (t + kBwdQ - 1) / kBwdQ - j0;
+  const int n_it = group * per_head;             // (query head, query tile) pairs
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBwdThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0: the loads of iteration i into its stage
+  const auto issue = [&](int i) {
+    const int s = i % kStages;
+    const int q_head = blockIdx.z * heads + blockIdx.y * group + i / per_head;
+    const int q0 = (j0 + i % per_head) * kBwdQ;
+    const uint32_t qs = st_s + 2 * s * L::kQTile, dos = qs + L::kQTile;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * L::kQTile + L::kQAux);
+    for (int c = 0; c < L::kBoxes; ++c) {
+      tma_load(qs + c * kBwdQ * 128, &tq, bar, c * kBoxCols, q0, q_head);
+      tma_load(dos + c * kBwdQ * 128, &tdo, bar, c * kBoxCols, q0, q_head);
+    }
+    const size_t row = (size_t)q_head * t_pad + q0;
+    bulk_load(aux_s + s * L::kQAux, lse2 + row, kBwdQ * 4, bar);
+    bulk_load(aux_s + s * L::kQAux + kBwdQ * 4, dsum + row, kBwdQ * 4, bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * L::kKVTile);
+    for (int c = 0; c < L::kBoxes; ++c) {
+      tma_load(k_s + c * kBwdKeys * 128, &tk, kv_full, c * kBoxCols, k0, kv_head);
+      tma_load(v_s + c * kBwdKeys * 128, &tv, kv_full, c * kBoxCols, k0, kv_head);
+    }
+    for (int i = 0; i < min(kStages, n_it); ++i) issue(i);
+  }
+  __syncwarp();
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;        // accumulator fragment coordinates
+  const int first = k0 + wg * 64;                // this warpgroup's keys
+  const int key0 = first + warp * 16 + g, key1 = key0 + 8;
+  const uint32_t k_wg = k_s + wg * 64 * 128, v_wg = v_s + wg * 64 * 128;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  // dk_acc, dv_acc[4 n + e]: column 8 n + 2 tig + (e & 1) of key0 (e < 2) or
+  // key1; st, dpt[4 n + e]: query 8 n + 2 tig + (e & 1) of the tile, the same keys
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  mbar_wait(kv_full, 0);
+  __syncwarp();
+
+  for (int i = 0; i < n_it; ++i) {
+    const int s = i % kStages;
+    const int q0 = (j0 + i % per_head) * kBwdQ;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    __syncwarp();
+    // causal: a tile whose every query precedes this warpgroup's keys adds nothing
+    if (!(causal && q0 + kBwdQ <= first)) {
+      const uint32_t qs = st_s + 2 * s * L::kQTile, dos = qs + L::kQTile;
+      float st[kBwdQ / 2], dpt[kBwdQ / 2];
+      wgmma_fence();
+      ss_product<D>(st, k_wg, kBwdKeys, qs, kBwdQ);
+      ss_product<D>(dpt, v_wg, kBwdKeys, dos, kBwdQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(st);
+      hold(dpt);
+      const float* la = aux + s * (2 * kBwdQ);
+      const float* da = la + kBwdQ;
+      const bool masked = q0 + kBwdQ > t || (causal && q0 < first + 64);
+#pragma unroll
+      for (int j = 0; j < kBwdQ / 2; ++j) {
+        const int col = (j / 4) * 8 + tig * 2 + (j & 1);
+        float p = ex2(fmaf(st[j], scale_log2, -la[col]));
+        if (masked) {
+          const int qi = q0 + col, key = (j & 2) ? key1 : key0;
+          if (qi >= t || (causal && key > qi)) p = 0.0f;
+        }
+        st[j] = p;
+        dpt[j] = p * (dpt[j] - da[col]);
+      }
+      uint32_t pf[kBwdQ / 16][4], dsf[kBwdQ / 16][4];
+      to_a_fragments(st, pf);
+      to_a_fragments(dpt, dsf);
+      hold(dv_acc);
+      hold(dk_acc);
+      wgmma_fence();
+      rs_product(dv_acc, pf, dos, kBwdQ);
+      rs_product(dk_acc, dsf, qs, kBwdQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dv_acc);
+      hold(dk_acc);
+    }
+    mbar_arrive(empty + 8 * s);
+    if (threadIdx.x == 0 && i + kStages < n_it) {
+      mbar_wait(empty + 8 * s, (i / kStages) & 1);
+      issue(i + kStages);
+    }
+    __syncwarp();
+  }
+
+  __nv_bfloat16* dkh = dk + (size_t)kv_head * t * D;
+  __nv_bfloat16* dvh = dv + (size_t)kv_head * t * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + tig * 2;
+    if (key0 < t) {
+      *reinterpret_cast<uint32_t*>(dkh + (size_t)key0 * D + col) =
+          pack_bf16(dk_acc[4 * n] * scale, dk_acc[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvh + (size_t)key0 * D + col) =
+          pack_bf16(dv_acc[4 * n], dv_acc[4 * n + 1]);
+    }
+    if (key1 < t) {
+      *reinterpret_cast<uint32_t*>(dkh + (size_t)key1 * D + col) =
+          pack_bf16(dk_acc[4 * n + 2] * scale, dk_acc[4 * n + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dvh + (size_t)key1 * D + col) =
+          pack_bf16(dv_acc[4 * n + 2], dv_acc[4 * n + 3]);
+    }
+  }
+}
+
+// dq: (B, H, T, D).  tq, tdo map q and dO by kBwdRows rows; tk, tv map k and
+// v by kBwdKV rows.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse2,
+                        const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int heads,
+                        int group, int t, int t_pad, int causal, float scale) {
+  using L = BwdLayout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + L::kRowTile;
+  const uint32_t aux_s = do_s + L::kRowTile;     // 128 LSE, then 128 D
+  const uint32_t st_s = aux_s + L::kRowAux;      // stage s: K at st_s + 2 s tile, then V
+  const uint32_t q_full = st_s + 2 * kStages * L::kKTile;
+  const uint32_t full = q_full + 8, empty = full + 8 * kStages;
+  const float* aux = reinterpret_cast<const float*>(smem_raw + (aux_s - raw));
+
+  const int n_tiles_q = (t + kBwdRows - 1) / kBwdRows;
+  const int q0 = (n_tiles_q - 1 - blockIdx.x) * kBwdRows;  // longest first
+  const int q_head = blockIdx.z * heads + blockIdx.y;
+  const int kv_head = blockIdx.z * (heads / group) + blockIdx.y / group;
+  const int kv_end = causal ? min(q0 + kBwdRows, t) : t;
+  const int n_kv = (kv_end + kBwdKV - 1) / kBwdKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBwdThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0: key tile i into its stage
+  const auto issue = [&](int i) {
+    const int s = i % kStages;
+    const uint32_t ks = st_s + 2 * s * L::kKTile, vs = ks + L::kKTile;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * L::kKTile);
+    for (int c = 0; c < L::kBoxes; ++c) {
+      tma_load(ks + c * kBwdKV * 128, &tk, bar, c * kBoxCols, i * kBwdKV, kv_head);
+      tma_load(vs + c * kBwdKV * 128, &tv, bar, c * kBoxCols, i * kBwdKV, kv_head);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * L::kRowTile + L::kRowAux);
+    for (int c = 0; c < L::kBoxes; ++c) {
+      tma_load(q_s + c * kBwdRows * 128, &tq, q_full, c * kBoxCols, q0, q_head);
+      tma_load(do_s + c * kBwdRows * 128, &tdo, q_full, c * kBoxCols, q0, q_head);
+    }
+    const size_t row = (size_t)q_head * t_pad + q0;
+    bulk_load(aux_s, lse2 + row, kBwdRows * 4, q_full);
+    bulk_load(aux_s + kBwdRows * 4, dsum + row, kBwdRows * 4, q_full);
+    for (int i = 0; i < min(kStages, n_kv); ++i) issue(i);
+  }
+  __syncwarp();
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int first = q0 + wg * 64;                // this warpgroup's queries
+  const int row0 = first + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t q_wg = q_s + wg * 64 * 128, do_wg = do_s + wg * 64 * 128;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  mbar_wait(q_full, 0);
+  __syncwarp();
+  const float l0 = aux[row0 - q0], l1 = aux[row1 - q0];
+  const float d0 = aux[kBwdRows + row0 - q0], d1 = aux[kBwdRows + row1 - q0];
+  // dq_acc[4 n + e]: column 8 n + 2 tig + (e & 1) of row0 (e < 2) or row1;
+  // sc, dp[4 n + e]: key 8 n + 2 tig + (e & 1) of the tile, the same rows
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+
+  for (int i = 0; i < n_kv; ++i) {
+    const int s = i % kStages, kv0 = i * kBwdKV;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    __syncwarp();
+    // causal: a tile whose every key follows this warpgroup's queries adds nothing
+    if (!(causal && kv0 > first + 63)) {
+      const uint32_t ks = st_s + 2 * s * L::kKTile, vs = ks + L::kKTile;
+      float sc[kBwdKV / 2], dp[kBwdKV / 2];
+      wgmma_fence();
+      ss_product<D>(sc, q_wg, kBwdRows, ks, kBwdKV);
+      ss_product<D>(dp, do_wg, kBwdRows, vs, kBwdKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(sc);
+      hold(dp);
+      const bool masked = kv0 + kBwdKV > t || (causal && kv0 + kBwdKV - 1 > first);
+#pragma unroll
+      for (int j = 0; j < kBwdKV / 2; ++j) {
+        const bool hi = j & 2;
+        float p = ex2(fmaf(sc[j], scale_log2, -(hi ? l1 : l0)));
+        if (masked) {
+          const int key = kv0 + (j / 4) * 8 + tig * 2 + (j & 1);
+          if (key >= t || (causal && key > (hi ? row1 : row0))) p = 0.0f;
+        }
+        dp[j] = p * (dp[j] - (hi ? d1 : d0));
+      }
+      uint32_t dsf[kBwdKV / 16][4];
+      to_a_fragments(dp, dsf);
+      hold(dq_acc);
+      wgmma_fence();
+      rs_product(dq_acc, dsf, ks, kBwdKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dq_acc);
+    }
+    mbar_arrive(empty + 8 * s);
+    if (threadIdx.x == 0 && i + kStages < n_kv) {
+      mbar_wait(empty + 8 * s, (i / kStages) & 1);
+      issue(i + kStages);
+    }
+    __syncwarp();
+  }
+
+  __nv_bfloat16* dqh = dq + (size_t)q_head * t * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + tig * 2;
+    if (row0 < t)
+      *reinterpret_cast<uint32_t*>(dqh + (size_t)row0 * D + col) =
+          pack_bf16(dq_acc[4 * n] * scale, dq_acc[4 * n + 1] * scale);
+    if (row1 < t)
+      *reinterpret_cast<uint32_t*>(dqh + (size_t)row1 * D + col) =
+          pack_bf16(dq_acc[4 * n + 2] * scale, dq_acc[4 * n + 3] * scale);
   }
 }
 
@@ -849,11 +1283,11 @@ bool encode_map(CUtensorMap* map, const void* ptr, int d, int t, int heads, int 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch_sm90(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-                int group, int t, int causal, float scale, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                int heads, int group, int t, int causal, float scale, cudaStream_t stream) {
   using L = Sm90Layout<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_sm90_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_sm90_kernel<D, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
@@ -862,8 +1296,55 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int batch,
       !encode_map(&tv, v, D, t, batch * (heads / group), L::kKeys))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((t + kSm90Rows - 1) / kSm90Rows, heads, batch);
-  flash_bf16_sm90_kernel<D><<<grid, kSm90Threads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), heads, group, t, causal, scale);
+  flash_bf16_sm90_kernel<D, kLse><<<grid, kSm90Threads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, heads, group, t, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// the backward's three launches on one stream; scratch holds 2 B H t_pad f32
+// (lse2, then dsum), t_pad = t rounded up to kBwdPad
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dq, void* dk, void* dv, float* scratch, int batch,
+               int heads, int group, int t, int causal, float scale, cudaStream_t stream) {
+  using L = BwdLayout<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::kDkdvSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int q_heads = batch * heads, kv_heads = batch * (heads / group);
+  CUtensorMap tq_dkdv, tdo_dkdv, tk_dkdv, tv_dkdv, tq_dq, tdo_dq, tk_dq, tv_dq;
+  if (!encode_map(&tq_dkdv, q, D, t, q_heads, kBwdQ) ||
+      !encode_map(&tdo_dkdv, dout, D, t, q_heads, kBwdQ) ||
+      !encode_map(&tk_dkdv, k, D, t, kv_heads, kBwdKeys) ||
+      !encode_map(&tv_dkdv, v, D, t, kv_heads, kBwdKeys) ||
+      !encode_map(&tq_dq, q, D, t, q_heads, kBwdRows) ||
+      !encode_map(&tdo_dq, dout, D, t, q_heads, kBwdRows) ||
+      !encode_map(&tk_dq, k, D, t, kv_heads, kBwdKV) ||
+      !encode_map(&tv_dq, v, D, t, kv_heads, kBwdKV))
+    return (int)cudaErrorInvalidValue;
+  const int t_pad = (t + kBwdPad - 1) / kBwdPad * kBwdPad;
+  const int rows = q_heads * t_pad;
+  float* lse2 = scratch;
+  float* dsum = scratch + (size_t)rows;
+  flash_bwd_prep_kernel<D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, lse2,
+      dsum, t, t_pad, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<D><<<dim3((t + kBwdRows - 1) / kBwdRows, heads, batch), kBwdThreads,
+                           L::kDqSmem, stream>>>(tq_dq, tk_dq, tv_dq, tdo_dq, lse2, dsum,
+                                                 static_cast<__nv_bfloat16*>(dq), heads, group,
+                                                 t, t_pad, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_kernel<D><<<dim3((t + kBwdKeys - 1) / kBwdKeys, heads / group, batch),
+                             kBwdThreads, L::kDkdvSmem, stream>>>(
+      tq_dkdv, tk_dkdv, tv_dkdv, tdo_dkdv, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), heads, group, t, t_pad, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -876,7 +1357,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), heads, group, t, causal, scale);
   } else if constexpr (D == 64 || D == 128) {
-    return launch_sm90<D>(q, k, v, o, batch, heads, group, t, causal, scale, stream);
+    return launch_sm90<D, false>(q, k, v, o, nullptr, batch, heads, group, t, causal, scale,
+                                 stream);
   } else {
     const dim3 grid((t + kMmaRows - 1) / kMmaRows, heads, batch);
     flash_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
@@ -913,6 +1395,59 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o, 
       return launch<128>(q, k, v, o, batch, heads, group, t, dtype, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K8's bf16 Hopper route (d = 64 or 128) as repro_flash_attention runs it,
+// also storing each query row's f32 log-sum-exp of its scaled scores at lse,
+// (batch, heads, t): the forward the backward below needs.
+int repro_flash_attention_lse(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int batch, int heads, int group, int t, int d, int causal,
+                              float scale, void* stream) {
+  if (group < 1 || heads % group != 0 || t < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch_sm90<64, true>(q, k, v, o, lse, batch, heads, group, t, causal, scale, s);
+    case 128:
+      return launch_sm90<128, true>(q, k, v, o, lse, batch, heads, group, t, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The gradients dq (batch, heads, t, d) and dk, dv (batch, heads / group, t,
+// d) of that forward, from its q, k, v, output o and lse and the output's
+// gradient dout; all bf16 but lse, contiguous, 16-byte aligned, d 64 or
+// 128.  scratch: 2 batch heads t_pad f32, t_pad = t rounded up to 128.
+int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                              float* scratch, int batch, int heads, int group, int t, int d,
+                              int causal, float scale, void* stream) {
+  if (group < 1 || heads % group != 0 || t < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch_bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, scratch, batch, heads, group, t,
+                            causal, scale, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, scratch, batch, heads, group, t,
+                             causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bytes of dynamic shared memory a block of the backward's dK/dV kernel
+// (kernel 0) or dQ kernel (kernel 1) takes at head size d (64 or 128)
+int repro_flash_attention_bwd_smem(int d, int kernel) {
+  switch (d) {
+    case 64:
+      return kernel ? BwdLayout<64>::kDqSmem : BwdLayout<64>::kDkdvSmem;
+    case 128:
+      return kernel ? BwdLayout<128>::kDqSmem : BwdLayout<128>::kDkdvSmem;
+    default:
+      return 0;
   }
 }
 

@@ -22,6 +22,19 @@ runs the kernel for CUDA tensors and the plain version for CPU tensors;
 it never falls back from one to the other.  Neither has a
 backward: an input that requires grad, with grad mode on, is refused, as
 the reference's kernel has no gradient either.
+
+Under autograd, the bf16 Hopper route (d = 64 and 128) has a backward of
+its own, with no TPU counterpart: ``repro_torch::flash_attention_fwd``
+runs that route's kernel and also stores each query row's log-sum-exp of
+its scaled scores (f32, (B, H, T)), and ``repro_torch::flash_attention_bwd``
+recomputes the scores tile by tile from it to give dq, dk and dv (three
+launches: D = rowsum(dO o O), then dQ, then dK and dV with the GQA sum
+inside a block; no atomics, so two runs give equal gradients).
+``register_autograd`` ties the two; ``flash_attention_autograd`` is the
+model's call.  Their CPU implementations are the plain versions' f32
+math, their fake ones give shapes, and their FLOP formulas count the
+forward's full products, 4·B·H·T²·d, and the backward's, 8·B·H·T²·d, as
+PyTorch counts ``scaled_dot_product_attention`` and its backward.
 """
 
 from __future__ import annotations
@@ -38,15 +51,25 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -2.0e38
+# the head sizes of the bf16 Hopper route, which alone has a backward
+GRAD_HEAD_DIMS = (64, 128)
+# the backward's scratch rows a head are T rounded up to this (kBwdPad)
+BWD_PAD = 128
 
-# kernel launches since the last reset_launches()
-LAUNCHES = {"flash_attention": 0}
+# kernel launches since the last reset_launches(): K8 without a gradient;
+# the forward that keeps the LSE; the backward (its three kernels, one call)
+LAUNCHES = {"flash_attention": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
     "repro_flash_attention_smem": [_I],
+    "repro_flash_attention_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, _P],
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
+    "repro_flash_attention_bwd_smem": [_I, _I],
 }
 
 
@@ -64,6 +87,15 @@ def shared_memory_bytes(head_dim: int) -> int:
     ``head_dim`` (0 where that route uses static shared memory only);
     builds the library."""
     return _lib().repro_flash_attention_smem(head_dim)
+
+
+def backward_shared_memory_bytes(head_dim: int) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's dK/dV kernel
+    and of its dQ kernel at ``head_dim`` (64 or 128); builds the
+    library."""
+    lib = _lib()
+    return (lib.repro_flash_attention_bwd_smem(head_dim, 0),
+            lib.repro_flash_attention_bwd_smem(head_dim, 1))
 
 
 # query rows a block of each route takes (csrc/flash_attention.cu:
@@ -111,6 +143,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     updating its scores in place to hold the memory to one f32 copy of
     them.
     """
+    return attention_fwd_plain(q, k, v, causal=causal, group=group,
+                               scale=scale)[0]
+
+
+def _scores(q, k, causal, group, scale):
+    """The (B, H / group, group, T, T) f32 scores times ``scale`` (default
+    d ** -0.5), masked with ``NEG_INF`` where causal."""
     b, h, t, d = q.shape
     qg = q.to(torch.float32).reshape(b, h // group, group, t, d)
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.to(torch.float32))
@@ -118,10 +157,52 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         above = torch.ones((t, t), dtype=torch.bool, device=q.device).triu_(1)
         s.masked_fill_(above, NEG_INF)
-    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-    s.div_(s.sum(dim=-1, keepdim=True))
+    return s
+
+
+def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, group: int = 1,
+                        scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_plain``'s output, and each query row's log-sum-exp of
+    its scaled, masked scores, f32 (B, H, T): the forward the backward
+    needs."""
+    b, h, t, d = q.shape
+    s = _scores(q, k, causal, group, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    s.sub_(m).exp_()
+    total = s.sum(dim=-1, keepdim=True)
+    s.div_(total)
     out = torch.einsum("bkgqt,bktd->bkgqd", s, v.to(torch.float32))
-    return out.reshape(b, h, t, d).to(q.dtype)
+    lse = (m + total.log()).reshape(b, h, t)
+    return out.reshape(b, h, t, d).to(q.dtype), lse
+
+
+def attention_bwd_plain(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, group: int = 1,
+                        scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk and dv of ``attention_fwd_plain`` from its output ``out`` and
+    ``lse``, in f32: P = exp(scale S - LSE), dV = Pᵀ dO, dP = dO Vᵀ,
+    dS = P ∘ (dP - D) with D = rowsum(dO ∘ O), dQ = scale dS K and
+    dK = scale dSᵀ Q, each KV head's summed over its group; each in its
+    input's dtype."""
+    b, h, t, d = q.shape
+    sc = d ** -0.5 if scale is None else scale
+    shape = (b, h // group, group, t, d)
+    p = _scores(q, k, causal, group, scale)
+    p.sub_(lse.reshape(*shape[:4], 1)).exp_()
+    do = dout.to(torch.float32).reshape(shape)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, do)
+    dp = torch.einsum("bkgqd,bktd->bkgqt", do, v.to(torch.float32))
+    dsum = (do * out.to(torch.float32).reshape(shape)).sum(-1, keepdim=True)
+    ds = p.mul_(dp.sub_(dsum))
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.to(torch.float32)) * sc
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds,
+                      q.to(torch.float32).reshape(shape)) * sc
+    return (dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,6 +212,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("flash_attention has no backward: call it under "
                            "torch.no_grad() or on tensors that do not "
                            "require grad")
+    _check_shapes(q, k, v, group)
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  group: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected (B, H, T, d) q and (B, KV, T, d) k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -154,17 +240,22 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_plain(q, k, v, causal=causal, group=group, **scaled)
 
 
+def _check_cuda(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in (q, *tensors)):
+        raise ValueError("q, k and v must be contiguous and 16-byte aligned")
+    b, h, t, _ = q.shape
+    if t < 1 or h > 65535 or b > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} outside the kernel's grid")
+
+
 @flash_attention_op.register_kernel("cuda")
 def _flash_attention_cuda(q, k, v, causal, group, scale=None):
     b, h, t, d = q.shape
     if q.dtype not in DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes f32 or bf16 with head_dim in "
                          f"{HEAD_DIMS}, got {q.dtype} and {d}")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
-               for x in (q, k, v)):
-        raise ValueError("q, k and v must be contiguous and 16-byte aligned")
-    if t < 1 or h > 65535 or b > 65535:
-        raise ValueError(f"shape {tuple(q.shape)} outside the kernel's grid")
+    _check_cuda(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -188,6 +279,146 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
     ``scaled_dot_product_attention``: a causal mask does not halve it."""
     b, h, t, d = q_shape
     return 4 * b * h * t * k_shape[2] * d
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool, group: int, scale: float
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's forward under autograd: (B, H, T, d) attention and each query
+    row's f32 log-sum-exp, (B, H, T)."""
+    return attention_fwd_plain(q, k, v, causal=causal, group=group,
+                               scale=scale)
+
+
+def _check_grad_route(q: torch.Tensor) -> None:
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in GRAD_HEAD_DIMS:
+        raise ValueError(f"the backward takes bf16 with head_dim in "
+                         f"{GRAD_HEAD_DIMS}, got {q.dtype} and "
+                         f"{q.shape[-1]}")
+
+
+@flash_attention_fwd_op.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, causal, group, scale):
+    b, h, t, d = q.shape
+    _check_grad_route(q)
+    _check_cuda(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.raise_on_error(_lib().repro_flash_attention_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, group, t, d, int(causal), scale, stream),
+            "flash_attention_fwd")
+    _build.count_launch(LAUNCHES, "flash_attention_fwd")
+    return out, lse
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, group, scale):
+    b, h, t, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, t), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_attention_fwd_flops(q_shape, k_shape, v_shape, *args,
+                               **kwargs) -> int:
+    """K8's: the full products, 4·B·H·T²·d."""
+    b, h, t, d = q_shape
+    return 4 * b * h * t * k_shape[2] * d
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_bwd_op(dout: torch.Tensor, q: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, lse: torch.Tensor, causal: bool,
+                           group: int, scale: float
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The gradients dq, dk and dv of ``flash_attention_fwd`` from its
+    inputs, its output and LSE, and the output's gradient."""
+    return attention_bwd_plain(dout, q, k, v, out, lse, causal=causal,
+                               group=group, scale=scale)
+
+
+@flash_attention_bwd_op.register_kernel("cuda")
+def _flash_attention_bwd_cuda(dout, q, k, v, out, lse, causal, group, scale):
+    b, h, t, d = q.shape
+    _check_grad_route(q)
+    if not (dout.dtype == out.dtype == q.dtype and lse.dtype == torch.float32
+            and dout.shape == out.shape == q.shape
+            and lse.shape == (b, h, t)):
+        raise ValueError("dout and out must be q's shape and dtype, lse "
+                         "(B, H, T) f32")
+    _check_cuda(q, k, v, dout, out, lse)
+    t_pad = -(-t // BWD_PAD) * BWD_PAD
+    if b * h * t_pad >= 2 ** 31:      # the scratch's rows are C ints
+        raise ValueError(f"shape {tuple(q.shape)}: {b * h * t_pad} query "
+                         f"rows, the backward takes fewer than 2^31")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    scratch = torch.empty(2 * b * h * t_pad, dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.raise_on_error(_lib().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch.data_ptr(), b, h, group, t, d,
+            int(causal), scale, stream), "flash_attention_bwd")
+    _build.count_launch(LAUNCHES, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+@flash_attention_bwd_op.register_fake
+def _flash_attention_bwd_fake(dout, q, k, v, out, lse, causal, group, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_attention_bwd_flops(dout_shape, q_shape, k_shape, *args,
+                               **kwargs) -> int:
+    """The backward's products, 8·B·H·T²·d (dV, dP, dQ and dK), as PyTorch
+    counts the backward of ``scaled_dot_product_attention``; the scores'
+    recompute is not counted."""
+    b, h, t, d = q_shape
+    return 8 * b * h * t * k_shape[2] * d
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, group, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.group, ctx.scale = causal, group, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd_op(dout.contiguous(), q, k, v, out, lse,
+                                        ctx.causal, ctx.group, ctx.scale)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("repro_torch::flash_attention_fwd",
+                                _fwd_backward,
+                                setup_context=_fwd_setup_context)
+
+
+def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             group: int = 1,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """K8 where autograd differentiates through it: (B, H, T, d) attention
+    of q over (B, H / group, T, d) k and v by ``flash_attention_fwd``,
+    whose backward is ``flash_attention_bwd``.  The bf16 Hopper route's
+    inputs only (bf16, head_dim 64 or 128) on the card; the plain
+    versions on the CPU."""
+    _check_shapes(q, k, v, group)
+    sc = q.shape[-1] ** -0.5 if scale is None else scale
+    return flash_attention_fwd_op(q, k, v, causal, group, sc)[0]
 
 
 def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

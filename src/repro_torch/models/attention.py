@@ -17,11 +17,18 @@ kernel K8 (``flash_route``), and so does a windowed layer's over a
 sequence that fits inside its window (zamba2's shared attention), where
 the band masks nothing; everything else — decode against the cache,
 longer windows, softcaps, cross-attention — runs the plain ``_sdpa``, as
-in the reference, and ``kv_block`` takes the blockwise path.  K8 has no
-backward (the reference's kernel has none either), so where autograd
-would differentiate through the attention (grad enabled and q, k or v
-requiring it) the route is the plain one too.  The route is decided from
-the config and the arguments before K8 is launched.
+in the reference, and ``kv_block`` takes the blockwise path.  Where
+autograd would differentiate through the attention (grad enabled and q,
+k or v requiring it), K8 runs only where its bf16 Hopper route has a
+backward (bf16 inputs, head_dim 64 or 128): its forward keeps each row's
+log-sum-exp and a backward kernel recomputes the scores tile by tile
+(``flash_attention_autograd``; the reference's kernel has no gradient,
+so this route has no counterpart there).  Other dtypes and head sizes
+under grad run the plain ``_sdpa``.  The route is decided from the
+config and the arguments before K8 is launched.  While the profiler
+records, ``repro_attention_calls_total`` (``CALLS``) counts the calls by
+route: ``k8``, ``k8_grad`` or ``sdpa`` (the plain path, blockwise
+included), a host integer.
 """
 
 from __future__ import annotations
@@ -38,6 +45,12 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 
 NEG_INF = -2.0e38
+# in a registry of its own: the process's (``telemetry.REGISTRY``) holds
+# the reference's metric names, and the MoE's rows counter, alone
+CALLS = telemetry.MetricsRegistry().counter(
+    "repro_attention_calls_total", "attention calls by route: k8 (K8 "
+    "without a gradient), k8_grad (K8 with its backward) or sdpa (the "
+    "plain path), counted while profiling", ("route",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,20 +190,23 @@ def _sdpa_blockwise_2d(q, k, v, q_pos, k_pos, causal, window, softcap_val,
 
 def flash_route(cfg: AttnConfig, *, positions=None, kv_x=None,
                 kv_positions=None, cache=None, kv_block=None,
-                t: Optional[int] = None, grad: bool = False) -> bool:
+                t: Optional[int] = None, grad: bool = False,
+                dtype: Optional[torch.dtype] = None) -> bool:
     """True where ``attend`` runs K8: self-attention, causal or not, over
     positions 0..T-1 with no cache, softcap, bf16 score round trip or
     blockwise path, and no window unless the sequence length ``t`` fits
     inside it (causal over 0..T-1 with T <= window, the band ``k > q -
-    window`` masks nothing), where autograd will not differentiate
-    through it (``grad``: grad enabled and q, k or v requiring it; K8 is
-    forward-only).  A head size the kernel does not take raises there; it
-    does not send the prefill to ``_sdpa``."""
+    window`` masks nothing).  Where autograd will differentiate through
+    it (``grad``: grad enabled and q, k or v requiring it), only where
+    the inputs' ``dtype`` is bf16 and ``head_dim`` 64 or 128, the Hopper
+    route that has a backward.  A head size the kernel does not take
+    raises there; it does not send the prefill to ``_sdpa``."""
     return (kv_x is None and cache is None and kv_block is None
             and positions is None and kv_positions is None
             and (cfg.window is None or (t is not None and t <= cfg.window))
             and cfg.logit_softcap is None and not cfg.bf16_score_grad
-            and not grad)
+            and (not grad or (dtype == torch.bfloat16 and cfg.head_dim
+                              in flash_kernel.GRAD_HEAD_DIMS)))
 
 
 @telemetry.span("attention")
@@ -219,14 +235,17 @@ def attend(
     scale = cfg.head_dim ** -0.5 if cfg.scale is None else cfg.scale
     src = x if kv_x is None else kv_x
     # autograd differentiates through q, k and v where any of their
-    # sources requires grad: then K8, forward-only, is not the route
+    # sources requires grad: then K8 runs with its backward, where it has one
     grad = torch.is_grad_enabled() and any(
         z.requires_grad for z in (x, src, *params["wq"].values(),
                                   *params["wk"].values(),
                                   *params["wv"].values()))
     use_flash = flash_route(cfg, positions=positions, kv_x=kv_x,
                             kv_positions=kv_positions, cache=cache,
-                            kv_block=kv_block, t=t, grad=grad)
+                            kv_block=kv_block, t=t, grad=grad, dtype=x.dtype)
+    if telemetry.tracing():
+        CALLS.inc(route=("k8_grad" if grad else "k8") if use_flash
+                  else "sdpa")
 
     tp = pctx.shard_batch_tp
     q = _split_heads(tp(layers.dense(params["wq"], x)), cfg.num_heads,
@@ -286,6 +305,10 @@ def attend(
     g = cfg.num_heads // kv_heads
 
     def core(q, k, v):
+        if use_flash and grad:
+            return flash_kernel.flash_attention_autograd(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=cfg.causal, group=g, scale=scale)
         if use_flash:
             # K8 at the real T: the kernel masks a ragged last tile itself
             # the launch as it was before ``scale``, where it has none

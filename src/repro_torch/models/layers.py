@@ -9,11 +9,13 @@ numbers, so tests carry the reference's parameters across instead
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor
 
 from repro_torch.parallel import collectives as coll
@@ -134,17 +136,29 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 # -- rotary position embeddings --------------------------------------------
 
 
+def _rope_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    freq = theta ** (-np.arange(0, half) * 2.0 / head_dim)
+    return torch.as_tensor(freq, dtype=torch.float32, device=device)
+
+
+_cached_rope_freq = functools.lru_cache(maxsize=None)(_rope_freq)
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for given positions; (..., head_dim/2), f32.
 
     The frequencies are computed in float64 by numpy and used in f32, as
     the reference does with 64-bit mode off: a float64 tensor here would
-    promote the whole rotation to float64.
+    promote the whole rotation to float64.  On the card they are copied
+    there once per head size, theta and device: a copy from pageable host
+    memory on every call would wait for the card's queue to drain.
     """
-    half = head_dim // 2
-    freq = theta ** (-np.arange(0, half) * 2.0 / head_dim)
-    freq = torch.as_tensor(freq, dtype=torch.float32, device=positions.device)
+    if positions.is_cuda and not is_fake(positions):
+        freq = _cached_rope_freq(head_dim, float(theta), positions.device)
+    else:
+        freq = _rope_freq(head_dim, theta, positions.device)
     ang = positions[..., None].to(torch.float32) * freq
     return torch.cos(ang), torch.sin(ang)
 

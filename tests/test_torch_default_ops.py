@@ -4,8 +4,10 @@ qwen3-moe configurations, at a reduced size on meta tensors, run each
 aten and ``repro_torch`` operation as many times as before those fields
 existed (the counts below were read at that commit, by the same code):
 no multiplier, softmax scale, norm epsilon or shared expert adds one.
-The granite case under grad is the train cell's forward (the plain
-attention in place of K8)."""
+The granite case under grad is the train cell's forward at these widths,
+whose head_dim 16 keeps attention under grad on the plain path (the
+cell's own 64 takes K8's forward with its backward:
+``tests/test_torch_flash_grad.py``)."""
 
 import collections
 import json

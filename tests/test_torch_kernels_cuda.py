@@ -15,6 +15,12 @@ reference's own bounds (``tests/test_kernels_flash.py``): 2e-4 in f32,
 0.03 at T = 2048), so there each element is held within 1.6e-2 |out| (two
 bf16 ulps) plus 2^-8 sum_j p_j |v_j| (twice the worst error of rounding P
 to bf16 for P V), and the mean |err| within 2^-8 of the mean |out|.
+K8's backward (bf16 in and out) is held to autograd through the f32
+attention on the same inputs by each gradient's relative Frobenius error,
+within 2^-7: four bf16 roundings of at most 2^-9 each, the gradient's
+own, P's and dS's as product operands, and the output O that D = rowsum(dO
+o O) reads (the materialised bf16 backward reads 0.0023-0.0024 at these
+shapes, the kernel 0.0023-0.0028, on the card).
 """
 
 import numpy as np
@@ -581,6 +587,130 @@ def test_prefill_attention_refuses_a_head_size_the_kernel_lacks(cuda):
     with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
         attention.attend(params, x, cfg)
     assert fk.LAUNCHES["flash_attention"] == before
+
+
+def _grad_reference(q, k, v, dout, causal, group):
+    """out and (dq, dk, dv) by autograd through the f32 attention on the
+    bf16 inputs."""
+    b, h, t, d = q.shape
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    qg = leaves[0].reshape(b, h // group, group, t, d)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, leaves[1]) * d ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones((t, t), dtype=torch.bool,
+                                     device=q.device).triu(1), -2.0e38)
+    out = torch.einsum("bkgqt,bktd->bkgqd", torch.softmax(s, dim=-1),
+                       leaves[2]).reshape(b, h, t, d)
+    out.backward(dout.float())
+    return out.detach(), [x.grad for x in leaves]
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want).norm() / want.norm())
+
+
+# the live train shapes (granite-moe, qwen3-moe), then ragged T, GQA groups
+# 1 to 8, causal and not
+GRAD_SHAPES = [(8, 16, 8, 2048, 64, True), (4, 64, 4, 2048, 128, True),
+               (2, 4, 2, 200, 64, True), (2, 4, 4, 129, 128, True),
+               (1, 8, 1, 300, 64, False), (1, 4, 1, 1000, 128, False),
+               (1, 8, 2, 2000, 128, True), (2, 16, 8, 256, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,t,d,causal", GRAD_SHAPES)
+def test_flash_backward_matches_f32_autograd(cuda, b, h, kv, t, d, causal):
+    """``flash_attention_fwd`` and ``flash_attention_bwd`` on the card: the
+    output bit-equal to the prefill's K8 (the same kernel without the LSE
+    store), the LSE within 1e-4 of the plain version's (ex2.approx), and
+    dq, dk, dv each within 2^-7 relative Frobenius error of f32 autograd
+    (module docstring); one launch of each."""
+    q, k, v, dout = _qkv(b, h, kv, t, d, torch.bfloat16, cuda, seed=t) + \
+        _qkv(b, h, kv, t, d, torch.bfloat16, cuda, seed=t + 1)[:1]
+    group, scale = h // kv, d ** -0.5
+    before = dict(fk.LAUNCHES)
+    with torch.no_grad():
+        prefill = fk.flash_attention_launch(q, k, v, causal=causal,
+                                            group=group)
+    out, lse = fk.flash_attention_fwd_op(q, k, v, causal, group, scale)
+    grads = fk.flash_attention_bwd_op(dout, q, k, v, out, lse, causal, group,
+                                      scale)
+    torch.cuda.synchronize()
+    assert {n: fk.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, "flash_attention_fwd": 1,
+        "flash_attention_bwd": 1}
+    assert torch.equal(out, prefill)
+    _, want_lse = fk.attention_fwd_plain(q.float(), k.float(), v.float(),
+                                         causal=causal, group=group)
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    _, want = _grad_reference(q, k, v, dout, causal, group)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert bool(torch.isfinite(got).all()), name
+        assert _rel_err(got, ref) <= 2.0 ** -7, (name, _rel_err(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,t,d", [(8, 16, 8, 2048, 64),
+                                        (4, 64, 4, 2048, 128),
+                                        (2, 8, 2, 333, 64)])
+def test_flash_backward_is_deterministic(cuda, b, h, kv, t, d):
+    """No float atomics: two runs of the backward give bit-equal dq, dk
+    and dv."""
+    q, k, v, dout = _qkv(b, h, kv, t, d, torch.bfloat16, cuda, seed=3) + \
+        _qkv(b, h, kv, t, d, torch.bfloat16, cuda, seed=4)[:1]
+    out, lse = fk.flash_attention_fwd_op(q, k, v, True, h // kv, d ** -0.5)
+    first = fk.flash_attention_bwd_op(dout, q, k, v, out, lse, True, h // kv,
+                                      d ** -0.5)
+    second = fk.flash_attention_bwd_op(dout, q, k, v, out, lse, True,
+                                       h // kv, d ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_one_query_row_has_no_query_or_key_gradient(cuda):
+    """At T = 1 every softmax is over one key, so dq and dk are 0 in exact
+    arithmetic: the kernel's are within f32 rounding of dP - D."""
+    q, k, v, dout = _qkv(2, 8, 1, 1, 128, torch.bfloat16, cuda, seed=2) + \
+        _qkv(2, 8, 1, 1, 128, torch.bfloat16, cuda, seed=5)[:1]
+    out, lse = fk.flash_attention_fwd_op(q, k, v, True, 8, 128 ** -0.5)
+    dq, dk, dv = fk.flash_attention_bwd_op(dout, q, k, v, out, lse, True, 8,
+                                           128 ** -0.5)
+    assert float(dq.float().abs().max()) <= 1e-3
+    assert float(dk.float().abs().max()) <= 1e-3
+    _, want = _grad_reference(q, k, v, dout, True, 8)
+    assert _rel_err(dv, want[2]) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(1, 4, 2, 64, 32, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_fwd_op(q, k, v, True, 2, 0.125)
+    q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        fk.flash_attention_fwd_op(q, k, v, True, 2, 0.125)
+
+
+@pytest.mark.cuda
+def test_attend_under_grad_runs_the_backward_kernels(cuda):
+    """A bf16 layer at head_dim 64 under grad: one forward launch with the
+    LSE and one backward launch, no K8 without it, gradients finite."""
+    cfg = attention.AttnConfig(d_model=256, num_heads=4, num_kv_heads=2,
+                               head_dim=64)
+    params = attention.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    for leaf in (x for p in params.values() for x in p.values()):
+        leaf.requires_grad_()
+    x = torch.randn((2, 300, 256), device=cuda).to(torch.bfloat16)
+    before = dict(fk.LAUNCHES)
+    out, _ = attention.attend(params, x, cfg)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: fk.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 0, "flash_attention_fwd": 1,
+        "flash_attention_bwd": 1}
+    assert all(bool(torch.isfinite(x.grad).all())
+               for p in params.values() for x in p.values())
 
 
 @pytest.mark.cuda
