@@ -428,6 +428,4 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``repro_torch::flash_attention``), the scores times ``scale``
     (default d ** -0.5)."""
     _check(q, k, v, group)
-    # where there is no ``scale``, the call as it was before it
-    scaled = () if scale is None else (scale,)
-    return flash_attention_op(q, k, v, causal, group, *scaled)
+    return flash_attention_op(q, k, v, causal, group, scale)

@@ -25,10 +25,7 @@ log-sum-exp and a backward kernel recomputes the scores tile by tile
 (``flash_attention_autograd``; the reference's kernel has no gradient,
 so this route has no counterpart there).  Other dtypes and head sizes
 under grad run the plain ``_sdpa``.  The route is decided from the
-config and the arguments before K8 is launched.  While the profiler
-records, ``repro_attention_calls_total`` (``CALLS``) counts the calls by
-route: ``k8``, ``k8_grad`` or ``sdpa`` (the plain path, blockwise
-included), a host integer.
+config and the arguments before K8 is launched.
 """
 
 from __future__ import annotations
@@ -45,12 +42,6 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx as pctx
 
 NEG_INF = -2.0e38
-# in a registry of its own: the process's (``telemetry.REGISTRY``) holds
-# the reference's metric names, and the MoE's rows counter, alone
-CALLS = telemetry.MetricsRegistry().counter(
-    "repro_attention_calls_total", "attention calls by route: k8 (K8 "
-    "without a gradient), k8_grad (K8 with its backward) or sdpa (the "
-    "plain path), counted while profiling", ("route",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,9 +234,6 @@ def attend(
     use_flash = flash_route(cfg, positions=positions, kv_x=kv_x,
                             kv_positions=kv_positions, cache=cache,
                             kv_block=kv_block, t=t, grad=grad, dtype=x.dtype)
-    if telemetry.tracing():
-        CALLS.inc(route=("k8_grad" if grad else "k8") if use_flash
-                  else "sdpa")
 
     tp = pctx.shard_batch_tp
     q = _split_heads(tp(layers.dense(params["wq"], x)), cfg.num_heads,
@@ -311,11 +299,9 @@ def attend(
                 causal=cfg.causal, group=g, scale=scale)
         if use_flash:
             # K8 at the real T: the kernel masks a ragged last tile itself
-            # the launch as it was before ``scale``, where it has none
-            scaled = {} if cfg.scale is None else {"scale": cfg.scale}
             return flash_kernel.flash_attention_launch(
                 q.contiguous(), k.contiguous(), v.contiguous(),
-                causal=cfg.causal, group=g, **scaled)
+                causal=cfg.causal, group=g, scale=cfg.scale)
         bl, hl = q.shape[:2]
         qg = q.reshape(bl, hl // g, g, t, cfg.head_dim)
         causal = cfg.causal and kv_x is None

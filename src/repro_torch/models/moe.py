@@ -13,7 +13,9 @@ The reference's ``apply_local`` (``repro/models/moe.py``), the layer its
      capacity depends on that order;
   3. counts the rows of each expert with K7 (``bincount_launch``): the
      paper's histogram, on live router output (a collapsed router is its
-     solid image, a balanced one its uniform image);
+     solid image, a balanced one its uniform image); each row's slot
+     follows from the counts (``slot_map``, which the EP body's send and
+     receive buffers use too);
   4. writes each expert's first ``capacity`` rows into an (E, C, d)
      buffer and runs one batched product per projection (plain large
      products, left to cuBLAS as the reference leaves them to XLA); the
@@ -37,15 +39,16 @@ clamped slot would, one row after another).
 Every launcher runs its plain version for CPU tensors, so the layer runs
 on the device its inputs lie on.
 
-The layer's stages are ``telemetry`` spans, profiler ranges while the
-profiler records: ``moe.route`` (step 1), ``moe.dispatch`` (the sort,
-the gather of x, K7 and the buffer's writes), ``moe.experts`` (the
-products), ``moe.combine`` (each slot's token and gate, the gate
-product, K5 and the cast) and ``moe.shared`` (the shared experts' MLP,
-where the layer has one).  While the profiler records,
-``repro_moe_rows_total`` counts the rows routed to an expert, those kept
-within capacity (0-d device tensors that nothing reads inside the layer)
-and the slots K5 reads.
+The layer's stages are functions, each opening one ``telemetry`` span,
+a profiler range while the profiler records: ``route`` (``moe.route``,
+step 1), ``dispatch`` (``moe.dispatch``: the sort, the gather of x, K7,
+the slot map and the buffer's write), ``experts`` (``moe.experts``: the
+products), ``combine`` (``moe.combine``: each slot's token and gate, the
+gate product, K5 and the cast) and ``_shared`` (``moe.shared``: the
+shared experts' MLP, where the layer has one).  While the profiler
+records, ``repro_moe_rows_total`` counts the rows routed to an expert and
+those kept within capacity at each expert buffer (0-d device tensors
+that nothing reads inside the layer).
 
 Under a mesh (``parallel/ctx.py``) the layer takes the reference's
 distributed paths, each a body that runs on every rank over its local
@@ -85,9 +88,9 @@ from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel.sharding import P
 
 ROWS = telemetry.counter(
-    "repro_moe_rows_total", "MoE rows with an expert id (routed), "
-    "within their expert's capacity (kept), and the (E, C) slots the "
-    "combine reads (slot), counted while profiling", ("outcome",))
+    "repro_moe_rows_total", "MoE rows with an expert id (routed) and "
+    "within their expert's capacity (kept), counted while profiling",
+    ("outcome",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,92 +159,123 @@ def route(p: dict, x: torch.Tensor, cfg: MoEConfig):
     return gates, ids.to(torch.int32), aux
 
 
-def _expert_ffn_sorted(p: dict, xs: torch.Tensor, group_sizes,
-                       cfg: MoEConfig) -> torch.Tensor:
-    """The reference's ``ragged_dot`` FFN over expert-sorted rows: the
-    next ``group_sizes[e]`` rows through expert e, one product per group;
-    rows past the groups stay zero.  The reference calls it from nowhere
-    (its layer takes the capacity-grouped path below)."""
-    act = mlp._ACT[cfg.activation]
-    out = xs.new_zeros((xs.shape[0], p["w_down"].shape[-1]))
-    start = 0
-    for e, n in enumerate(torch.as_tensor(group_sizes).tolist()):
-        rows = xs[start:start + n]
-        h = act(rows @ p["w_gate"][e]) * (rows @ p["w_up"][e])
-        out[start:start + n] = h.to(xs.dtype) @ p["w_down"][e]
-        start += n
-    return out
+def _capacity(rows: int, groups: int, cfg: MoEConfig) -> int:
+    """GShard's capacity of each of ``groups`` groups for ``rows`` rows."""
+    return max(1, int(rows / groups * cfg.capacity_factor))
 
 
-def _expert_ffn_slots(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
-                      num_experts: int, capacity: int, cfg: MoEConfig,
-                      tp_group=None):
-    """Capacity-grouped expert FFN over expert-sorted rows ``xs`` (T·k, d)
-    with int32 ``sorted_ids``: each expert's first ``capacity`` rows go
-    through one batched product per projection; the rest are dropped.
-    Rows whose id is ``num_experts`` or more (the EP body's empty slots,
-    sorted last) count nowhere and are dropped too.
+def _sort(x: torch.Tensor, ids: torch.Tensor, top_k: int):
+    """The router's ``ids`` (T, k) as a stream sorted by expert, stably as
+    ``jnp.argsort`` (which of an expert's rows overflow its capacity
+    depends on that order): (flat ids (T·k,) int32 in issue order, the
+    sort's order, the sorted ids, x's rows in sorted order)."""
+    flat_ids = ids.reshape(-1)
+    order = torch.argsort(flat_ids, stable=True)
+    # row i of x repeated k times, taken in sorted order
+    xs = x[torch.div(order, top_k, rounding_mode="floor")]
+    return flat_ids, order, flat_ids[order], xs
 
-    Returns the products where they leave them, ``y`` (E·C, d) in xs's
-    dtype with slot e·C + c for expert e's c-th row (zero where no row
-    came), and for each sorted row its slot (int64, E·C where it was
-    dropped) and whether it was kept.
 
-    The dispatch count is K7, which drops those ids.  The kept rows are
-    written into their (E, C) slots, and the dropped ones into one spare
-    row past the buffer, which no product reads, so that nothing waits
-    on the host for the number of kept rows.  With ``tp_group`` the
-    expert weights are this rank's slice of the hidden, and the outputs
-    are summed over the group.
-    """
-    tk, d = xs.shape
+def slot_map(sorted_ids: torch.Tensor, groups: int, capacity: int):
+    """Each row of an ascending int32 id stream in a (groups, capacity)
+    layout: (slot int64, kept bool).  K7 counts each group's rows; a row
+    is kept where its first-come position in its group is below
+    ``capacity``, and its slot is ``group · capacity + position``.  A
+    dropped row, and one whose id is ``groups`` or more (K7 drops those),
+    gets the spare slot ``groups · capacity``, one past the layout."""
+    counts = sk.bincount_launch(sorted_ids, groups)          # K7
+    start = torch.cumsum(counts, 0) - counts
+    sid = sorted_ids.to(torch.int64)
+    valid = sid < groups
+    pos = torch.arange(sid.shape[0], device=sid.device) - start[
+        sid.clamp(max=groups - 1)]
+    keep = (pos < capacity) & valid
+    return torch.where(keep, sid * capacity + pos, groups * capacity), keep
+
+
+def _write_slots(rows: torch.Tensor, slot: torch.Tensor, slots: int,
+                 fill=0) -> torch.Tensor:
+    """``rows`` written at their ``slot`` into a fresh (slots, ...) layout,
+    ``fill`` where no row came; the rows at the spare slot land in a row
+    past the layout, which is cut off, so that nothing waits on the host
+    for the number of kept rows.  Under autograd the rows' gradient is a
+    gather (the write does not accumulate)."""
+    shape = (slots + 1, *rows.shape[1:])
+    buf = rows.new_full(shape, fill) if fill else rows.new_zeros(shape)
+    buf.index_put_((slot,), rows)
+    return buf[:slots]
+
+
+def _expert_buffer(xs: torch.Tensor, sorted_ids: torch.Tensor, groups: int,
+                   capacity: int) -> dict:
+    """The expert-sorted rows ``xs`` (T·k, d) in a (groups, capacity, d)
+    buffer, zero where no row came: {"slot", "keep", "buf"}.  While the
+    profiler records, ``ROWS`` counts the rows with an expert id and those
+    kept."""
+    slot, keep = slot_map(sorted_ids, groups, capacity)
+    if telemetry.tracing():
+        ROWS.inc((sorted_ids < groups).sum(), outcome="routed")
+        ROWS.inc(keep.sum(), outcome="kept")
+    buf = _write_slots(xs, slot, groups * capacity)
+    return {"slot": slot, "keep": keep,
+            "buf": buf.view(groups, capacity, xs.shape[1])}
+
+
+def dispatch(x: torch.Tensor, ids: torch.Tensor, cfg: MoEConfig) -> dict:
+    """The ``moe.dispatch`` stage: the router's ``ids`` (T, k) sorted by
+    expert, x's rows in that order, K7's counts and the (E, C, d) expert
+    buffer.  Returns {"ids": the flat ids (T·k,) int32 in issue order,
+    "order": the sort's, "slot", "keep", "buf"}."""
     with telemetry.span("moe.dispatch"):
-        counts = sk.bincount_launch(sorted_ids, num_experts)    # K7
-        start = torch.cumsum(counts, 0) - counts
-        sid = sorted_ids.to(torch.int64)
-        valid = sid < num_experts
-        pos = torch.arange(tk, device=xs.device) - start[
-            sid.clamp(max=num_experts - 1)]
-        keep = (pos < capacity) & valid
-        if telemetry.tracing():
-            ROWS.inc(valid.sum(), outcome="routed")
-            ROWS.inc(keep.sum(), outcome="kept")
-        slots = num_experts * capacity
-        slot = torch.where(keep, sid * capacity + pos, slots)
-        buf = xs.new_zeros((slots + 1, d))
-        buf.index_put_((slot,), xs)   # under grad: d xs = d buf[slot]
-        buf = buf[:slots].view(num_experts, capacity, d)
+        flat_ids, order, sorted_ids, xs = _sort(x, ids, cfg.top_k)
+        sent = _expert_buffer(xs, sorted_ids, cfg.num_experts, _capacity(
+            flat_ids.shape[0], cfg.num_experts, cfg))
+    return dict(sent, ids=flat_ids, order=order)
+
+
+def experts(p: dict, buf: torch.Tensor, cfg: MoEConfig,
+            tp_group=None) -> torch.Tensor:
+    """The ``moe.experts`` stage: one batched product per projection over
+    the (G, C, d) buffer, the products left in its slots, (G·C, d) in its
+    dtype.  With ``tp_group`` the weights are this rank's slice of the
+    hidden, and the outputs are summed over the group.  Handed the last
+    reference to ``buf``, it frees it before the last product."""
     with telemetry.span("moe.experts"):
+        g, c, _ = buf.shape
         if tp_group is not None:
             buf = coll.grad_sum_over(buf, tp_group)
-        act = mlp._ACT[cfg.activation]
+        act, dtype = mlp._ACT[cfg.activation], buf.dtype
         h = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
         del buf
-        y = torch.bmm(h.to(xs.dtype), p["w_down"]).view(slots, d)
+        y = torch.bmm(h.to(dtype), p["w_down"]).view(g * c, -1)
         del h
         if tp_group is not None:
             y = coll.sum_over(y, tp_group)
-    return y, slot, keep
+    return y
 
 
 def _expert_ffn_grouped(p: dict, xs: torch.Tensor, sorted_ids: torch.Tensor,
                         num_experts: int, capacity: int, cfg: MoEConfig,
                         tp_group=None) -> torch.Tensor:
-    """``_expert_ffn_slots`` with its products gathered back to the sorted
-    rows: (T·k, d), zero for a dropped row.  The EP body needs the rows in
-    sorted order for its unsort and its all-to-all back; under autograd
-    the gather's backward adds every dropped row's zero into one slot."""
-    y, slot, keep = _expert_ffn_slots(p, xs, sorted_ids, num_experts,
-                                      capacity, cfg, tp_group)
+    """The reference's function of this name: the expert products of the
+    expert-sorted rows ``xs`` (T·k, d), int32 ``sorted_ids``, gathered
+    back to the sorted rows, zero for a dropped row and for an id of
+    ``num_experts`` or more (the EP body's empty slots, sorted last).
+    The EP body needs the rows in sorted order for its unsort and its
+    all-to-all back; under autograd the gather's backward adds every
+    dropped row's zero into one slot."""
+    with telemetry.span("moe.dispatch"):
+        sent = _expert_buffer(xs, sorted_ids, num_experts, capacity)
+    y = experts(p, sent.pop("buf"), cfg, tp_group)
     with telemetry.span("moe.combine"):
-        rows = y[slot.clamp(max=y.shape[0] - 1)]
-        return torch.where(keep[:, None], rows, 0.0)
+        rows = y[sent["slot"].clamp(max=y.shape[0] - 1)]
+        return torch.where(sent["keep"][:, None], rows, 0.0)
 
 
 def combine_slots(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
                   order: torch.Tensor, top_k: int, num_tokens: int):
-    """K5's inputs in the slot layout of ``_expert_ffn_slots``: each slot's
-    product times its gate, (E·C, d) f32, and each slot's token, int32,
+    """K5's inputs in a slot layout (``slot_map``'s): each slot's product
+    times its gate, (slots, d) f32, and each slot's token, int32,
     ``num_tokens`` (one past the end, which K5 drops) for an empty slot.
 
     Sorted row i sits in slot ``slot[i]`` and is entry ``order[i]`` of
@@ -259,19 +293,18 @@ def combine_slots(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
     return y * g[:slots, None], tok[:slots]
 
 
-@telemetry.span("moe.dispatch")
-def dispatch(x: torch.Tensor, ids: torch.Tensor, cfg: MoEConfig):
-    """The expert-sorted stream of the router's ``ids`` (T, k): (flat
-    ids (T·k,) int32 in issue order, the stable sort's order, the sorted
-    ids, the rows of x in sorted order, the capacity)."""
-    flat_ids = ids.reshape(-1)
-    order = torch.argsort(flat_ids, stable=True)
-    # row i of x repeated k times, taken in sorted order
-    xs = x[torch.div(order, cfg.top_k, rounding_mode="floor")]
-    sorted_ids = flat_ids[order]
-    capacity = max(1, int(flat_ids.shape[0] / cfg.num_experts
-                          * cfg.capacity_factor))
-    return flat_ids, order, sorted_ids, xs, capacity
+def combine(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+            order: torch.Tensor, top_k: int, dtype) -> torch.Tensor:
+    """The ``moe.combine`` stage: K5 (``scatter_add_autograd``) sums each
+    token's gate-weighted rows, in f32, straight from the slot layout
+    ``y`` of the sorted rows' ``slot``; (T, d) in ``dtype`` for the (T, k)
+    ``gates``.  Handed the last reference to ``y``, it frees it before
+    K5."""
+    with telemetry.span("moe.combine"):
+        t = gates.shape[0]
+        vals, tok = combine_slots(y, slot, gates, order, top_k, t)
+        del y
+        return sk.scatter_add_autograd(vals, tok, t).to(dtype)
 
 
 @telemetry.span("moe.shared")
@@ -302,22 +335,15 @@ def apply_local(p: dict, x: torch.Tensor, cfg: MoEConfig,
     stream).
     """
     tp_group = _group(axis_name, mesh)
-    t, _ = x.shape
     gates, ids, aux = route(p, x, cfg)
-    flat_ids, order, sorted_ids, xs, capacity = dispatch(x, ids, cfg)
-    y, slot, _ = _expert_ffn_slots(p, xs, sorted_ids, cfg.num_experts,
-                                   capacity, cfg, tp_group)
-    del xs
-    with telemetry.span("moe.combine"):
-        if telemetry.tracing():
-            ROWS.inc(y.shape[0], outcome="slot")
-        # K5: each token's gate-weighted expert rows summed in f32
-        vals, tok = combine_slots(y, slot, gates, order, cfg.top_k, t)
-        del y
-        out = sk.scatter_add_autograd(vals, tok, t).to(x.dtype)
+    sent = dispatch(x, ids, cfg)
+    # each stage is handed the last reference to the buffer or the
+    # products it reads, and frees them as soon as they are read
+    out = combine(experts(p, sent.pop("buf"), cfg, tp_group), sent["slot"],
+                  gates, sent["order"], cfg.top_k, x.dtype)
     if cfg.num_shared_experts:
         out = out + _shared(p, x, cfg, tp_group)
-    return out, aux, flat_ids
+    return out, aux, sent["ids"]
 
 
 # ---------------------------------------------------------------------------
@@ -377,59 +403,36 @@ def _ep_local(p: dict, x_local: torch.Tensor, cfg: MoEConfig,
     histogram) and, on the receiving rank, each local expert's rows; K5
     sums each token's gate-weighted rows on their return.
 
-    An empty slot of a send buffer carries the expert id ``e_local`` and
-    the slot ``tk``, both one past the end: K7 and ``_expert_ffn_grouped``
-    count and compute nothing for that id, and K5 adds nothing for that
-    slot (it drops segment ids past its count, as the reference's
-    ``mode="drop"`` does).
+    An empty slot of a send buffer carries the expert id ``e_local``, one
+    past the end: K7 and ``_expert_ffn_grouped`` count and compute nothing
+    for that id.  The rows come back in their send slots, which
+    ``combine`` sums as the one-card layer's: an empty slot's token is T,
+    one past the end, which K5 drops (as the reference's ``mode="drop"``).
     """
     d_shards = dist.get_world_size(ep_group)
-    t, d = x_local.shape
     k = cfg.top_k
     e_local = cfg.num_experts // d_shards
     gates, ids, aux = route(p, x_local, cfg)                  # (T, k)
-    flat_ids, order, sorted_ids, xs, _ = dispatch(x_local, ids, cfg)
-    tk = flat_ids.shape[0]
-    dev = x_local.device
-
-    cap = max(1, int(tk / d_shards * cfg.capacity_factor))
-    dst = torch.div(sorted_ids, e_local, rounding_mode="floor")  # ascending
-    counts_dst = sk.bincount_launch(dst, d_shards)              # K7
-    start = torch.cumsum(counts_dst, 0) - counts_dst
-    dst64 = dst.to(torch.int64)
-    pos_in_dst = torch.arange(tk, device=dev) - start[dst64]
-    keep = pos_in_dst < cap
-    slots = d_shards * cap
-    slot = torch.where(keep, dst64 * cap + pos_in_dst, slots)  # spare: drop
-
-    send_x = xs.new_zeros((slots + 1, d))
-    send_x.index_put_((slot,), xs)
-    send_id = torch.full((slots + 1,), e_local, dtype=torch.int32,
-                         device=dev)                           # empty slot
-    send_id[slot] = torch.remainder(sorted_ids, e_local).to(torch.int32)
-    send_slot = torch.full((slots + 1,), tk, dtype=torch.int64, device=dev)
-    send_slot[slot] = order
-    del xs
-
-    rx = coll.all_to_all(send_x[:slots], ep_group)         # (D·cap, d)
-    rid = coll.all_to_all(send_id[:slots], ep_group)
-    order2 = torch.argsort(rid, stable=True)
-    rs = rx[order2]
-    rids = rid[order2]                                  # empty: id e_local
-    cap2 = max(1, int(rx.shape[0] / e_local * cfg.capacity_factor))
-    y = _expert_ffn_grouped(p, rs, rids, e_local, cap2, cfg, tp_group)
-    del rs
+    with telemetry.span("moe.dispatch"):
+        flat_ids, order, sorted_ids, xs = _sort(x_local, ids, k)
+        cap = _capacity(flat_ids.shape[0], d_shards, cfg)
+        slot, _ = slot_map(torch.div(sorted_ids, e_local,  # by rank (K7)
+                                     rounding_mode="floor"), d_shards, cap)
+        send_x = _write_slots(xs, slot, d_shards * cap)
+        del xs
+        send_id = _write_slots(torch.remainder(sorted_ids, e_local).to(
+            torch.int32), slot, d_shards * cap, fill=e_local)
+    rx = coll.all_to_all(send_x, ep_group)             # (D·cap, d)
+    rid = coll.all_to_all(send_id, ep_group)
+    order2 = torch.argsort(rid, stable=True)      # empty slots' e_local last
+    y = _expert_ffn_grouped(p, rx[order2], rid[order2], e_local,
+                            _capacity(rx.shape[0], e_local, cfg), cfg,
+                            tp_group)
     y = y[torch.argsort(order2)]                        # unsort locally
     comb_dt = x_local.dtype if cfg.bf16_combine else torch.float32
-    back = coll.all_to_all(y.to(comb_dt), ep_group)
-
-    # K5: slot s of the (T, k) stream is token s // k; an empty slot (tk)
-    # is token t, one past the end, and adds nothing
-    ret = send_slot[:slots]
-    g = torch.cat([gates.reshape(-1), gates.new_zeros(1)])[ret]
-    vals = back.to(torch.float32) * g[:, None]
-    tok = torch.div(ret, k, rounding_mode="floor").to(torch.int32)
-    out = sk.scatter_add_autograd(vals, tok, t).to(x_local.dtype)
+    # the rows come back in their send slots: the one-card combine
+    out = combine(coll.all_to_all(y.to(comb_dt), ep_group), slot, gates,
+                  order, k, x_local.dtype)
     if cfg.num_shared_experts:
         out = out + _shared(p, x_local, cfg, tp_group)
     return out, aux, flat_ids

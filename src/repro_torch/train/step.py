@@ -4,9 +4,10 @@ reference's ``train/step.py`` on one card.
 
 ``make_train_step(model, tcfg, ocfg)`` returns ``step(state, batch) ->
 (new_state, metrics)``.  The gradients come from ``torch.autograd.grad``
-over the parameter tree (``models/transformer.py``, ``models/whisper.py``
-take the plain attention under grad: K8 has no backward); an MoE layer's
-combine is K5 under autograd.  The microbatch loop is a Python loop over
+over the parameter tree; under grad, attention takes K8's forward with
+its backward where ``attention.flash_route`` allows (bf16 at head_dim 64
+or 128) and the plain ``_sdpa`` otherwise, and an MoE layer's combine is
+K5 under autograd.  The microbatch loop is a Python loop over
 slices of the global batch, the reference's ``lax.scan``, so that the
 activations of one microbatch are live at a time.  ``update`` writes the
 optimizer state in place (``optim/adamw.py``).

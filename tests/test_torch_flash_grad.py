@@ -6,9 +6,9 @@ Their CPU implementations are the plain versions' f32 math: held here to
 the f32 attention and to autograd through it, at GQA groups 1, 2 and 8,
 causal and not, a T that is not a whole 128-row tile, and a score scale
 of the config's.  Then the route (``attention.flash_route``) under grad
-case by case, the FLOP formulas under ``FlopCounterMode`` on the meta
-device, and the ``repro_attention_calls_total`` counter.  The kernels
-themselves run on the card (``tests/test_torch_kernels_cuda.py``).
+case by case, and the FLOP formulas under ``FlopCounterMode`` on the
+meta device.  The kernels themselves run on the card
+(``tests/test_torch_kernels_cuda.py``).
 """
 
 import dataclasses
@@ -265,42 +265,3 @@ def test_train_forward_on_meta_runs_the_forward_operator():
     assert count.ops["repro_torch.flash_attention"] == 0
     assert count.ops["aten._softmax"] == cfg.num_layers
 
-
-def _calls():
-    return {r: attention.CALLS.value(route=r)
-            for r in ("k8", "k8_grad", "sdpa")}
-
-
-def test_calls_counter_counts_each_route_once_a_call_while_profiling():
-    """``repro_attention_calls_total`` counts K8, K8 with its backward and
-    the plain path once a call, while the profiler records, and nothing
-    otherwise; it is not in the process registry."""
-    from repro_torch.obs import telemetry
-
-    assert "repro_attention_calls_total" not in telemetry.REGISTRY._metrics
-    cfg, p, x = _bf16_layer()
-    grad_p = {k: {kk: vv.clone().requires_grad_() for kk, vv in v.items()}
-              for k, v in p.items()}
-    f32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = attention.init(torch.Generator().manual_seed(3), f32)
-    for leaf in (leaf for v in p32.values() for leaf in v.values()):
-        leaf.requires_grad_()
-
-    def run_all():
-        with torch.no_grad():
-            attention.attend(p, x, cfg)                       # k8
-        attention.attend(grad_p, x, cfg)                      # k8_grad
-        attention.attend(grad_p, x, cfg)                      # k8_grad
-        attention.attend(p32, x.float(), f32)                 # sdpa
-        with torch.no_grad():
-            attention.attend(p, x, cfg, positions=torch.arange(24))  # sdpa
-
-    before = _calls()
-    run_all()
-    assert _calls() == before
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]):
-        run_all()
-    after = _calls()
-    assert {r: after[r] - before[r] for r in after} == {
-        "k8": 1, "k8_grad": 2, "sdpa": 2}

@@ -751,8 +751,9 @@ def test_moe_layer_at_full_width(cuda, monkeypatch):
         assert ids.numel() == t * k
         assert torch.equal(counts, sk.bincount_plain(ids, e))
         gates, rids, _ = moe.route(p, x, mcfg)
-        flat, order, sorted_ids, xs, capacity = moe.dispatch(x, rids, mcfg)
+        flat, order, sorted_ids, xs = moe._sort(x, rids, k)
         assert torch.equal(disp, flat) and torch.equal(sorted_ids, ids)
+        capacity = moe._capacity(t * k, e, mcfg)
         y_sorted = moe._expert_ffn_grouped(p, xs, sorted_ids, e, capacity,
                                            mcfg)
         y = y_sorted[torch.argsort(order, stable=True)].reshape(t, k, -1)

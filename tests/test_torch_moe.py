@@ -182,15 +182,108 @@ def test_collapsed_stream_keeps_exactly_capacity_rows():
     np.testing.assert_array_equal(_np(got)[4:], 0.0)
 
 
-def test_expert_ffn_sorted_matches_ragged_dot():
-    rcfg, cfg, rp, p = _layer(e=4)
-    xs = _x(30, cfg.d_model, seed=2)
-    sizes = np.array([7, 0, 13, 6], np.int32)     # 4 rows past the groups
-    want = ref_moe._expert_ffn_sorted(rp, jnp.asarray(xs), jnp.asarray(sizes),
-                                      rcfg, None)
-    got = moe._expert_ffn_sorted(p, _t(xs), _t(sizes), cfg)
-    np.testing.assert_allclose(_np(got), want, **ROUTER)
-    np.testing.assert_array_equal(_np(got)[26:], 0.0)
+def _slot_oracle(sorted_ids, groups, capacity):
+    """First come, first served in stream order: (slot, kept), the spare
+    ``groups * capacity`` for a dropped row or an id past the groups."""
+    seen = np.zeros(groups, np.int64)
+    slot = np.full(len(sorted_ids), groups * capacity, np.int64)
+    for i, g in enumerate(sorted_ids):
+        if g < groups:
+            if seen[g] < capacity:
+                slot[i] = g * capacity + seen[g]
+            seen[g] += 1
+    return slot, slot < groups * capacity
+
+
+def _zipf_ids(n, e, seed):
+    """An ascending expert stream, skewed towards the low experts."""
+    p = 1.0 / np.arange(1, e + 1) ** 1.3
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(e, n, p=p / p.sum())).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    "drops_most", "drops_some", "drops_none", "ids_past_the_groups",
+    "by_rank"])
+def test_slot_map_matches_a_numpy_oracle(case, monkeypatch):
+    """``slot_map`` against first-come positions counted in numpy: at
+    capacities that drop most rows, some and none; with ids at or past
+    the number of groups sorted last (the EP body's empty send slots,
+    whose id is ``e_local``); and grouped by rank, ``id // e_local``, as
+    the EP body's send buffers are.  One K7 launch a call."""
+    ids = _zipf_ids(96, 8, seed=7)
+    groups, capacity = 8, {"drops_most": 2, "drops_some": 14,
+                           "drops_none": 96}.get(case, 6)
+    if case == "ids_past_the_groups":
+        # the last group has room: a past id counted into it would fit
+        assert (ids == groups - 1).sum() < capacity
+        ids = np.concatenate([ids, np.full(20, groups, np.int32)])
+    if case == "by_rank":
+        ids, groups = ids // 4, 2            # 8 experts, 4 a rank
+    calls = _count_launchers(monkeypatch)
+    slot, keep = moe.slot_map(_t(ids), groups, capacity)
+    want_slot, want_keep = _slot_oracle(ids, groups, capacity)
+    assert slot.dtype == torch.int64 and keep.dtype == torch.bool
+    np.testing.assert_array_equal(_np(slot), want_slot)
+    np.testing.assert_array_equal(_np(keep), want_keep)
+    dropped = int((~want_keep).sum())
+    assert (dropped == 0) == (case == "drops_none")
+    if case == "drops_most":
+        assert dropped > len(ids) // 2
+    assert len(calls["bincount"]) == 1
+    kept = want_slot[want_keep]
+    assert len(np.unique(kept)) == len(kept)        # a slot holds one row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ep_send_combine_equals_the_gather_by_stream_entry(dtype):
+    """The EP body's sender-side combine (``moe.combine_slots`` over the
+    rows returned in their send slots) gives K5 bit for bit the values
+    and token ids of a gather of the gates through a map from each send
+    slot to its stream entry, ``tk`` for an empty one, as the body had
+    it; the gates' gradient too.  No process group: two ranks' send
+    buffers with rows dropped, the returning rows in ``dtype`` (f32, or
+    bf16 as ``bf16_combine`` sends them)."""
+    _, cfg, _, p = _layer()
+    t, k, ranks = 40, cfg.top_k, 2
+    e_local = cfg.num_experts // ranks
+    tx = _t(_x(t, cfg.d_model, seed=8))
+    gates, ids, _ = moe.route(p, tx, cfg)
+    _, order, sorted_ids, _ = moe._sort(tx, ids, k)
+    cap = 12                      # of the 40 rows a rank on average
+    slot, keep = moe.slot_map(torch.div(sorted_ids, e_local,
+                                        rounding_mode="floor"), ranks, cap)
+    slots = ranks * cap
+    assert 0 < int(keep.sum()) < t * k
+    gen = torch.Generator().manual_seed(9)
+    back = torch.randn((slots, cfg.d_model), generator=gen).to(dtype)
+    w = torch.randn((t, cfg.d_model), generator=gen)
+
+    def gathered(g_in):
+        entry = torch.full((slots + 1,), t * k, dtype=torch.int64)
+        entry[slot] = order
+        entry = entry[:slots]
+        g = torch.cat([g_in.reshape(-1), g_in.new_zeros(1)])[entry]
+        vals = back.to(torch.float32) * g[:, None]
+        return vals, torch.div(entry, k, rounding_mode="floor").to(
+            torch.int32)
+
+    results = []
+    for make in (gathered,
+                 lambda g_in: moe.combine_slots(back, slot, g_in, order, k,
+                                                t)):
+        g_in = gates.detach().clone().requires_grad_()
+        vals, tok = make(g_in)
+        (sk.scatter_add_autograd(vals, tok, t) * w).sum().backward()
+        results.append((vals.detach(), tok, g_in.grad))
+    for want, got in zip(*results):
+        assert torch.equal(want, got)
+    grad = results[1][2].reshape(-1)
+    dropped = torch.zeros(t * k, dtype=torch.bool)
+    dropped[order[~keep]] = True
+    assert not grad[dropped].any() and grad[~dropped].ne(0).all()
+    out = moe.combine(back, slot, gates, order, k, torch.float32)
+    assert torch.equal(out, sk.scatter_add_plain(*results[0][:2], t))
 
 
 @pytest.mark.parametrize("capacity_factor", [8.0, 1.25])
@@ -257,7 +350,8 @@ def test_apply_local_drops_equal_the_sorted_row_combine(capacity_factor):
     p, tx = _params(rp), _t(x)
     got, _, _ = moe.apply_local(p, tx, cfg)
     gates, ids, _ = moe.route(p, tx, cfg)
-    _, order, sorted_ids, xs, capacity = moe.dispatch(tx, ids, cfg)
+    _, order, sorted_ids, xs = moe._sort(tx, ids, cfg.top_k)
+    capacity = moe._capacity(ids.numel(), cfg.num_experts, cfg)
     rows = moe._expert_ffn_grouped(p, xs, sorted_ids, cfg.num_experts,
                                    capacity, cfg)
     vals = rows.to(torch.float32) * gates.reshape(-1)[order][:, None]

@@ -5,12 +5,14 @@ records, so a step without the profiler enters no ``record_function``
 and computes the same bits either way.  Under the profiler every stage
 of a train step and a prefill appears, and the backward of each of the
 MoE's row gathers points, by its sequence number, at a forward gather
-inside ``moe.dispatch`` or ``moe.combine``.  ``repro_moe_rows_total``
+inside ``moe.dispatch`` or ``moe.combine``; each MoE stage's span opens
+once an ``apply_local`` call.  ``repro_moe_rows_total``
 counts what K7's counts say the layer kept, without reading a tensor
 while it counts.  The models are the benchmark's two cells at the sizes
 of ``perfbench/cpu_cells.py``.
 """
 
+import collections
 import json
 import sys
 from pathlib import Path
@@ -185,34 +187,31 @@ def test_each_gather_backward_points_into_its_moe_stage():
 
 def test_rows_counter_matches_k7_in_every_layer(monkeypatch):
     """``kept`` is, per layer, the sum over experts of min(count, C)
-    from K7's counts; ``routed`` is T·k; ``slot`` is E·C, the rows K5
-    reads."""
+    from K7's counts; ``routed`` is T·k."""
     counts, deltas = [], []
-    bincount, grouped = sk.bincount_launch, moe._expert_ffn_slots
+    bincount, dispatch = sk.bincount_launch, moe.dispatch
 
     def spy_bincount(ids, n):
         out = bincount(ids, n)
         counts.append(out.clone())
         return out
 
-    def spy_grouped(p, xs, sorted_ids, num_experts, capacity, *a, **k):
+    def spy_dispatch(x, ids, cfg):
         before = (moe.ROWS.value(outcome="routed"),
                   moe.ROWS.value(outcome="kept"))
-        out = grouped(p, xs, sorted_ids, num_experts, capacity, *a, **k)
+        out = dispatch(x, ids, cfg)
         deltas.append((moe.ROWS.value(outcome="routed") - before[0],
                        moe.ROWS.value(outcome="kept") - before[1],
-                       capacity))
+                       out["buf"].shape[1]))
         return out
 
     monkeypatch.setattr(sk, "bincount_launch", spy_bincount)
-    monkeypatch.setattr(moe, "_expert_ffn_slots", spy_grouped)
+    monkeypatch.setattr(moe, "dispatch", spy_dispatch)
     cfg, model, params = _model("prefill")
     tokens = _tokens(cfg, (2, 32))
     fn = serve_step.make_prefill(model, serve_step.ServeConfig(max_len=32))
-    slots = moe.ROWS.value(outcome="slot")
     fn(params, tokens)              # without the profiler nothing counts
     assert deltas and all(d[:2] == (0.0, 0.0) for d in deltas)
-    assert moe.ROWS.value(outcome="slot") == slots
     counts.clear()
     deltas.clear()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -222,8 +221,28 @@ def test_rows_counter_matches_k7_in_every_layer(monkeypatch):
         assert routed == tokens.numel() * SMALL["top_k"] == int(c.sum())
         assert kept == int(torch.clamp(c, max=capacity).sum())
         assert 0 < kept < routed          # these layers drop rows
-    assert moe.ROWS.value(outcome="slot") - slots == sum(
-        cfg.num_experts * capacity for _, _, capacity in deltas)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["serve", "train"])
+@pytest.mark.parametrize("shared", [0, 1])
+def test_each_moe_span_opens_once_a_call(grad, shared, ranges_entered):
+    """Under the profiler one ``apply_local`` call opens each of its
+    stages' spans once, ``moe.shared`` only with a shared expert, with
+    and without autograd (the backward opens none)."""
+    cfg = moe.MoEConfig(d_model=32, d_expert=16, num_experts=8, top_k=2,
+                        num_shared_experts=shared, capacity_factor=1.0,
+                        dtype="float32")
+    p = moe.init(torch.Generator().manual_seed(0), cfg, 32)
+    x = torch.randn(24, 32, generator=torch.Generator().manual_seed(1),
+                    requires_grad=grad)
+    with torch.set_grad_enabled(grad), \
+            profile(activities=[ProfilerActivity.CPU]):
+        out = moe.apply_local(p, x, cfg)[0]
+        if grad:
+            out.sum().backward()
+    want = dict.fromkeys(MOE_STAGES + ("moe.shared",) * shared, 1)
+    assert collections.Counter(
+        n for n in ranges_entered if n.startswith("moe.")) == want
 
 
 class _Pending:

@@ -335,10 +335,10 @@ def test_moe_layer_grads_under_drops_match_the_reference(capacity_factor):
 
     with torch.no_grad():
         gates, ids, _ = moe.route(p, tx, cfg)
-        _, order, sorted_ids, xs, capacity = moe.dispatch(tx, ids, cfg)
+        sent = moe.dispatch(tx, ids, cfg)
     gates = gates.requires_grad_()
-    y, slot, keep = moe._expert_ffn_slots(p, xs, sorted_ids,
-                                          cfg.num_experts, capacity, cfg)
+    order, slot, keep = sent["order"], sent["slot"], sent["keep"]
+    y = moe.experts(p, sent.pop("buf"), cfg)
     vals, tok = moe.combine_slots(y, slot, gates, order, k, t)
     (sk.scatter_add_autograd(vals, tok, t) * _t(w)).sum().backward()
     dropped = torch.zeros(t * k, dtype=torch.bool)
@@ -361,7 +361,7 @@ def test_moe_combine_indexes_no_expert_row():
     out, _, _ = moe.apply_local(p, tx, cfg)
     with torch.no_grad():
         _, ids, _ = moe.route(p, tx, cfg)
-        _, order, _, _, _ = moe.dispatch(tx, ids, cfg)
+        order = moe.dispatch(tx, ids, cfg)["order"]
     indexing = ("Index", "Gather", "Scatter", "Take", "Embedding")
     seen, stack, found = set(), [out.grad_fn], []
     while stack:
