@@ -25,8 +25,8 @@ flash attention) and ``generate``; then two MoE LMs, then gemma2-27b
 llama-3.2-vision-11b (gated image cross-attention; its self-attention in
 K8) and whisper-small (its bidirectional encoder and causal decoder
 prefill in K8), then rwkv6-7b (attention-free: no kernel launches) and
-zamba2-1.2b (Mamba-2 layers; its shared attention block in K8 while the
-prompt fits its window).  Last it trains: granite-moe-1b-a400m whole
+zamba2-1.2b (Mamba-2 layers, their bf16 SSD in the SSD's three kernels;
+its shared attention block in K8 while the prompt fits its window).  Last it trains: granite-moe-1b-a400m whole
 through ``repro_torch.launch.train`` (each MoE layer's dispatch count in
 K7 and its combine in K5 under autograd; attention in K8's forward that
 keeps each row's log-sum-exp and in its backward kernels), its restart
@@ -49,7 +49,9 @@ DTensor state.  Phases, each of which must pass:
    on its Hopper route at ragged T, and at every serving path's shapes,
    Whisper's non-causal encoder at T = 1500 among them, before any model
    is on the card; K8's backward against autograd through the f32
-   attention, and twice bit-equal);
+   attention, and twice bit-equal; the SSD's kernels against
+   ``mamba2._ssd_plain`` at Granite 4.0-H Small's and Zamba2's shapes,
+   ragged T and extreme decays, and twice bit-equal);
 3. drive each main path with every launch count set to 0 just before it
    and read just after: the histogram path as
    ``examples/torch_quickstart.py`` and the port's command line run it
@@ -71,7 +73,8 @@ DTensor state.  Phases, each of which must pass:
    plain versions there, outside the counts), then the families' serving
    (K8's launches held to each step's count; gemma2's window and ring at
    full width against their oracles), then rwkv6's and zamba2's (no
-   launch for rwkv6; K8 held to zamba2's shared-attention invocations),
+   launch for rwkv6; K8 held to zamba2's shared-attention invocations,
+   the SSD's kernels to one each a Mamba-2 layer a bf16 prefill),
    then training (outside the counts first: K5 under autograd against
    its plain version forward and backward, every gradient leaf with K5
    against the plain combine, blockwise attention against dense; then
@@ -97,7 +100,8 @@ DTensor state.  Phases, each of which must pass:
    the main paths' shapes, beside the least time the card could take
    (K5 and K7 also on the MoE layers' live inputs; K8's forward with the
    LSE and its backward on the live train shapes of granite-moe and
-   qwen3-moe).
+   qwen3-moe; the SSD's kernels on layer 0's live inputs of Granite
+   4.0-H Small at 32,768 and 8,192 tokens).
 
 The last line is the contract line ``{"ok": true, "device": {...}}``; the
 line before it lists every kernel with its launches and times.  Without
@@ -248,6 +252,24 @@ FLASH_GRAD_SHAPES = ((2, 4, 2, 200, 64, True), (2, 4, 4, 129, 128, True),
 # qwen3-moe's attention at the prefill's 4 x 2048; (label, arch, B)
 FLASH_GRAD_LIVE = (("granite-moe train", TRAIN_ARCH, TRAIN_B),
                    ("qwen3-moe", "qwen3-moe-235b-a22b", PREFILL_B))
+# the chunked SSD's kernels (csrc/ssd.cu, no TPU counterpart) against
+# mamba2._ssd_plain on the same bf16 inputs, y and the final state within
+# SSD_TOL x max |plain| (tests/test_torch_ssd.py); (B, T, H, N, chunk, dt,
+# A): Granite 4.0-H Small's layer at 32k and four 8k sequences, ragged T,
+# Zamba2's chunk 64 and N 64, the product form's overflow (dt 1.3, A -e)
+# and almost no decay; A None is Mamba-2's init range -U[1, 16]
+SSD_TOL = 1e-5
+SSD_ARCH = "granite-4.0-h-small"
+SSD_CASES = ((1, 32768, 128, 128, 256, 0.05, None),
+             (4, 8192, 128, 128, 256, 0.05, None),
+             (3, 3 * 256 + 17, 24, 128, 256, 0.05, None),
+             (2, 2048, 64, 64, 64, 0.05, None),
+             (2, 700, 16, 128, 256, 1.3, -np.e),
+             (2, 700, 16, 128, 256, 0.001, -1.0))
+# its timing: layer 0's live SSD inputs at a 32k prefill and at the
+# benchmark's roofline call (8,192 tokens), one sequence each
+SSD_TOKENS = (32768, 8192)
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 FLASH_F32_TOL = 2e-4                 # tests/test_kernels_flash.py
 FLASH_BF16_TOL = 3e-2                # its bf16 case, T = 64 only
 # bf16 beyond the reference test's T = 64, where a typical output is small
@@ -289,6 +311,10 @@ KERNELS = {
     # the reference's kernel has no gradient: no TPU counterpart
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             None),
+    # the reference computes the SSD outside any Pallas kernel
+    "ssd_chunk_state": ("src/repro_torch/kernels/csrc/ssd.cu", None),
+    "ssd_state_pass": ("src/repro_torch/kernels/csrc/ssd.cu", None),
+    "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd.cu", None),
 }
 HIST_KERNELS = ("hist", "hist_instrumented", "hist_weighted")
 SCATTER_KERNELS = ("scatter_add", "scatter_add_instrumented", "bincount")
@@ -373,6 +399,12 @@ def _template_args(mangled: str) -> str:
     if flash:   # the Hopper forward's instantiation that stores the LSE
         return (f"{flash.group(1)}<{flash.group(2)}"
                 f"{',lse' if flash.group(3) else ''}>")
+    ssd = re.search(r"(ssd_chunk_(?:state|scan)_kernel)ILi(\d+)ELi(\d+)E",
+                    mangled)
+    if ssd:     # <chunk, N>
+        return f"{ssd.group(1)}<{ssd.group(2)},{ssd.group(3)}>"
+    if "ssd_state_pass_kernel" in mangled:
+        return "ssd_state_pass_kernel"
     if m is None:
         return mangled
     name, rest = m.group(1), mangled[m.end():]
@@ -933,6 +965,60 @@ def check_flash_backward(dev) -> dict[str, float]:
         del q, k, v, dout, prefill, out, lse, grads, again, want
         torch.cuda.empty_cache()
     return worst
+
+
+def ssd_case(dev, b, t, h, n, dt_value, a_value, seed=0):
+    """SSD inputs as the model passes them: x (B, T, H, 64), B and C (B,
+    T, N) views of one bf16 (B, T, 64 H + 2 N) tensor (the causal conv's
+    output), dt = dt_value x U[0.5, 1.5] f32, a = a_value for each head or
+    Mamba-2's init range -U[1, 16] where None."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn((b, t, 64 * h + 2 * n), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    x = xbc[..., :64 * h].unflatten(-1, (h, 64))
+    dt = dt_value * (0.5 + torch.rand((b, t, h), generator=gen, device=dev))
+    a = (-(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
+         if a_value is None else torch.full((h,), a_value, device=dev))
+    return x, dt, a, xbc[..., 64 * h:64 * h + n], xbc[..., 64 * h + n:]
+
+
+def check_ssd(dev) -> dict[str, float]:
+    """The SSD's kernels (one ``ssd_launch``) against ``mamba2._ssd_plain``
+    on the same inputs at SSD_CASES: y and the final state within SSD_TOL
+    x max |plain|, and a second launch bit-equal.  Returns the worst error
+    over max |plain| for each kernel's name (the three make one result)."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.models import mamba2
+
+    worst = 0.0
+    for i, (b, t, h, n, chunk, dt_value, a_value) in enumerate(SSD_CASES):
+        args = ssd_case(dev, b, t, h, n, dt_value, a_value, seed=60 + i)
+        got = ssd.ssd_launch(*args, chunk)
+        again = ssd.ssd_launch(*args, chunk)
+        torch.cuda.synchronize()
+        case = (f"({b}, {t}, {h}, 64) N {n} chunk {chunk} dt {dt_value} A "
+                f"{'U[-16, -1]' if a_value is None else f'{a_value:.4g}'}")
+        _require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                 f"SSD kernels not bit-equal across two runs, {case}")
+        want = mamba2._ssd_plain(*args, chunk)
+        rel = []
+        for g, w, what in zip(got, want, ("y", "final state")):
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            _require(bool(torch.isfinite(g).all()) and err <= SSD_TOL * scale,
+                     f"SSD kernels vs plain, {case}, {what}: max |err| "
+                     f"{err} > {SSD_TOL} x {scale}")
+            rel.append(err / scale)
+        worst = max(worst, *rel)
+        log(f"  SSD {case}: y and final state within {rel[0]:.3g}, "
+            f"{rel[1]:.3g} of max |plain| (bound {SSD_TOL}); two runs "
+            f"bit-equal")
+        del args, got, again, want
+        torch.cuda.empty_cache()
+    return {k: worst for k in SSD_KERNELS}
 
 
 def scaled_bf16_check(got, want, q, k, v, causal, group, case) -> str:
@@ -2819,12 +2905,16 @@ FAMILY_PROFILE_PARTS = {
     "softmax (_sdpa)": ("op", ("aten::softmax",)),
     "tanh (softcaps)": ("op", ("aten::tanh", "aten::tanh_")),
 }
-# rwkv6's and zamba2's, disjoint: the WKV and SSD einsums (and zamba2's
-# decode _sdpa), the chunks' cumsum, and the inter-chunk loop (its exp,
-# mul, add and the stack of its states, under the name the models give
-# it); the rest is elementwise work, casts and concatenations
+# rwkv6's and zamba2's, disjoint: the SSD's kernels (zamba2's bf16
+# prefill), the WKV and SSD einsums (and zamba2's decode _sdpa), the
+# chunks' cumsum, and the inter-chunk loop (its exp, mul, add and the stack
+# of its states, under the name the models give it); the rest is
+# elementwise work, casts and concatenations
 SSM_PROFILE_PARTS = {
     "K8 attention": MOE_PROFILE_PARTS["K8 attention"],
+    "SSD kernels": ("kernel", ("ssd_chunk_state_kernel",
+                               "ssd_state_pass_kernel",
+                               "ssd_chunk_scan_kernel")),
     "mm (projections, FFN, LoRAs, head)": ("op", ("aten::mm",)),
     "einsum (WKV/SSD, _sdpa)": ("op", ("aten::einsum",)),
     "cumsum": ("op", ("aten::cumsum",)),
@@ -2836,7 +2926,28 @@ def _launches() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.scatter_add import kernel as sk
-    return {**fk.LAUNCHES, **hk.LAUNCHES, **sk.LAUNCHES}
+    from repro_torch.kernels.ssd import kernel as ssd
+    return {**fk.LAUNCHES, **hk.LAUNCHES, **sk.LAUNCHES, **ssd.LAUNCHES}
+
+
+def _ssd_per_prefill(cfg) -> int:
+    """Launches of each SSD kernel in one prefill: one a Mamba-2 layer
+    where ``ssd.kernel_route`` takes the configuration's SSD (bf16 x, B
+    and C on the card, no gradient), else none."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.models import layers, transformer
+    if not cfg.ssm_state or cfg.rwkv:
+        return 0
+    x = layers.torch_dtype(cfg.dtype)
+    if not ssd.kernel_route("cuda", False, (x, torch.float32, torch.float32,
+                                            x, x), cfg.ssm_head_dim,
+                            cfg.ssm_state, cfg.ssm_chunk):
+        return 0
+    plan = transformer.layer_plan(cfg)
+    kinds = plan.group_kinds * plan.n_groups + plan.tail_kinds
+    return sum(kind.startswith("mamba") for kind in kinds)
 
 
 def _open_gates(model, params) -> int:
@@ -2961,9 +3072,9 @@ def family_serving_model(dev, arch: str) -> dict:
         seconds[name] = now - t0
         t0 = now
 
-    def run(what, fn, k8):
-        """``fn()`` under no_grad, its launches held to ``k8`` of K8 and
-        none of any other kernel."""
+    def run(what, fn, k8, ssd_n=0):
+        """``fn()`` under no_grad, its launches held to ``k8`` of K8,
+        ``ssd_n`` of each SSD kernel and none of any other kernel."""
         before = _launches()
         with torch.no_grad():
             result = fn()
@@ -2971,6 +3082,7 @@ def family_serving_model(dev, arch: str) -> dict:
         got = {k: v - before[k] for k, v in _launches().items()
                if v != before[k]}
         want = {"flash_attention": k8} if k8 else {}
+        want.update({k: ssd_n for k in SSD_KERNELS if ssd_n})
         _require(got == want, f"{arch} {what}: launches {got}, expected "
                               f"{want}")
         return result
@@ -3044,7 +3156,9 @@ def family_serving_model(dev, arch: str) -> dict:
     parts = (SSM_PROFILE_PARTS if cfg.rwkv or cfg.ssm_state
              else FAMILY_PROFILE_PARTS)
     prefill = serve_mod.make_prefill(model, serve_mod.ServeConfig(max_len=t))
-    logits, cache = run("prefill", lambda: prefill(params, tokens, extras), k8)
+    ssd_n = _ssd_per_prefill(cfg)
+    logits, cache = run("prefill", lambda: prefill(params, tokens, extras), k8,
+                        ssd_n)
     step("prefill")
     # CausalLM's logits are f32; Whisper's stay in its dtype
     dtype = (layers.torch_dtype(cfg.dtype) if cfg.family == "audio"
@@ -3064,9 +3178,11 @@ def family_serving_model(dev, arch: str) -> dict:
     head = logits[:, :DECODE_PROMPT].clone()
     tail = logits[:, RAGGED_T - 100:RAGGED_T].clone() if t > RAGGED_T else None
     del logits, cache
-    out.update(peak_memory_bytes=peak, k8_per_prefill=k8)
+    out.update(peak_memory_bytes=peak, k8_per_prefill=k8,
+               ssd_per_prefill=ssd_n)
     log(f"  prefill {PREFILL_B} x {t}: logits {(PREFILL_B, t, cfg.padded_vocab)}"
         f" {str(dtype)[6:]}, finite; K8 launched {k8} times"
+        + (f", each SSD kernel {ssd_n}" if ssd_n else "")
         + (f" ({cfg.encoder_layers} encoder layers, not causal, in forward "
            f"and again in init_cache; {cfg.num_layers} decoder layers, "
            f"causal)" if cfg.family == "audio" else "")
@@ -3087,7 +3203,7 @@ def family_serving_model(dev, arch: str) -> dict:
     if tail is not None:
         k8_ragged = _k8_per_prefill(cfg, RAGGED_T)
         ragged, _ = run("ragged prefill", lambda: prefill(
-            params, tokens[:, :RAGGED_T], extras), k8_ragged)
+            params, tokens[:, :RAGGED_T], extras), k8_ragged, ssd_n)
         _require(ragged.shape[1] == RAGGED_T and _all_finite(ragged),
                  f"{arch} ragged prefill at T={RAGGED_T}")
         diff = _abs_err(ragged[:, -100:], tail)
@@ -3145,7 +3261,8 @@ def family_serving_model(dev, arch: str) -> dict:
               if k in ("frames", "image_embeds")}
     fwd, _ = run("f32 prefill", lambda: serve_mod.make_prefill(
         model, serve_mod.ServeConfig(max_len=F32_CHECK_T))(
-            params, tokens, extras), _k8_per_prefill(cfg32, F32_CHECK_T))
+            params, tokens, extras), _k8_per_prefill(cfg32, F32_CHECK_T),
+        _ssd_per_prefill(cfg32))
     err32, agree32 = _decode_vs_prefill(model, params, tokens, fwd, extras)
     _require(err32 < DECODE_TOL, f"{arch} f32 decode vs prefill max |diff| "
                                  f"{err32} >= {DECODE_TOL}")
@@ -4599,6 +4716,103 @@ def time_flash_backward(dev) -> dict:
     return out
 
 
+def ssd_live_inputs(dev, tokens: int):
+    """What layer 0 of SSD_ARCH hands its SSD on ``tokens`` tokens of one
+    sequence: the model's own functions on a one-layer draw (seed 5, the
+    Mamba layers' constant leaves on their SSM_LEAVES ramps), the
+    embedded tokens normed, through ``mamba2.apply`` up to
+    ``_ssd_chunked``, whose arguments are kept.  Returns (args, chunk,
+    config)."""
+    import torch
+
+    from repro_torch.models import mamba2, transformer
+    from repro_torch.models.registry import build_model
+
+    cfg = _serve_config(arch=SSD_ARCH, num_layers=1,
+                        layer_types=("mamba",))
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = model.init(gen)
+    _set_ssm_leaves(params)
+    ids = torch.randint(0, cfg.vocab_size, (1, tokens), generator=gen,
+                        device=dev)
+    kept = []
+    plain = mamba2._ssd_chunked
+    mamba2._ssd_chunked = lambda *args: kept.append(args) or plain(*args)
+    try:
+        with torch.no_grad():
+            p = params["layers"][0]
+            xn = transformer._norm(cfg, p["norm1"], model._embed(params, ids))
+            mamba2.apply(p["ssm"], xn, transformer._mamba_cfg(cfg))
+    finally:
+        mamba2._ssd_chunked = plain
+    del model, params
+    return kept[0][:5], kept[0][5], cfg
+
+
+def time_ssd(dev) -> dict:
+    """The SSD's kernels (one ``ssd_launch``: its three launches as one
+    call) and ``mamba2._ssd_plain`` on layer 0's live inputs of SSD_ARCH at
+    SSD_TOKENS, beside the least time the card could take: x, dt, B and C
+    read once, y and the final state (f32) written once, against the model
+    products (C B^T and the intra-chunk product at half the square, the
+    chunk states and their read-out), at the dense bf16 rate; the
+    kernels' own work (x read twice, the states written, passed and read;
+    every f32 factor as three bf16 terms) is logged beside it, and each
+    kernel's share of the device time from one profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.models import mamba2
+
+    out = {k: {} for k in SSD_KERNELS}
+    for tokens in SSD_TOKENS:
+        args, chunk, cfg = ssd_live_inputs(dev, tokens)
+        x = args[0]
+        b, t, h, p = x.shape
+        n = args[3].shape[-1]
+        nc = -(-t // chunk)
+        io = (b * t * (h * p * 2 + 2 * n * 2 + h * 4 + h * p * 4)
+              + b * h * p * n * 4)
+        ops = b * nc * (chunk * chunk * n + h * chunk * chunk * p
+                        + 4.0 * chunk * h * p * n)
+        done = b * nc * h * p * n * 4
+        design_bytes = (b * t * (2 * h * p * 2 + 2 * n * 2 + h * 4
+                                 + h * p * 4) + 3 * done + b * nc * h
+                        * chunk * 4)
+        design_ops = b * nc * (chunk * chunk * n + 3.0 * (
+            h * chunk * (chunk + 16) * p + 4.0 * chunk * h * p * n))
+        bound_ms, bound_by = bound(io, ops, BF16_OPS_PER_S)
+        row = {"ms": time_ms(lambda: ssd.ssd_launch(*args, chunk), reps=25),
+               "plain_ms": time_ms(lambda: mamba2._ssd_plain(*args, chunk),
+                                   reps=3, warmup=1),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        case = f"{cfg.name} layer 0 {b}x{t}x{h}x{p} N {n} chunk {chunk}"
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ssd.ssd_launch(*args, chunk)
+            torch.cuda.synchronize()
+        split = {name: sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if f"{name}_kernel" in e.key) / 1e3
+                 for name in SSD_KERNELS}
+        for name in SSD_KERNELS:
+            out[name][case] = row
+        _log_row("ssd", case, row)
+        log(f"  SSD {case}: {bound_ms / row['ms']:.3f} of its bound "
+            f"{bound_ms:.4f} ms ({io / 1e9:.3f} GB, {ops / 1e12:.4f} TFLOP); "
+            f"as designed {design_bytes / 1e9:.3f} GB and {design_ops / 1e12:.4f}"
+            f" TFLOP of three-term products ({bound(design_bytes, design_ops, BF16_OPS_PER_S)[0]:.4f} ms); "
+            f"by kernel (one profiled call) "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+            + f"; plain {row['plain_ms'] / row['ms']:.1f}x the kernels")
+        del args, x
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -4618,6 +4832,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.scatter_add import kernel as sk
+    from repro_torch.kernels.ssd import kernel as ssd
 
     dev = "cuda"
     phase("environment")
@@ -4644,7 +4859,7 @@ def main() -> int:
                                                "scatter_rows_kernel",
                                                "scatter_tiles_kernel",
                                                "scatter_owned_kernel",
-                                               "bincount_"))
+                                               "bincount_", "ssd_"))
                               and any(int(b) for b in spills)),
                          f"{func} spills registers: {line.strip()}")
     for d in (64, 128):
@@ -4709,6 +4924,17 @@ def main() -> int:
         ("flash_bf16_sm90_kernel", 4), ("flash_bwd_prep_kernel", 2),
         ("flash_bwd_dq_kernel", 2), ("flash_bwd_dkdv_kernel", 2))),
              f"K8 instantiations {routes}")
+    # the SSD's products on mma.sync bf16 -> f32 and nothing in TF32, one
+    # instantiation of each chunk kernel a chunk (64, 128, 256) and N (64, 128)
+    ssd_funcs = {f: ops for f, ops in sass.items() if f.startswith("ssd_")}
+    for func, ops in ssd_funcs.items():
+        _require(not any("TF32" in op for op in ops)
+                 and (func == "ssd_state_pass_kernel"
+                      or "HMMA.16816.F32.BF16" in ops),
+                 f"{func}: SASS {ops}")
+    _require(sorted(f.split("<")[0] for f in ssd_funcs)
+             == ["ssd_chunk_scan_kernel"] * 6 + ["ssd_chunk_state_kernel"] * 6
+             + ["ssd_state_pass_kernel"], f"SSD kernels {sorted(ssd_funcs)}")
 
     t0 = phase("kernels against their plain versions")
     err = check_kernels(dev, [(MAIN_PX, 4)] + [(n, 4) for n in PAD_PX]
@@ -4717,6 +4943,7 @@ def main() -> int:
     check_adversarial(dev, err)
     err.update(check_flash_kernel(dev))
     err.update(check_flash_backward(dev))
+    err.update(check_ssd(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s; max |err| {err}")
 
     launches = {k: 0 for k in KERNELS}
@@ -4798,6 +5025,7 @@ def main() -> int:
         hk.reset_launches()
         sk.reset_launches()
         fk.reset_launches()
+        ssd.reset_launches()
         lint = lint_path(dev, Path(tmp), tables, sass)
         torch.cuda.synchronize()
         _require(lint == {"hist_instrumented": 3,
@@ -4812,6 +5040,7 @@ def main() -> int:
     hk.reset_launches()
     sk.reset_launches()
     fk.reset_launches()
+    ssd.reset_launches()
     serving = serving_path(dev)
     torch.cuda.synchronize()
     launches.update({k: fk.LAUNCHES[k] for k in SERVE_KERNELS})
@@ -4825,6 +5054,7 @@ def main() -> int:
         hk.reset_launches()
         sk.reset_launches()
         fk.reset_launches()
+        ssd.reset_launches()
         moe_serving, live = moe_serving_path(dev, Path(tmp) / "tables", err)
         torch.cuda.synchronize()
         moe_launches = {k: {**fk.LAUNCHES, **sk.LAUNCHES}[k]
@@ -4841,6 +5071,7 @@ def main() -> int:
     hk.reset_launches()
     sk.reset_launches()
     fk.reset_launches()
+    ssd.reset_launches()
     family_serving_path(dev)
     torch.cuda.synchronize()
     family_launches = {k: n for k, n in _launches().items() if n}
@@ -4856,10 +5087,11 @@ def main() -> int:
     hk.reset_launches()
     sk.reset_launches()
     fk.reset_launches()
+    ssd.reset_launches()
     family_serving_path(dev, SSM_SERVE)
     torch.cuda.synchronize()
     ssm_launches = {k: n for k, n in _launches().items() if n}
-    _require(ssm_launches.keys() == set(SERVE_KERNELS),
+    _require(ssm_launches.keys() == set(SERVE_KERNELS + SSD_KERNELS),
              f"rwkv6/zamba2 serving path launched {ssm_launches}")
     for k, n in ssm_launches.items():
         by_path[k]["ssm"] = n
@@ -4872,6 +5104,7 @@ def main() -> int:
         hk.reset_launches()
         sk.reset_launches()
         fk.reset_launches()
+        ssd.reset_launches()
         training_path(dev, Path(tmp), err)
         torch.cuda.synchronize()
         train_launches = {k: n for k, n in _launches().items() if n}
@@ -4889,6 +5122,7 @@ def main() -> int:
     hk.reset_launches()
     sk.reset_launches()
     fk.reset_launches()
+    ssd.reset_launches()
     mesh_path(dev)
     torch.cuda.synchronize()
     mesh_launches = {k: n for k, n in _launches().items() if n}
@@ -4913,6 +5147,7 @@ def main() -> int:
     del live
     times.update(time_flash_kernel(dev))
     times.update(time_flash_backward(dev))
+    times.update(time_ssd(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s")
 
     heads = {
@@ -4940,6 +5175,11 @@ def main() -> int:
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         heads[name] = (grad_case, f"{grad_case}; launches over the training "
                                   f"and mesh paths' steps")
+    ssd_case_name = next(iter(times["ssd_chunk_scan"]))
+    for name in SSD_KERNELS:
+        heads[name] = (ssd_case_name, f"{ssd_case_name}: the three kernels "
+                       f"as one call (ssd_launch); launches over zamba2's "
+                       f"bf16 prefills, one a Mamba-2 layer")
     heads["hist_instrumented"] = heads["hist_weighted"] = heads["hist"]
     heads["scatter_add_instrumented"] = heads["scatter_add"]
     # K1 has no launch of its own: it is a device function that K3 and K6

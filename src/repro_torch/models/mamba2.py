@@ -3,10 +3,12 @@ mixer.
 
 Selective state-space with scalar-per-head decay, evaluated with the
 chunked state-space-duality algorithm: the intra-chunk quadratic (matmul)
-term and the inter-chunk state recurrence (a Python loop over chunks),
-as the reference's ``models/mamba2.py`` computes them, in f32 with
-``torch.einsum``; no kernel of its own (the reference computes SSD
-outside any Pallas kernel too).  The intra-chunk decay is the SSD
+term and the inter-chunk state recurrence, in f32.  On the card, for
+bf16 inputs without a gradient, it runs as hand-written Hopper kernels
+(``kernels/ssd``, no TPU counterpart: the reference computes SSD outside
+any Pallas kernel); everywhere else as the reference's
+``models/mamba2.py`` computes it, with ``torch.einsum`` and a Python loop
+over chunks (``_ssd_plain``).  The intra-chunk decay is the SSD
 paper's segment sum, ``exp(cum_i - cum_j)`` over ``j <= i``, whose
 exponent is never positive: the reference's ``exp(cum_i) * exp(-cum_j)``
 overflows f32 once a chunk's summed log decay passes about 88 (chunk 256
@@ -14,9 +16,11 @@ at dt 0.05 and A -8 does).  Decode carries the (H, P, N) state and a
 small causal-conv ring, O(1) in sequence length.
 
 The block is the ``telemetry`` span ``ssm`` (in_proj, conv, SSD, gated
-norm, out_proj) with the SSD inside it as ``ssm.scan``; while the
-profiler records, ``repro_ssm_chunks_total`` (``CHUNKS``) counts the
-chunks the SSD processes, batch x chunks a call, as a host integer.
+norm, out_proj) with the SSD inside it as ``ssm.scan`` (the plain
+version's chunk loop inside that as ``CHUNK_LOOP``); while the profiler
+records, ``repro_ssm_chunks_total`` (``CHUNKS``) counts the chunks the
+SSD processes, batch x chunks a call, as a host integer, on either
+route.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.models import layers
 from repro_torch.obs import telemetry
 from repro_torch.parallel import collectives as coll
@@ -105,10 +110,23 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     """SSD: x (B,T,H,P), dt (B,T,H) f32, a (H,) f32 (negative),
     b/c (B,T,N).  Returns y (B,T,H,P) f32 and the final state
-    (B,H,P,N).  The pairwise decay is the segment sum ``exp(cum_i -
-    cum_j)`` for j <= i and 0 above the diagonal; where autograd will not
-    differentiate through it, it is made in place, one (B, chunks, H, L,
-    L) f32 tensor at a time."""
+    (B,H,P,N).  Where ``ssd.kernel_route`` admits the inputs (bf16 x/B/C
+    on the card, no gradient, P 64, N 64 or 128, chunk 64, 128 or 256)
+    the Hopper kernels compute it (``ssd.ssd_launch``); everywhere else
+    ``_ssd_plain``.  Either way the chunks count batch x chunks."""
+    if telemetry.tracing():
+        CHUNKS.inc(x.shape[0] * -(-x.shape[1] // chunk))
+    if ssd.takes(x, dt, a, b_mat, c_mat, chunk):
+        return ssd.ssd_launch(x, dt, a, b_mat, c_mat, chunk)
+    return _ssd_plain(x, dt, a, b_mat, c_mat, chunk)
+
+
+def _ssd_plain(x, dt, a, b_mat, c_mat, chunk: int):
+    """``_ssd_chunked`` in f32 PyTorch, the kernels' plain version.  The
+    pairwise decay is the segment sum ``exp(cum_i - cum_j)`` for j <= i
+    and 0 above the diagonal; where autograd will not differentiate
+    through it, it is made in place, one (B, chunks, H, L, L) f32 tensor
+    at a time."""
     bsz, t0, h, p = x.shape
     n = b_mat.shape[-1]
     pad = (-t0) % chunk
@@ -118,8 +136,6 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
                             for a_ in (dt, b_mat, c_mat))
     t = t0 + pad
     nc = t // chunk
-    if telemetry.tracing():
-        CHUNKS.inc(bsz * nc)
     grad = torch.is_grad_enabled() and any(
         v.requires_grad for v in (x, dt, a, b_mat, c_mat))
     da = (dt * a).reshape(bsz, nc, chunk, h)             # log decay per step
