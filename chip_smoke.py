@@ -115,6 +115,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -888,6 +889,68 @@ def check_flash_kernel(dev) -> dict[str, float]:
                                                   seed=8), causal, None, None)
         torch.cuda.empty_cache()
     return {"flash_attention": worst}
+
+
+# DeepSeek-V3's latent attention: q·k heads of 192, v heads of 128, one KV
+# head a query head, at its YaRN softmax scale; its prefill's shapes of
+# 16,384 tokens (``tests/test_torch_kernels_cuda.py`` holds the same)
+MLA_HEADS, MLA_DQK, MLA_DV = 128, 192, 128
+MLA_SCALE = 192 ** -0.5 * (0.1 * math.log(40.0) + 1.0) ** 2
+MLA_SHAPES = ((1, 16384), (2, 8192), (4, 4096))
+
+
+def mla_case(b, t, dev, seed=0, h=MLA_HEADS):
+    """Seeded normal bf16 q, k (B, H, T, 192) and v (B, H, T, 128)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, h, t, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for d in (MLA_DQK, MLA_DQK, MLA_DV)]
+
+
+def check_flash_mla(dev) -> float:
+    """K8 at q·k 192 and v 128 (``flash_mla_sm90_kernel``) against f32
+    attention of its bf16 inputs, a block of heads at a time, at the
+    prefill's three shapes and at ragged T: each element within 1.6e-2
+    |out| + 2^-8 sum_j p_j |v_j|, the mean |err| within 2^-8 of the mean
+    |out| (the scaled bf16 bound).  Returns the max |err|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    worst = 0.0
+    cases = [(2, t, 8) for t in (1, 127, 129, RAGGED_T)]
+    cases += [(b, t, MLA_HEADS) for b, t in MLA_SHAPES]
+    for b, t, h in cases:
+        q, k, v = mla_case(b, t, dev, seed=t, h=h)
+        got = fk.flash_attention_launch(q, k, v, causal=True,
+                                        scale=MLA_SCALE).float()
+        torch.cuda.synchronize()
+        above = torch.ones((t, t), dtype=torch.bool, device=dev).triu_(1)
+        per = max(1, (1 << 32) // (b * t * t * 4))
+        err_sum = mag_sum = 0.0
+        for i in range(0, h, per):
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, i:i + per].float(),
+                             k[:, i:i + per].float()).mul_(MLA_SCALE)
+            p = torch.softmax(s.masked_fill_(above, -2.0e38), -1)
+            del s
+            vs = v[:, i:i + per].float()
+            want = p @ vs
+            err = (got[:, i:i + per] - want).abs()
+            _require(bool((err <= 1.6e-2 * want.abs()
+                           + 2.0 ** -8 * (p @ vs.abs())).all()),
+                     f"K8 MLA ({b}, {h}, {t}): an element past its bound")
+            worst = max(worst, float(err.max()))
+            err_sum += float(err.sum())
+            mag_sum += float(want.abs().sum())
+            del p, want, err
+        _require(err_sum <= 2.0 ** -8 * mag_sum,
+                 f"K8 MLA ({b}, {h}, {t}): mean |err| {err_sum / mag_sum}")
+        log(f"  K8 MLA ({b}, {h}, {t}, 192/128) bf16 causal: max |err| "
+            f"{worst:.3g}; mean |err| / mean |out| {err_sum / mag_sum:.3g}"
+            f" (bound {2.0 ** -8:.3g})")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return worst
 
 
 def _flash_grad_reference(q, k, v, dout, causal, group):
@@ -4658,6 +4721,56 @@ def time_flash_kernel(dev) -> dict:
     return {"flash_attention": out}
 
 
+def time_flash_mla(dev) -> dict:
+    """K8 at q·k 192 and v 128 (``flash_mla_sm90_kernel``) at the
+    prefill's three shapes of 16,384 tokens (MLA_SHAPES, 128 heads,
+    causal), as ``time_flash_kernel`` times the other routes: operations
+    2 B H (192 + 128) T (T + 1) / 2, bytes q, k, v and the output once.
+    The plain version runs a block of 8 heads a call (its f32 scores of
+    all 128 would take 137 GB at T = 16,384), its time summed over the
+    blocks; the library yardstick is ``scaled_dot_product_attention``
+    at the same two head sizes, timed here only.  Returns K8's rows by
+    case."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    out = {}
+    per = 8
+    for b, t in MLA_SHAPES:
+        q, k, v = mla_case(b, t, dev, seed=5)
+        flops = 2.0 * b * MLA_HEADS * (MLA_DQK + MLA_DV) * t * (t + 1) / 2
+        nbytes = (q.numel() + k.numel() + 2 * v.numel()) * q.element_size()
+        bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
+
+        def plain():
+            for i in range(0, MLA_HEADS, per):
+                fk.attention_plain(q[:, i:i + per], k[:, i:i + per],
+                                   v[:, i:i + per], causal=True,
+                                   scale=MLA_SCALE)
+        case = f"MLA prefill {b}x{MLA_HEADS}x{t}x192/128 bf16 causal"
+        row = {
+            "ms": time_ms(lambda: fk.flash_attention_launch(
+                q, k, v, causal=True, scale=MLA_SCALE), reps=25),
+            "plain_ms": time_ms(plain, reps=2, warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=MLA_SCALE), reps=25),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        _log_row("flash_attention", case, row)
+        log(f"  K8 MLA bound: {flops:.4g} useful flop = "
+            f"{flops / BF16_OPS_PER_S * 1e3:.4f} ms; {nbytes:.4g} bytes = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; kernel at "
+            f"{flops / row['ms'] / 1e9:.1f} TFLOP/s useful, "
+            f"{bound_ms / row['ms']:.3f} of the bound")
+        out[case] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_flash_backward(dev) -> dict:
     """K8 under autograd at its live train shapes (FLASH_GRAD_LIVE, causal
     at T = TRAIN_T): the forward with the LSE store beside the prefill's
@@ -4899,7 +5012,7 @@ def main() -> int:
     # f32); bf16 at d = 16, 32 on mma.sync; bf16 at d = 64, 128 on bf16
     # wgmma fed by TMA loads
     routes = {"flash_f32_kernel": 0, "flash_bf16_kernel": 0,
-              "flash_bf16_sm90_kernel": 0}
+              "flash_bf16_sm90_kernel": 0, "flash_mla_sm90_kernel": 0}
     for func, ops in sass.items():
         name = func.split("<")[0]
         if name == "flash_f32_kernel":
@@ -4907,8 +5020,8 @@ def main() -> int:
                      f"{func} compiled to tensor-core ops {ops}")
         elif name == "flash_bf16_kernel":
             _require("HMMA.16816.F32.BF16" in ops, f"{func}: SASS {ops}")
-        elif name in ("flash_bf16_sm90_kernel", "flash_bwd_dq_kernel",
-                      "flash_bwd_dkdv_kernel"):
+        elif name in ("flash_bf16_sm90_kernel", "flash_mla_sm90_kernel",
+                      "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"):
             _require(any(op.startswith("HGMMA") and "F32.BF16" in op
                          for op in ops)
                      and any(op.startswith("UTMALDG") for op in ops),
@@ -4918,10 +5031,12 @@ def main() -> int:
             _require(not any(op.startswith(("ATOM", "RED")) for op in ops),
                      f"{func}: atomics in {ops}")
         routes[name] = routes.get(name, 0) + 1
-    # the Hopper forward twice a head size: without and with the LSE store
+    # the Hopper forward twice a head size: without and with the LSE store;
+    # latent attention's pair once, without
     _require(all(routes.get(r) == n for r, n in (
         ("flash_f32_kernel", 4), ("flash_bf16_kernel", 2),
-        ("flash_bf16_sm90_kernel", 4), ("flash_bwd_prep_kernel", 2),
+        ("flash_bf16_sm90_kernel", 4), ("flash_mla_sm90_kernel", 1),
+        ("flash_bwd_prep_kernel", 2),
         ("flash_bwd_dq_kernel", 2), ("flash_bwd_dkdv_kernel", 2))),
              f"K8 instantiations {routes}")
     # the SSD's products on mma.sync bf16 -> f32 and nothing in TF32, one
@@ -4942,6 +5057,8 @@ def main() -> int:
     err.update(check_scatter_kernels(dev))
     check_adversarial(dev, err)
     err.update(check_flash_kernel(dev))
+    err["flash_attention"] = max(err["flash_attention"],
+                                 check_flash_mla(dev))
     err.update(check_flash_backward(dev))
     err.update(check_ssd(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s; max |err| {err}")
@@ -5146,6 +5263,7 @@ def main() -> int:
     times.update(time_scatter_kernels(dev, live))
     del live
     times.update(time_flash_kernel(dev))
+    times["flash_attention"].update(time_flash_mla(dev))
     times.update(time_flash_backward(dev))
     times.update(time_ssd(dev))
     log(f"  ok in {time.perf_counter() - t0:.1f} s")

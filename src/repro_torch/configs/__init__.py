@@ -29,6 +29,7 @@ ARCHS = {
 # ``ARCHS`` (the reference's table, one for one) leaves them out
 PORT_ARCHS = {
     "granite-4.0-h-small": "granite_4_0_h_small",
+    "deepseek-v3": "deepseek_v3",
 }
 
 

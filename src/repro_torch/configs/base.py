@@ -197,7 +197,14 @@ class PortConfig(ModelConfig):
     ``embedding_multiplier``, each mixer's and FFN's output times
     ``residual_multiplier`` before its residual add, attention without
     position embeddings (``nope``) at the softmax scale
-    ``attention_multiplier``, and the logits over ``logits_scaling``."""
+    ``attention_multiplier``, and the logits over ``logits_scaling``.
+
+    DeepSeek-V3 (``deepseek_v3``) sets the latent attention's ranks and
+    head sizes (``models/mla.py``), YaRN's rotary parameters, the sigmoid
+    router's (``models/moe.py``), ``first_k_dense`` leading layers with a
+    dense FFN of width ``d_ff_dense``, and, cut to one card of an
+    expert-parallel deployment, the share of the routed experts the card
+    holds (``experts_held`` from ``expert_offset``)."""
     layer_types: tuple = ModelConfig.layer_types
     d_shared: int = ModelConfig.d_shared
     embedding_multiplier: float = ModelConfig.embedding_multiplier
@@ -206,6 +213,32 @@ class PortConfig(ModelConfig):
     logits_scaling: float = ModelConfig.logits_scaling
     norm_eps: float = ModelConfig.norm_eps
     nope: bool = ModelConfig.nope
+    # latent attention (MLA): low-rank q and kv projections, a rotary part
+    # of each head shared by all heads, and v at a head size of its own
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0       # 0: no latent attention
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_k_dense: int = 0      # leading layers with a dense FFN
+    d_ff_dense: int = 0         # their width
+    # the router: "softmax" (top-k renormalised) or "sigmoid" (a selection
+    # bias, group-limited top-k, weights renormalised times routed_scale)
+    router: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+    # YaRN's rotary frequencies and softmax temperature (rope_factor 1:
+    # none)
+    rope_factor: float = 1.0
+    rope_original_max: int = 0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale_all_dim: float = 0.0
+    # the routed experts this card holds: [expert_offset, expert_offset +
+    # experts_held) of num_experts (0: all of them)
+    experts_held: int = 0
+    expert_offset: int = 0
 
     def __post_init__(self):
         # a configuration file gives a list
@@ -227,25 +260,66 @@ class PortConfig(ModelConfig):
         return [(mamba if kind == "mamba" else attn) + ffn + 2 * d
                 for kind in self.layer_types]
 
+    def _mla_layer_params(self, experts: int) -> list:
+        """Each layer's parameters of a latent-attention model with
+        ``experts`` routed experts a token or a layer: the attention's
+        projections and norms, then a dense FFN (the first
+        ``first_k_dense``) or the router, its bias, the experts and the
+        shared expert."""
+        d, h = self.d_model, self.num_heads
+        qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+        attn = (d * self.q_lora_rank + self.q_lora_rank
+                + self.q_lora_rank * h * qk
+                + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank
+                + self.kv_lora_rank * h * (self.qk_nope_head_dim
+                                           + self.v_head_dim)
+                + h * self.v_head_dim * d)
+        dense = 3 * d * self.d_ff_dense
+        moe = (d * self.num_experts + self.num_experts
+               + 3 * d * self.d_expert * experts
+               + 3 * d * (self.d_shared or self.d_expert
+                          * self.num_shared_experts))
+        return [attn + (dense if i < self.first_k_dense else moe) + 2 * d
+                for i in range(self.num_layers)]
+
+    def _each_layer(self, experts: int) -> list:
+        if self.kv_lora_rank:
+            return self._mla_layer_params(experts)
+        return self._layer_params(experts)
+
     def param_count(self) -> float:
         """Every parameter: the conv's taps and bias, the norms and the
-        heads' vectors included."""
+        heads' vectors included; of the routed experts, those the card
+        holds."""
         emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings
                                                 else 2)
-        return sum(self._layer_params(self.num_experts)) + emb + self.d_model
+        held = self.experts_held or self.num_experts
+        return sum(self._each_layer(held)) + emb + self.d_model
 
     def active_param_count(self) -> float:
         """A token's: its ``top_k`` experts, the shared expert and the
         router."""
         emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings
                                                 else 2)
-        return sum(self._layer_params(self.top_k)) + emb + self.d_model
+        return sum(self._each_layer(self.top_k)) + emb + self.d_model
 
     def reduced(self) -> "PortConfig":
         """``ModelConfig.reduced``, with two periods of a pattern of one
         layer of each published kind and a shared expert twice as wide as
-        an expert, as the published one is."""
+        an expert, as the published one is.  A latent-attention model
+        keeps every mechanism: one leading dense layer and three MoE
+        layers, q·k and v head sizes that differ, YaRN, two groups of
+        experts of which the router keeps one, and half the experts
+        held."""
         small = super().reduced()
+        if self.kv_lora_rank:
+            return dataclasses.replace(
+                small, q_lora_rank=48, kv_lora_rank=32, qk_nope_head_dim=16,
+                qk_rope_head_dim=8, v_head_dim=16,
+                first_k_dense=min(1, self.first_k_dense), d_ff_dense=256,
+                n_group=min(2, self.n_group), topk_group=1,
+                experts_held=small.num_experts // 2, expert_offset=0)
         kinds = tuple(dict.fromkeys(self.layer_types)) * 2
         return dataclasses.replace(
             small, num_layers=len(kinds), layer_types=kinds,

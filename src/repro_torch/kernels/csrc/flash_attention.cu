@@ -30,8 +30,15 @@
 //     in f32 before QK^T as in the reference.  A block takes 16 query rows
 //     of one (b, h), four rows a warp; a lane takes one key of each
 //     32-key tile for the scores and d/32 output columns for P V.
-//   * bf16 at d = 64 and 128 (every attention config of the port):
-//     flash_bf16_sm90_kernel, the Hopper design below.
+//   * bf16 at d = 64 and 128 (every attention config of the port but one):
+//     flash_bf16_sm90_kernel, the Hopper design below;
+//   * bf16 at q.k 192 and v 128 (DeepSeek-V3's latent attention, its
+//     prefill): flash_mla_sm90_kernel, the same design at two head sizes,
+//     with V and the output at their own 128 columns (padding V to 192
+//     would waste a third of the P V product and of V's bytes).  It has
+//     no backward and no f32 route.  Bound by operations, as at d = 128:
+//     a 16,384-token prefill of 128 heads is 1.1e13 useful flop (11.1 ms
+//     at 989 TFLOP/s) against 2.7 GB of q, k, v and output (0.8 ms).
 //   * bf16 at d = 16 and 32 (the reference test's shapes): mma.sync.m16n8k16
 //     in flash_bf16_kernel.  A block takes 64 query rows, 16 a warp; K and
 //     V tiles of 64 keys are copied through shared memory by all threads.
@@ -404,20 +411,29 @@ constexpr int kSm90Threads = kSm90Consumers + 128;  // and one producer warpgrou
 constexpr int kBoxCols = 64;                     // 128 bytes: the swizzle's span
 constexpr int kQRegion = kSm90Rows * 128;        // bytes of one box of Q
 
-template <int D>
+// DK: the head size of q and k; DV: that of v and the output.  DK = DV = 64
+// or 128 for every attention config of the port but one; DeepSeek-V3's
+// latent attention (MLA) attends at DK = 192 (128 + its 64 rotary columns)
+// and DV = 128, and V is not padded to 192.
+template <int DK, int DV>
 struct Sm90Layout {
   // keys per K/V tile: the most that keeps a consumer within the 168
   // registers ptxas gives a thread of a 384-thread block (at d = 128, 128
-  // keys would need about 190, and ptxas then serialises the wgmma)
-  static constexpr int kKeys = D == 128 ? 64 : 128;
+  // keys would need about 190, and ptxas then serialises the wgmma); the
+  // registers follow DV (the output) and the keys, so (192, 128) is d = 128's
+  static constexpr int kKeys = DK <= 64 && DV <= 64 ? 128 : 64;
   static constexpr int kKVRegion = kKeys * 128;  // bytes of one box of a K or V tile
-  static constexpr int kBoxes = D / kBoxCols;    // boxes per row of a tile
-  static constexpr int kStages = 65536 / (kKeys * D * 2);  // 128 KB of K and V
-  static constexpr int kQBytes = kSm90Rows * D * 2;
-  static constexpr int kTileBytes = kKeys * D * 2;       // one K or V tile
+  static constexpr int kBoxesK = DK / kBoxCols;  // boxes per row of a Q or K tile
+  static constexpr int kBoxesV = DV / kBoxCols;  // boxes per row of a V tile
+  // 128 KB of K and V at d = 64 and 128; 160 KB at (192, 128)
+  static constexpr int kStages = 4;
+  static constexpr int kQBytes = kSm90Rows * DK * 2;
+  static constexpr int kTileK = kKeys * DK * 2;          // one K tile
+  static constexpr int kTileV = kKeys * DV * 2;          // one V tile
+  static constexpr int kStageBytes = kTileK + kTileV;    // K, then V
   static constexpr int kBarriers = 1 + 3 * kStages;      // q, full K, full V, empty
   // 1024: the 128-byte swizzle wants every box 1024-byte aligned
-  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers;
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 8 * kBarriers;
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -655,27 +671,27 @@ __device__ __forceinline__ void to_a_fragments(const float (&sc)[N], uint32_t (&
   }
 }
 
-// q, o: (B, H, T, D); k, v: (B, H / group, T, D); tq, tk, tv map q, k and v
-// as (B H, T, D) and (B H / group, T, D) in boxes of 64 columns by 128 rows
-// (q) and by a tile's keys (k, v).
+// q: (B, H, T, DK); k: (B, H / group, T, DK); v: (B, H / group, T, DV); o:
+// (B, H, T, DV); tq, tk, tv map q, k and v as (B H, T, d) and (B H / group,
+// T, d) in boxes of 64 columns by 128 rows (q) and by a tile's keys (k, v).
 // kLse: also store each row's log-sum-exp of its scaled scores, f32 (B, H, T)
 // at lse, for the backward; the prefill's instantiation has no such store.
-template <int D, bool kLse>
-__global__ void __launch_bounds__(kSm90Threads, 1)
-    flash_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int heads, int group, int t, int causal,
-                           float scale) {
-  using L = Sm90Layout<D>;
+// The body of both Hopper kernels below, inlined into each.
+template <int DK, int DV, bool kLse>
+__device__ __forceinline__ void sm90_attention(const CUtensorMap& tq, const CUtensorMap& tk,
+                                               const CUtensorMap& tv,
+                                               __nv_bfloat16* __restrict__ o,
+                                               float* __restrict__ lse, int heads, int group,
+                                               int t, int causal, float scale) {
+  using L = Sm90Layout<DK, DV>;
   constexpr int kKeys = L::kKeys;
   constexpr int kPV = kKeys / 16;                // k-steps of P V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
-  const uint32_t q_s = base;                     // Q, kBoxes boxes of 128 rows
-  const uint32_t kv_s = base + L::kQBytes;       // stage s: K at kv_s + 2 s tile, then V
-  const uint32_t q_full = kv_s + 2 * L::kStages * L::kTileBytes;
+  const uint32_t q_s = base;                     // Q, kBoxesK boxes of 128 rows
+  const uint32_t kv_s = base + L::kQBytes;       // stage s: K at kv_s + s stage, then V
+  const uint32_t q_full = kv_s + L::kStages * L::kStageBytes;
   const uint32_t full_k = q_full + 8, full_v = full_k + 8 * L::kStages;
   const uint32_t empty = full_v + 8 * L::kStages;
 
@@ -706,18 +722,18 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == kSm90Consumers) {
       mbar_expect_tx(q_full, L::kQBytes);
-      for (int c = 0; c < L::kBoxes; ++c)
+      for (int c = 0; c < L::kBoxesK; ++c)
         tma_load(q_s + c * kQRegion, &tq, q_full, c * kBoxCols, q0, q_head);
       for (int i = 0; i < n_kv; ++i) {
         const int s = i % L::kStages;
-        const uint32_t ks = kv_s + 2 * s * L::kTileBytes, vs = ks + L::kTileBytes;
+        const uint32_t ks = kv_s + s * L::kStageBytes, vs = ks + L::kTileK;
         mbar_wait(empty + 8 * s, ((i / L::kStages) & 1) ^ 1);  // round 0 passes
-        mbar_expect_tx(full_k + 8 * s, L::kTileBytes);
-        for (int c = 0; c < L::kBoxes; ++c)
+        mbar_expect_tx(full_k + 8 * s, L::kTileK);
+        for (int c = 0; c < L::kBoxesK; ++c)
           tma_load(ks + c * L::kKVRegion, &tk, full_k + 8 * s, c * kBoxCols, i * kKeys,
                    kv_head);
-        mbar_expect_tx(full_v + 8 * s, L::kTileBytes);
-        for (int c = 0; c < L::kBoxes; ++c)
+        mbar_expect_tx(full_v + 8 * s, L::kTileV);
+        for (int c = 0; c < L::kBoxesV; ++c)
           tma_load(vs + c * L::kKVRegion, &tv, full_v + 8 * s, c * kBoxCols, i * kKeys,
                    kv_head);
       }
@@ -736,10 +752,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
     // acc[4 n + e]: output column 8 n + 2 tig + (e & 1) of row0 (e < 2) or row1;
     // sc[4 n + e]: key 8 n + 2 tig + (e & 1) of the tile, the same rows
-    float acc[D / 2], sc[kKeys / 2];
+    float acc[DV / 2], sc[kKeys / 2];
     uint32_t p[kPV][4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
     const auto masked = [&](int i) {             // the tile crosses the diagonal or T
       const int kv0 = i * kKeys;
       return kv0 + kKeys > t || (causal && kv0 + kKeys - 1 > first);
@@ -759,7 +775,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     mbar_wait(q_full, 0);
     mbar_wait(full_k, 0);
     turn_begin();
-    issue_scores<D>(sc, q_wg, kv_s);
+    issue_scores<DK>(sc, q_wg, kv_s);
     turn_end(false);
     wgmma_wait<0>();
     hold(sc);
@@ -773,9 +789,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       mbar_wait(full_k + 8 * s, (i / L::kStages) & 1);
       mbar_wait(full_v + 8 * sp, ((i - 1) / L::kStages) & 1);
       turn_begin();
-      issue_scores<D>(sc, q_wg, kv_s + 2 * s * L::kTileBytes);
+      issue_scores<DK>(sc, q_wg, kv_s + s * L::kStageBytes);
       hold(acc);
-      issue_pv(acc, p, kv_s + (2 * sp + 1) * L::kTileBytes);
+      issue_pv(acc, p, kv_s + sp * L::kStageBytes + L::kTileK);
       turn_end(false);
       wgmma_wait<1>();                           // S_i is done
       hold(sc);
@@ -785,7 +801,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       hold(acc);
       mbar_arrive(empty + 8 * sp);
 #pragma unroll
-      for (int j = 0; j < D / 2; j += 4) {
+      for (int j = 0; j < DV / 2; j += 4) {
         acc[j] *= corr.x;
         acc[j + 1] *= corr.x;
         acc[j + 2] *= corr.y;
@@ -797,22 +813,22 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     mbar_wait(full_v + 8 * sl, ((n_kv - 1) / L::kStages) & 1);
     hold(acc);
     turn_begin();
-    issue_pv(acc, p, kv_s + (2 * sl + 1) * L::kTileBytes);
+    issue_pv(acc, p, kv_s + sl * L::kStageBytes + L::kTileK);
     turn_end(true);
     wgmma_wait<0>();
     hold(acc);
     mbar_arrive(empty + 8 * sl);
 
     const float inv0 = 1.0f / fmaxf(sm.l0, 1e-30f), inv1 = 1.0f / fmaxf(sm.l1, 1e-30f);
-    __nv_bfloat16* oh = o + (size_t)q_head * t * D;
+    __nv_bfloat16* oh = o + (size_t)q_head * t * DV;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const int col = n * 8 + tig * 2;
       if (row0 < t)
-        *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * D + col) =
+        *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * DV + col) =
             pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
       if (row1 < t)
-        *reinterpret_cast<uint32_t*>(oh + (size_t)row1 * D + col) =
+        *reinterpret_cast<uint32_t*>(oh + (size_t)row1 * DV + col) =
             pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
     }
     if constexpr (kLse) {
@@ -825,6 +841,28 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       }
     }
   }
+}
+
+// The Hopper route at d = 64 and 128 (DK = DV = D)
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int heads, int group, int t, int causal,
+                           float scale) {
+  sm90_attention<D, D, kLse>(tq, tk, tv, o, lse, heads, group, t, causal, scale);
+}
+
+// The Hopper route of latent attention's prefill: q and k at 192 columns,
+// v and the output at 128.  Without a gradient: no cell trains such a model.
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_mla_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int heads, int group, int t, int causal,
+                          float scale) {
+  sm90_attention<192, 128, false>(tq, tk, tv, o, lse, heads, group, t, causal, scale);
 }
 
 // -------------------------------------------------------------------------
@@ -1283,20 +1321,31 @@ bool encode_map(CUtensorMap* map, const void* ptr, int d, int t, int heads, int 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kLse>
+// the Hopper route's kernel at (DK, DV): flash_bf16_sm90_kernel<D, kLse> at
+// DK = DV = D, flash_mla_sm90_kernel at (192, 128)
+template <int DK, int DV, bool kLse>
+auto sm90_kernel() {
+  if constexpr (DK == DV)
+    return flash_bf16_sm90_kernel<DK, kLse>;
+  else
+    return flash_mla_sm90_kernel;
+}
+
+template <int DK, int DV, bool kLse>
 int launch_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
                 int heads, int group, int t, int causal, float scale, cudaStream_t stream) {
-  using L = Sm90Layout<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_sm90_kernel<D, kLse>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  using L = Sm90Layout<DK, DV>;
+  const auto kernel = sm90_kernel<DK, DV, kLse>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, D, t, batch * heads, kSm90Rows) ||
-      !encode_map(&tk, k, D, t, batch * (heads / group), L::kKeys) ||
-      !encode_map(&tv, v, D, t, batch * (heads / group), L::kKeys))
+  if (!encode_map(&tq, q, DK, t, batch * heads, kSm90Rows) ||
+      !encode_map(&tk, k, DK, t, batch * (heads / group), L::kKeys) ||
+      !encode_map(&tv, v, DV, t, batch * (heads / group), L::kKeys))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((t + kSm90Rows - 1) / kSm90Rows, heads, batch);
-  flash_bf16_sm90_kernel<D, kLse><<<grid, kSm90Threads, L::kSmem, stream>>>(
+  kernel<<<grid, kSm90Threads, L::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, heads, group, t, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -1357,8 +1406,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), heads, group, t, causal, scale);
   } else if constexpr (D == 64 || D == 128) {
-    return launch_sm90<D, false>(q, k, v, o, nullptr, batch, heads, group, t, causal, scale,
-                                 stream);
+    return launch_sm90<D, D, false>(q, k, v, o, nullptr, batch, heads, group, t, causal,
+                                    scale, stream);
   } else {
     const dim3 grid((t + kMmaRows - 1) / kMmaRows, heads, batch);
     flash_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
@@ -1373,17 +1422,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 
 extern "C" {
 
-// q, o: (batch, heads, t, d); k, v: (batch, heads / group, t, d); all
-// contiguous, 16-byte aligned, of one dtype: 0 = f32, 1 = bf16.
-// d is 16, 32, 64 or 128.  scale is d^-0.5.  bf16 at d = 64 or 128 runs
-// the Hopper route; a tensor map it cannot encode returns
-// cudaErrorInvalidValue.
+// q: (batch, heads, t, d); k: (batch, heads / group, t, d); v: (batch,
+// heads / group, t, dv); o: (batch, heads, t, dv); all contiguous, 16-byte
+// aligned, of one dtype: 0 = f32, 1 = bf16.  d = dv is 16, 32, 64 or 128,
+// and (d, dv) = (192, 128) takes bf16 alone.  scale is usually d^-0.5.  bf16
+// at d = dv = 64 or 128, and at (192, 128), runs the Hopper route; a tensor
+// map it cannot encode returns cudaErrorInvalidValue.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int batch,
-                          int heads, int group, int t, int d, int dtype, int causal,
+                          int heads, int group, int t, int d, int dv, int dtype, int causal,
                           float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || group < 1 || heads % group != 0 || t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dv != d) {
+    if (d != 192 || dv != 128 || dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_sm90<192, 128, false>(q, k, v, o, nullptr, batch, heads, group, t, causal,
+                                        scale, s);
+  }
   switch (d) {
     case 16:
       return launch<16>(q, k, v, o, batch, heads, group, t, dtype, causal, scale, s);
@@ -1408,9 +1463,11 @@ int repro_flash_attention_lse(const void* q, const void* k, const void* v, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_sm90<64, true>(q, k, v, o, lse, batch, heads, group, t, causal, scale, s);
+      return launch_sm90<64, 64, true>(q, k, v, o, lse, batch, heads, group, t, causal, scale,
+                                       s);
     case 128:
-      return launch_sm90<128, true>(q, k, v, o, lse, batch, heads, group, t, causal, scale, s);
+      return launch_sm90<128, 128, true>(q, k, v, o, lse, batch, heads, group, t, causal,
+                                         scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1452,13 +1509,15 @@ int repro_flash_attention_bwd_smem(int d, int kernel) {
 }
 
 // bytes of dynamic shared memory a block of the bf16 route takes at head
-// size d: the Hopper route's Q and K/V ring, 0 on the mma.sync route
-int repro_flash_attention_smem(int d) {
+// sizes (d, dv): the Hopper route's Q and K/V ring, 0 on the mma.sync route
+int repro_flash_attention_smem(int d, int dv) {
+  if (d == 192 && dv == 128) return Sm90Layout<192, 128>::kSmem;
+  if (dv != d) return 0;
   switch (d) {
     case 64:
-      return Sm90Layout<64>::kSmem;
+      return Sm90Layout<64, 64>::kSmem;
     case 128:
-      return Sm90Layout<128>::kSmem;
+      return Sm90Layout<128, 128>::kSmem;
     default:
       return 0;
   }

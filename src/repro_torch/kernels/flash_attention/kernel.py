@@ -11,13 +11,17 @@ f32; bf16 inputs at d = 64 and 128 run the Hopper kernel (TMA loads into
 a ring of shared-memory stages, ``wgmma`` products, a producer and two
 consumer warpgroups); bf16 at d = 16 and 32 run ``mma.sync``.  Both bf16
 routes sum in f32.  T may be any length: the kernel masks a ragged last
-tile.
+tile.  v (and the output) may have a head size of its own where q and k
+have another: the Hopper route takes bf16 at q·k 192 and v 128, latent
+attention's prefill (``models/mla.py``), in a kernel of its own
+(``flash_mla_sm90_kernel``); every other route takes one head size.
 
 K8 is the ``torch.library`` operator ``repro_torch::flash_attention``:
 its CUDA implementation launches the kernel, its CPU one runs the plain
 version, and its fake implementation gives the result's shape on the
 meta device or under ``FakeTensorMode``; its FLOP formula (for
-``FlopCounterMode``) counts the full products, 4·B·H·T²·d.  The launcher
+``FlopCounterMode``) counts the full products, 2·B·H·T²·(d + d_v), which
+is 4·B·H·T²·d at one head size.  The launcher
 runs the kernel for CUDA tensors and the plain version for CPU tensors;
 it never falls back from one to the other.  Neither has a
 backward: an input that requires grad, with grad mode on, is refused, as
@@ -49,6 +53,9 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
+# the (q·k, v) head sizes of the routes: one size each, and latent
+# attention's pair, bf16 only
+MLA_HEAD_DIMS = (192, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -2.0e38
 # the head sizes of the bf16 Hopper route, which alone has a backward
@@ -64,8 +71,8 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_fwd": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _P],
-    "repro_flash_attention_smem": [_I],
+                              _I, ctypes.c_float, _P],
+    "repro_flash_attention_smem": [_I, _I],
     "repro_flash_attention_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
@@ -82,11 +89,13 @@ def _lib() -> ctypes.CDLL:
     return _build.bind("flash_attention", _ARGTYPES)
 
 
-def shared_memory_bytes(head_dim: int) -> int:
+def shared_memory_bytes(head_dim: int, v_head_dim: Optional[int] = None
+                        ) -> int:
     """Dynamic shared memory of one block of the bf16 route at
-    ``head_dim`` (0 where that route uses static shared memory only);
-    builds the library."""
-    return _lib().repro_flash_attention_smem(head_dim)
+    ``head_dim`` (q·k) and ``v_head_dim`` (default the same; 0 where that
+    route uses static shared memory only); builds the library."""
+    return _lib().repro_flash_attention_smem(
+        head_dim, head_dim if v_head_dim is None else v_head_dim)
 
 
 def backward_shared_memory_bytes(head_dim: int) -> tuple[int, int]:
@@ -135,7 +144,8 @@ def lint_declaration(b: int, h: int, t: int, d: int, *,
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, group: int = 1,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """(B, H, T, d) q, (B, H / group, T, d) k/v -> (B, H, T, d).
+    """(B, H, T, d) q and k over (B, H / group, T, d_v) v -> (B, H, T, d_v)
+    (d_v is d but for latent attention).
 
     The whole (T, T) score matrix in f32, times ``scale`` (default
     d ** -0.5), a ``NEG_INF`` mask, and the result in q's dtype:
@@ -167,7 +177,7 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``attention_plain``'s output, and each query row's log-sum-exp of
     its scaled, masked scores, f32 (B, H, T): the forward the backward
     needs."""
-    b, h, t, d = q.shape
+    b, h, t, _ = q.shape
     s = _scores(q, k, causal, group, scale)
     m = s.amax(dim=-1, keepdim=True)
     s.sub_(m).exp_()
@@ -175,7 +185,7 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s.div_(total)
     out = torch.einsum("bkgqt,bktd->bkgqd", s, v.to(torch.float32))
     lse = (m + total.log()).reshape(b, h, t)
-    return out.reshape(b, h, t, d).to(q.dtype), lse
+    return out.reshape(b, h, t, v.shape[-1]).to(q.dtype), lse
 
 
 def attention_bwd_plain(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -217,10 +227,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   group: int) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"expected (B, H, T, d) q and (B, KV, T, d) k/v, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"expected (B, H, T, d) q, (B, KV, T, d) k and "
+                         f"(B, KV, T, d_v) v, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, t, d = q.shape
     if group < 1 or h % group or k.shape != (b, h // group, t, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not give {h} query heads "
@@ -235,7 +246,7 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, group: int,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """K8 as an operator: (B, H, T, d) attention."""
+    """K8 as an operator: (B, H, T, d) q and k over (B, KV, T, d_v) v."""
     scaled = {} if scale is None else {"scale": scale}
     return attention_plain(q, k, v, causal=causal, group=group, **scaled)
 
@@ -249,19 +260,30 @@ def _check_cuda(q: torch.Tensor, *tensors: torch.Tensor) -> None:
         raise ValueError(f"shape {tuple(q.shape)} outside the kernel's grid")
 
 
+def _check_route(q: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise where no route takes q's dtype at these head sizes."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if d == dv and q.dtype in DTYPES and d in HEAD_DIMS:
+        return
+    if (d, dv) == MLA_HEAD_DIMS and q.dtype == torch.bfloat16:
+        return
+    raise ValueError(f"the kernel takes f32 or bf16 with head_dim in "
+                     f"{HEAD_DIMS}, or bf16 at (q·k, v) head_dim "
+                     f"{MLA_HEAD_DIMS}, got {q.dtype} and ({d}, {dv})")
+
+
 @flash_attention_op.register_kernel("cuda")
 def _flash_attention_cuda(q, k, v, causal, group, scale=None):
     b, h, t, d = q.shape
-    if q.dtype not in DTYPES or d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes f32 or bf16 with head_dim in "
-                         f"{HEAD_DIMS}, got {q.dtype} and {d}")
+    dv = v.shape[-1]
+    _check_route(q, v)
     _check_cuda(q, k, v)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, t, dv))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.raise_on_error(_lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            group, t, d, DTYPES[q.dtype], int(causal),
+            group, t, d, dv, DTYPES[q.dtype], int(causal),
             d ** -0.5 if scale is None else scale, stream),
             "flash_attention")
     _build.count_launch(LAUNCHES, "flash_attention")
@@ -270,15 +292,16 @@ def _flash_attention_cuda(q, k, v, causal, group, scale=None):
 
 @flash_attention_op.register_fake
 def _flash_attention_fake(q, k, v, causal, group, scale=None):
-    return torch.empty_like(q)
+    return q.new_empty((*q.shape[:3], v.shape[-1]))
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _flash_attention_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
-    """The full products, 4·B·H·T²·d (QKᵀ and PV), as PyTorch counts
-    ``scaled_dot_product_attention``: a causal mask does not halve it."""
+    """The full products, 2·B·H·T²·d (QKᵀ) and 2·B·H·T²·d_v (PV), as
+    PyTorch counts ``scaled_dot_product_attention``: a causal mask does
+    not halve it."""
     b, h, t, d = q_shape
-    return 4 * b * h * t * k_shape[2] * d
+    return 2 * b * h * t * k_shape[2] * (d + v_shape[-1])
 
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd",
@@ -415,8 +438,12 @@ def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
     of q over (B, H / group, T, d) k and v by ``flash_attention_fwd``,
     whose backward is ``flash_attention_bwd``.  The bf16 Hopper route's
     inputs only (bf16, head_dim 64 or 128) on the card; the plain
-    versions on the CPU."""
+    versions on the CPU.  One head size for q, k and v: latent
+    attention's pair has no backward."""
     _check_shapes(q, k, v, group)
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"the backward takes one head_dim for q, k and v, "
+                         f"got {q.shape[-1]} and {v.shape[-1]}")
     sc = q.shape[-1] ** -0.5 if scale is None else scale
     return flash_attention_fwd_op(q, k, v, causal, group, sc)[0]
 

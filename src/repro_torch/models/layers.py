@@ -173,6 +173,62 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
 
 
+# -- YaRN (DeepSeek-V3's rotary scaling) -------------------------------------
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 · mscale · ln(factor) + 1 (1 where
+    the factor is 1 or less)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * np.log(factor) + 1.0
+
+
+def _yarn_freq(dim: int, theta: float, factor: float, original: int,
+               beta_fast: float, beta_slow: float, device) -> torch.Tensor:
+    """DeepSeek's ``precompute_freqs_cis``: theta^(-2i/dim), divided by
+    ``factor`` below the frequencies that turn ``beta_slow`` times over
+    ``original`` positions, kept above those that turn ``beta_fast``
+    times, and a linear ramp between (``yarn_find_correction_range``).
+    In float64 by numpy, used in f32, as ``_rope_freq``."""
+    freq = theta ** (-np.arange(0, dim, 2) / dim)
+
+    def corr_dim(rotations):
+        return (dim * np.log(original / (rotations * 2 * np.pi))
+                / (2 * np.log(theta)))
+    low = max(int(np.floor(corr_dim(beta_fast))), 0)
+    high = min(int(np.ceil(corr_dim(beta_slow))), dim - 1)
+    ramp = np.clip((np.arange(dim // 2) - low) / max(high - low, 0.001),
+                   0.0, 1.0)
+    freq = freq / factor * ramp + freq * (1.0 - ramp)
+    return torch.as_tensor(freq, dtype=torch.float32, device=device)
+
+
+_cached_yarn_freq = functools.lru_cache(maxsize=None)(_yarn_freq)
+
+
+def yarn_angles(positions: torch.Tensor, dim: int, theta: float,
+                factor: float, original: int, beta_fast: float,
+                beta_slow: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rope_angles`` at YaRN's frequencies (``_yarn_freq``): cos/sin
+    (..., dim/2), f32; the frequencies copied to the card once."""
+    args = (dim, float(theta), float(factor), int(original),
+            float(beta_fast), float(beta_slow), positions.device)
+    freq = (_cached_yarn_freq(*args) if positions.is_cuda
+            and not is_fake(positions) else _yarn_freq(*args))
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                     ) -> torch.Tensor:
+    """Rotary embedding over adjacent pairs (x_{2i}, x_{2i+1}), as
+    DeepSeek's ``apply_rotary_emb`` (a complex product), in f32, then in
+    x's dtype.  x: (..., T, dim); cos/sin: (T, dim/2) broadcastable."""
+    xf = x.to(torch.float32).unflatten(-1, (-1, 2))
+    x0, x1 = xf[..., 0], xf[..., 1]
+    out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], -1)
+    return out.flatten(-2).to(x.dtype)
+
+
 def sinusoidal_positions(num: int, d: int, device="cuda") -> torch.Tensor:
     """Whisper-style fixed sinusoidal embeddings, (num, d) f32."""
     half = d // 2

@@ -20,12 +20,21 @@ them):
   granite-4.0-h    a period of ``layer_types``, e.g.        the port's own
                    ("mamba_ffn",)*5 + ("attn",)
                    + ("mamba_ffn",)*4, x L // 10
+  deepseek-v3      ("mla_dense",)*first_k_dense            the port's own
+                   + ("mla_moe",)*rest, one group
 
 zamba2's ``shared_attn`` weights are held once, in
 ``params["shared_attn"]``, as in the reference; its entries in
 ``params["layers"]`` are empty dicts, so that a walk over the tree
 counts those weights once.  Each invocation has its own KV cache (a
 window ring).  The Whisper family is ``models/whisper.py``.
+
+DeepSeek-V3 (``PortConfig`` too) runs latent attention (``models/mla.py``)
+in every layer, followed by a dense FFN of width ``d_ff_dense`` in the
+first ``first_k_dense`` layers (``mla_dense``) and by the MoE with its
+shared expert in the rest (``mla_moe``; the sigmoid router, and on a card
+that holds a share of the experts, their part alone).  Its decode cache
+is the latent (``mla.init_cache``); its head is untied.
 
 Granite 4.0-H (``configs.base.PortConfig``, which the reference lacks)
 follows each mixer, Mamba-2 (``mamba_ffn``) or NoPE attention (``attn``),
@@ -63,12 +72,15 @@ import torch.utils.checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import (attention, layers, loops, mamba2, mlp,
+from repro_torch.models import (attention, layers, loops, mamba2, mla, mlp,
                                 moe, rwkv6)
 from repro_torch.parallel import ctx as pctx
 
-# the layer kinds whose decode cache is a KV buffer written at a position
-ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
+# the layer kinds whose decode cache is written at a position: a KV buffer,
+# or latent attention's c_kv and k_pe
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn",
+              "mla_dense", "mla_moe")
+MLA_KINDS = ("mla_dense", "mla_moe")
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +118,10 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
     which has no ``layer_types``."""
     if getattr(cfg, "layer_types", ()):
         return _pattern_plan(cfg)
+    if getattr(cfg, "kv_lora_rank", 0):  # leading dense layers: one group
+        dense = min(cfg.first_k_dense, cfg.num_layers)
+        return LayerPlan(("mla_dense",) * dense
+                         + ("mla_moe",) * (cfg.num_layers - dense), 1)
     if cfg.rwkv:
         return LayerPlan(("rwkv",), cfg.num_layers)
     if cfg.family in ("ssm", "hybrid") and cfg.ssm_state:
@@ -148,13 +164,35 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> attention.AttnConfig:
 
 
 def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
-    return moe.MoEConfig(
+    """The reference's ``MoEConfig``, or ``PortMoEConfig`` where the model
+    routes by sigmoid or holds a share of its experts."""
+    common = dict(
         d_model=cfg.d_model, d_expert=cfg.d_expert,
         num_experts=cfg.num_experts, top_k=cfg.top_k,
         num_shared_experts=cfg.num_shared_experts,
         activation=cfg.activation, dtype=cfg.dtype,
         capacity_factor=cfg.moe_capacity_factor,
         bf16_combine=cfg.moe_bf16_combine)
+    if getattr(cfg, "router", "softmax") == "softmax" and not getattr(
+            cfg, "experts_held", 0):
+        return moe.MoEConfig(**common)
+    return moe.PortMoEConfig(
+        **common, router=cfg.router, n_group=cfg.n_group,
+        topk_group=cfg.topk_group, routed_scale=cfg.routed_scale,
+        experts_held=cfg.experts_held, expert_offset=cfg.expert_offset)
+
+
+def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
+    return mla.MLAConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_head_dim=cfg.qk_nope_head_dim,
+        qk_rope_head_dim=cfg.qk_rope_head_dim, v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta, rope_factor=cfg.rope_factor,
+        rope_original_max=cfg.rope_original_max, beta_fast=cfg.beta_fast,
+        beta_slow=cfg.beta_slow, mscale_all_dim=cfg.mscale_all_dim,
+        norm_eps=cfg.norm_eps,
+        dtype=cfg.dtype)
 
 
 def _rwkv_cfg(cfg: ModelConfig) -> rwkv6.RWKVConfig:
@@ -205,6 +243,13 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
                 "ssm": mamba2.init(gen, _mamba_cfg(cfg)),
                 "norm2": _norm_init(cfg, gen.device),
                 "ffn": moe.init(gen, _moe_cfg(cfg), cfg.d_shared)}
+    if kind in MLA_KINDS:
+        return {"norm1": _norm_init(cfg, gen.device),
+                "attn": mla.init(gen, _mla_cfg(cfg)),
+                "norm2": _norm_init(cfg, gen.device),
+                "ffn": (moe.init(gen, _moe_cfg(cfg), cfg.d_shared)
+                        if kind == "mla_moe" else
+                        mlp.init(gen, cfg.d_model, cfg.d_ff_dense, dt))}
     p = {"norm1": _norm_init(cfg, gen.device),
          "attn": attention.init(gen, _attn_cfg(cfg, kind)),
          "norm2": _norm_init(cfg, gen.device)}
@@ -224,7 +269,7 @@ def _ffn_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
     """Returns (out, aux, dispatch ids or None).  Under a mesh an MoE
     layer takes the reference's mesh paths: ``apply_ep`` (experts over
     the last data axis) where ``use_ep``, else ``apply_sharded``."""
-    if kind in ("cross", "shared_attn") or not cfg.is_moe:
+    if kind in ("cross", "shared_attn", "mla_dense") or not cfg.is_moe:
         return mlp.apply(p, h, cfg.activation), 0.0, None
     mesh_ctx = pctx.current()
     mcfg = _moe_cfg(cfg)
@@ -296,8 +341,15 @@ def _sub_apply(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
         ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
                                      _norm(cfg, p["norm2"], h))
         return h + _scaled(ffn_out, r), aux, st
-    acfg = _attn_cfg(cfg, kind)
     xn = _norm(cfg, p["norm1"], h)
+    if kind in MLA_KINDS:
+        attn_out, new_cache = mla.attend(p["attn"], xn, _mla_cfg(cfg),
+                                         cache=cache)
+        h = h + attn_out
+        ffn_out, aux, _ = _ffn_apply(cfg, kind, p["ffn"],
+                                     _norm(cfg, p["norm2"], h))
+        return h + ffn_out, aux, new_cache
+    acfg = _attn_cfg(cfg, kind)
     if kind == "cross":
         if cache is not None:
             attn_out = attention.cross_cached(p["attn"], xn, acfg,
@@ -330,6 +382,8 @@ def _sub_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind in ("mamba", "mamba_ffn"):
         st = mamba2.init_state(_mamba_cfg(cfg), batch, device)
         return {"h": st["h"], "conv": st["conv"].to(dt)}
+    if kind in MLA_KINDS:       # the latent: c_kv and k_pe
+        return mla.init_cache(_mla_cfg(cfg), batch, max_len, dt, device)
     acfg = _attn_cfg(cfg, kind)
     if kind == "cross":  # the image K/V, projected once
         def heads(w):

@@ -7,7 +7,11 @@ no multiplier, softmax scale, norm epsilon or shared expert adds one.
 The granite case under grad is the train cell's forward at these widths,
 whose head_dim 16 keeps attention under grad on the plain path (the
 cell's own 64 takes K8's forward with its backward:
-``tests/test_torch_flash_grad.py``)."""
+``tests/test_torch_flash_grad.py``).  The forwards without grad have
+run one ``aten.cat`` and one ``aten.full`` more a layer since the MoE
+dispatch gathers its buffer slot by slot there (``moe._slot_buffer``: a
+zero row past x and each slot's token); every other count is the one
+read at that commit."""
 
 import collections
 import json
@@ -29,9 +33,9 @@ from repro_torch.models import layers, registry  # noqa: E402
 GRANITE = {
     "aten._softmax": 2, "aten._to_copy": 39, "aten._unsafe_view": 11,
     "aten.add": 17, "aten.arange": 6, "aten.bitwise_and": 2,
-    "aten.bmm": 6, "aten.cat": 4, "aten.clamp": 4, "aten.clone": 4,
+    "aten.bmm": 6, "aten.cat": 6, "aten.clamp": 4, "aten.clone": 4,
     "aten.cos": 4, "aten.cumsum": 2, "aten.div": 6, "aten.embedding": 1,
-    "aten.eq": 2, "aten.full": 2, "aten.index": 8, "aten.index_put_": 4,
+    "aten.eq": 2, "aten.full": 4, "aten.index": 8, "aten.index_put_": 4,
     "aten.lift_fresh": 4, "aten.lt": 4, "aten.mean": 9, "aten.mm": 11,
     "aten.mul": 45, "aten.new_zeros": 4, "aten.permute": 1,
     "aten.rsqrt": 5, "aten.scalar_tensor": 2, "aten.scatter": 2,
@@ -57,9 +61,9 @@ GRANITE_GRAD = {
 QWEN3 = {
     "aten._softmax": 2, "aten._to_copy": 39, "aten._unsafe_view": 11,
     "aten.add": 17, "aten.arange": 6, "aten.bitwise_and": 2,
-    "aten.bmm": 6, "aten.cat": 4, "aten.clamp": 4, "aten.clone": 4,
+    "aten.bmm": 6, "aten.cat": 6, "aten.clamp": 4, "aten.clone": 4,
     "aten.cos": 4, "aten.cumsum": 2, "aten.div": 6, "aten.embedding": 1,
-    "aten.eq": 2, "aten.full": 2, "aten.index": 8, "aten.index_put_": 4,
+    "aten.eq": 2, "aten.full": 4, "aten.index": 8, "aten.index_put_": 4,
     "aten.lift_fresh": 4, "aten.lt": 4, "aten.mean": 9, "aten.mm": 11,
     "aten.mul": 45, "aten.new_zeros": 4, "aten.rsqrt": 5,
     "aten.scalar_tensor": 2, "aten.scatter": 2, "aten.select": 2,

@@ -575,6 +575,110 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
         flash_ops.flash_attention(q, k, v, group=2, bq=48)
 
 
+# latent attention (DeepSeek-V3's MLA) attends at q·k 192 and v 128 with
+# one KV head a query head, at the softmax scale of its YaRN (192^-0.5
+# times (0.1 ln 40 + 1)^2); its prefill's three shapes of 16,384 tokens,
+# and one query row, a row short of and past a tile, and a ragged T
+MLA_SCALE = 192 ** -0.5 * (0.1 * np.log(40.0) + 1.0) ** 2
+MLA_SHAPES = [(2, 8, 1), (2, 8, 127), (2, 8, 129), (2, 8, 2000),
+              (1, 128, 16384), (2, 128, 8192), (4, 128, 4096)]
+
+
+def _mla_reference(q, k, v, scale, causal=True, budget=1 << 32):
+    """f32 attention of bf16 q, k (B, H, T, 192) over v (B, H, T, 128),
+    a block of heads at a time so that the scores fit ``budget`` bytes:
+    the output and sum_j p_j |v_j|, both f32 (B, H, T, 128)."""
+    b, h, t, _ = q.shape
+    per = max(1, budget // (b * t * t * 4))
+    out = torch.empty((2, b, h, t, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    above = torch.ones((t, t), dtype=torch.bool, device=q.device).triu_(1)
+    for i in range(0, h, per):
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, i:i + per].float(),
+                         k[:, i:i + per].float()).mul_(scale)
+        if causal:
+            s.masked_fill_(above, -2.0e38)
+        p = torch.softmax(s, dim=-1)
+        del s
+        vs = v[:, i:i + per].float()
+        out[0, :, i:i + per] = p @ vs
+        out[1, :, i:i + per] = p @ vs.abs()
+    return out[0], out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t", MLA_SHAPES)
+def test_flash_kernel_at_latent_attention_head_sizes(cuda, b, h, t):
+    """K8's bf16 route at q·k 192, v 128 (``flash_mla_sm90_kernel``)
+    against f32 attention, within the bf16 bounds of the module docstring,
+    over every row and the last tile's alone; one launch, v's head size
+    out."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k = (torch.randn((b, h, t, 192), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, h, t, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    before = fk.LAUNCHES["flash_attention"]
+    got = fk.flash_attention_launch(q, k, v, causal=True, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (b, h, t, 128) and got.dtype == torch.bfloat16
+    want, p_abs_v = _mla_reference(q, k, v, MLA_SCALE)
+    err = (got.float() - want).abs()
+    mag = want.abs()
+    assert bool((err <= 1.6e-2 * mag + 2.0 ** -8 * p_abs_v).all())
+    last = slice(t - (t % 128 or 128), None)
+    for rows in (slice(None), slice(t // 2, None), last):
+        assert err[:, :, rows].mean() <= 2.0 ** -8 * mag[:, :, rows].mean()
+
+
+@pytest.mark.cuda
+def test_latent_attention_route_refuses_other_pairs(cuda):
+    """(192, 128) takes bf16 alone, and no other pair of head sizes."""
+    q = torch.zeros((1, 2, 64, 192), device=cuda)
+    v = torch.zeros((1, 2, 64, 128), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_launch(q, q, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_launch(q[..., :128].bfloat16(),
+                                  q[..., :128].bfloat16(), v[..., :64]
+                                  .bfloat16())
+
+
+@pytest.mark.cuda
+def test_deepseek_prefill_launches_k8_each_layer(cuda):
+    """DeepSeek-V3 at its published widths, cut to its 3 dense layers and
+    2 MoE layers holding 8 of the 256 experts, in bf16: one prefill of 2 x
+    2048 tokens through ``serve.step.make_prefill`` launches K8's forward
+    once a layer (the (192, 128) route, with no backward kernel), and K7
+    and K5 once an MoE layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import step
+
+    cfg = dataclasses.replace(get_config("deepseek-v3"), num_layers=5,
+                              experts_held=8)
+    model = registry.build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048),
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1), device=cuda, dtype=torch.int32)
+    prefill = step.make_prefill(model, step.ServeConfig(max_len=4096))
+    fk.reset_launches()
+    sk.reset_launches()
+    with torch.no_grad():
+        logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    assert dict(fk.LAUNCHES) == {"flash_attention": 5,
+                                 "flash_attention_fwd": 0,
+                                 "flash_attention_bwd": 0}
+    assert (sk.LAUNCHES["bincount"], sk.LAUNCHES["scatter_add"]) == (2, 2)
+    assert logits.shape[:2] == (2, 2048)
+    assert bool(torch.isfinite(logits).all())
+
+
 @pytest.mark.cuda
 def test_prefill_attention_refuses_a_head_size_the_kernel_lacks(cuda):
     """The prefill route is K8's whatever the head size: one it does not
